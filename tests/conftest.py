@@ -88,3 +88,9 @@ def has_tf():
         return True
     except ImportError:
         return False
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skipped without one")
