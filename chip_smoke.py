@@ -15,12 +15,14 @@ Phases (any failure exits non-zero):
      identical indices and counts, times, bound;
   5. serve YOLOv3-416 (Darknet-53, 3 heads, 80 COCO classes, seeded
      weights) through build_serving_predictor + DetectionApp, buckets
-     [1, 4, 16], fp32 and bf16, with encoded images from 8 client threads,
-     then yolo_nms_exact at threshold 0.004 on one served batch's heads;
+     [1, 4, 16], fp32 and bf16, encoded images from 48 closed-loop client
+     threads (3 s warm-up, then a 20 s measured window per tier), then
+     yolo_nms_exact at threshold 0.004 on one served batch's heads;
      both kernels' launch counters must rise over this run;
   6. YOLOv3-tiny with the in-repo trained checkpoint on the 32 shapes_toy
      images: the port on the card (fp32, no TF32) against the port on the
-     CPU (decoded heads, NMS on the same inputs, served detections).
+     CPU (decoded heads, NMS on the same inputs, served detections; an
+     image that differs must show the near-tie that makes it differ).
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -43,6 +45,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
 IOU_THR = 0.5
+# serving: closed-loop clients, a warm-up then a measured window per tier
+SERVE_CLIENTS = 48
+SERVE_WARM_S = 3.0
+SERVE_WINDOW_S = 20.0
+# an image may differ end to end between card and CPU only where a
+# decision of greedy NMS sits within this margin of flipping
+NEAR_TIE = 1e-5
 
 
 def log(msg):
@@ -90,19 +99,36 @@ def phase_k1(nms, nms_kernel):
         kept = keep.sum(dim=1)
         ms = cuda_ms(lambda: nms_kernel.suppression_sweep(mat, valid), 50)
         plain_ms = cuda_ms(lambda: nms_kernel.suppression_sweep_ref(mat, valid), 2)
-        # bytes this run needs: the rows of kept boxes (the rest are never
-        # read), the valid mask in, the keep mask out
-        need = int(kept.sum()) * k + 2 * 16 * k
+        # bytes this run needs: of each kept box's row only the entries
+        # j > i (the rest are never read), the valid mask in, the keep mask out
+        later = (k - 1 - torch.arange(k, device=keep.device))[None, :]
+        need = int((later * keep).sum()) + 2 * 16 * k
         bound_ms = need / HBM_BYTES_PER_S * 1e3
         row = dict(B=16, K=k, equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bytes=need, dependent_steps=k,
-                   whole_matrix_ms=16 * k * k / HBM_BYTES_PER_S * 1e3,
                    kept_max=int(kept.max()), kept_mean=float(kept.float().mean()))
         log(f"K1 nms_sweep {json.dumps(row)}")
         if not equal:
             raise AssertionError(f"K1 differs from its plain version at K={k}")
         results.append(row)
     return results
+
+
+def k2_live_visits(round_sweep, boxes, scores, sel, nv, score_thr):
+    """Sum over images and rounds that found a box of the boxes still live
+    at the round's start: the work this run's data needs, replayed from the
+    kernel's own selections."""
+    rows = torch.arange(boxes.shape[0], device=boxes.device)
+    live = scores > score_thr
+    visits = 0
+    for r in range(sel.shape[1]):
+        active = r < nv
+        visits += int((live.sum(1) * active).sum())
+        j = sel[:, r].long()
+        kill = round_sweep._iou_one_vs_all(boxes[rows, j], boxes) > IOU_THR
+        kill[rows, j] = True
+        live &= ~(kill & active[:, None])
+    return visits
 
 
 def phase_k2(round_sweep):
@@ -120,8 +146,9 @@ def phase_k2(round_sweep):
         plain_ms = cuda_ms(lambda: round_sweep.round_sweep_ref(boxes, scores, IOU_THR,
                                                                0.004, 100), 2)
         need = 16 * n * (16 + 4) + 16 * 100 * 4 + 16 * 4
-        # per candidate per round that found a box: 1 argmax compare + 17 IoU ops
-        ops = int(nv.sum()) * n * 18
+        # per box still live in a round that found one: 1 argmax compare +
+        # 17 IoU ops (dead and below-threshold boxes need neither)
+        ops = k2_live_visits(round_sweep, boxes, scores, sel, nv, 0.004) * 18
         bound_ms = max(need / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
         bound_by = "bytes" if need / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S else "operations"
         row = dict(B=16, N=n, max_boxes=100, equal=equal, max_abs_err=err, ms=ms,
@@ -161,35 +188,51 @@ def serve_tier(tier, inference_app, serve_app, bodies):
         app.batcher.warmup((416, 416))
         torch.cuda.synchronize()
         setup_s = time.monotonic() - t0
-        n_req, n_threads = 64, 8
-        results, errors = [None] * n_req, []
+        # closed loop: each client sends its next request when the last one
+        # returns; enough clients to keep the 16 bucket fillable
+        latencies, finished, errors, detections = [], [], [], []
+        t1 = time.monotonic()
+        t_warm, t_end = t1 + SERVE_WARM_S, t1 + SERVE_WARM_S + SERVE_WINDOW_S
 
         def client(t):
-            for i in range(t, n_req, n_threads):
+            i = t
+            while time.monotonic() < t_end:
+                start = time.monotonic()
                 try:
-                    results[i] = app.detect(bodies[i % len(bodies)])
+                    r = app.detect(bodies[i % len(bodies)])
                 except Exception as exc:  # reported below, fails the phase
                     errors.append(repr(exc))
+                    return
+                end = time.monotonic()
+                for d in r["detections"]:
+                    if not all(np.isfinite(d["box_normalized"])) or not 0 <= d["score"] <= 1:
+                        errors.append(f"malformed detection {d}")
+                if t_warm <= end <= t_end:
+                    finished.append(end)
+                    detections.append(len(r["detections"]))
+                    if start >= t_warm:
+                        latencies.append((end - start) * 1e3)
+                i += SERVE_CLIENTS
 
-        t1 = time.monotonic()
-        threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
         for t in threads:
             t.start()
+        time.sleep(max(0.0, t_warm - time.monotonic()))
+        hist0 = app.stats.snapshot()["batch_histogram"]
         for t in threads:
             t.join(600)
-        wall = time.monotonic() - t1
-        if errors or any(r is None for r in results) or any(t.is_alive() for t in threads):
-            raise AssertionError(f"{tier}: requests failed: {errors[:3]}")
-        for r in results:
-            for d in r["detections"]:
-                if not all(np.isfinite(d["box_normalized"])) or not 0 <= d["score"] <= 1:
-                    raise AssertionError(f"{tier}: malformed detection {d}")
-        snap = app.stats.snapshot()
-        row = dict(tier=tier, requests=n_req, client_threads=n_threads,
-                   setup_s=setup_s, wall_s=wall, images_per_s=n_req / wall,
-                   p50_ms=snap["latency_ms"]["p50"], p99_ms=snap["latency_ms"]["p99"],
-                   batch_histogram=snap["batch_histogram"],
-                   detections=sum(len(r["detections"]) for r in results))
+        if errors or any(t.is_alive() for t in threads) or len(latencies) < 100:
+            raise AssertionError(f"{tier}: {len(latencies)} requests in the window, "
+                                 f"failures {errors[:3]}")
+        hist = {k: v - hist0.get(k, 0)
+                for k, v in app.stats.snapshot()["batch_histogram"].items()}
+        p50, p99 = np.percentile(latencies, [50, 99])
+        row = dict(tier=tier, client_threads=SERVE_CLIENTS, window_s=SERVE_WINDOW_S,
+                   setup_s=setup_s, requests_in_window=len(finished),
+                   images_per_s=len(finished) / SERVE_WINDOW_S,
+                   latency_samples=len(latencies), p50_ms=float(p50), p99_ms=float(p99),
+                   batch_histogram={k: v for k, v in hist.items() if v},
+                   detections=sum(detections))
         log(f"serve {json.dumps(row)}")
     finally:
         app.shutdown()
@@ -270,6 +313,34 @@ def phase_serve(inference_app, serve_app, models, decode, nms_mod, nms_kernel, r
     return rows, launches
 
 
+def near_tie_witness(nms_mod, g_boxes, g_scores, c_boxes, c_scores, nms_kw):
+    """Why one image's detections differ between the card (g) and the CPU
+    (c): every decision of greedy NMS whose outcome differs between the two
+    inputs, with its CPU margin. Three kinds: a score on the other side of
+    the score threshold; the first valid rank where the stable top-K order
+    differs (margin: the CPU score gap of the swapped pair); a pair of valid
+    candidates whose IoU > threshold test differs. ``margin`` is the largest
+    margin among them, None when nothing flips."""
+    score_thr, iou_thr = nms_kw["score_threshold"], nms_kw["iou_threshold"]
+    k = min(nms_mod.DEFAULT_NUM_CANDIDATES, c_scores.shape[0])
+    margins = []
+    thr_flip = (g_scores > score_thr) != (c_scores > score_thr)
+    margins += (c_scores[thr_flip] - score_thr).abs().tolist()
+    og = torch.argsort(-g_scores, stable=True)[:k]
+    oc = torch.argsort(-c_scores, stable=True)[:k]
+    valid = c_scores[oc] > score_thr
+    swapped = ((og != oc) & (valid | (g_scores[og] > score_thr))).nonzero()
+    first_swap = int(swapped[0]) if len(swapped) else None
+    if first_swap is not None:
+        margins.append(float((c_scores[oc[first_swap]] - c_scores[og[first_swap]]).abs()))
+    iou_g = nms_mod._pairwise_iou(g_boxes[oc][None])[0]
+    iou_c = nms_mod._pairwise_iou(c_boxes[oc][None])[0]
+    iou_flip = ((iou_g > iou_thr) != (iou_c > iou_thr)) & valid[:, None] & valid[None, :]
+    margins += (iou_c[iou_flip] - iou_thr).abs().tolist()
+    return dict(score_threshold_flips=int(thr_flip.sum()), first_swapped_rank=first_swap,
+                iou_flips=int(iou_flip.sum()) // 2, margin=max(margins) if margins else None)
+
+
 def phase_trained(inference_app, models, decode, nms_mod):
     """YOLOv3-tiny + the trained checkpoint on the 32 shapes_toy images: the
     card (fp32, no TF32) against the CPU.
@@ -279,9 +350,11 @@ def phase_trained(inference_app, models, decode, nms_mod):
     SAME decoded tensors index-exact (the kernel against its plain version
     on real detections). End to end, greedy NMS is discontinuous where two
     scores tie or an IoU sits at the threshold, so rounding differences of
-    ~1e-7 in the forward can change an image's detections (on an H100 one
-    of the 32 images does); at most 2 of 32 images may differ, and each
-    image that agrees must agree in classes, boxes (1e-3) and scores (1e-4).
+    ~1e-7 in the forward can change an image's detections. An image may
+    differ only with a witness: a decision of NMS that flips between the
+    card's and the CPU's inputs within ``NEAR_TIE`` of its threshold (see
+    ``near_tie_witness``). Each image that agrees must agree in classes,
+    boxes (1e-3) and scores (1e-4).
     """
     from yolov3_tpu_torch.config import get_anchors, read_class_names
     from yolov3_tpu_torch.data.image import decode_image, resize_bilinear
@@ -321,21 +394,26 @@ def phase_trained(inference_app, models, decode, nms_mod):
         outs[dev] = [t.cpu() for t in pred(images)]
     gb, gc, gs, gsel, gnv = outs["cuda"]
     cb, cc, cs, csel, cnv = outs["cpu"]
-    differ, box_err, score_err = [], 0.0, 0.0
+    witnesses, box_err, score_err = [], 0.0, 0.0
     for i in range(len(files)):
         gi, ci = gsel[i, : int(gnv[i])].long(), csel[i, : int(cnv[i])].long()
         if int(gnv[i]) != int(cnv[i]) or not torch.equal(gc[i, gi], cc[i, ci]):
-            differ.append(i)
+            witnesses.append(dict(image=i, detections_card=int(gnv[i]),
+                                  detections_cpu=int(cnv[i]),
+                                  **near_tie_witness(nms_mod, gb[i], gs[i], cb[i], cs[i],
+                                                     nms_kw)))
             continue
         box_err = max(box_err, max_abs(gb[i, gi], cb[i, ci]))
         score_err = max(score_err, max_abs(gs[i, gi], cs[i, ci]))
     row = dict(images=len(files), detections_card=int(gnv.sum()),
-               detections_cpu=int(cnv.sum()), images_differing=differ,
+               detections_cpu=int(cnv.sum()), images_differing=witnesses,
                decoded_max_abs_err={"boxes": errs[0], "conf": errs[1], "probs": errs[2]},
                nms_same_inputs_equal=nms_equal, box_max_abs_err=box_err,
                score_max_abs_err=score_err)
     log(f"trained tiny card vs CPU {json.dumps(row)}")
-    if (errs[0] > 1e-3 or max(errs[1:]) > 1e-4 or not nms_equal or len(differ) > 2
+    unexplained = [w["image"] for w in witnesses
+                   if w["margin"] is None or w["margin"] > NEAR_TIE]
+    if (errs[0] > 1e-3 or max(errs[1:]) > 1e-4 or not nms_equal or unexplained
             or box_err > 1e-3 or score_err > 1e-4):
         raise AssertionError(f"trained tiny: card vs CPU beyond tolerance {row}")
 

@@ -42,9 +42,10 @@ def suppression_sweep_ref(suppress_mat, valid):
 
 
 def suppression_sweep(suppress_mat, valid):
-    """keep (B, K) bool. CPU tensors take the plain version; CUDA tensors
-    launch ``nms_sweep_kernel`` (and count it in ``suppression_sweep.launches``)
-    or raise."""
+    """(B, K, K) bool, (B, K) bool → keep (B, K) bool. CPU tensors take the
+    plain version; CUDA tensors launch ``nms_sweep_kernel`` on the masks in
+    place, with no copy (and count it in ``suppression_sweep.launches``), or
+    raise."""
     if suppress_mat.device.type == "cpu":
         return suppression_sweep_ref(suppress_mat, valid)
     if suppress_mat.device.type != "cuda":
@@ -57,9 +58,13 @@ def suppression_sweep(suppress_mat, valid):
         raise ValueError(f"suppression_sweep: K={k} exceeds {MAX_SWEEP_K}")
     if valid.device != suppress_mat.device:
         raise ValueError("suppression_sweep: inputs on different devices")
-    mat = suppress_mat.to(torch.uint8).contiguous()
-    val = valid.to(torch.uint8).contiguous()
-    keep = torch.empty((b, k), dtype=torch.uint8, device=mat.device)
+    if suppress_mat.dtype != torch.bool or valid.dtype != torch.bool:
+        raise ValueError(f"suppression_sweep: needs bool masks, got {suppress_mat.dtype}, "
+                         f"{valid.dtype}")
+    # bool and uint8 are both one byte: the kernel reads the masks in place
+    mat = suppress_mat.contiguous().view(torch.uint8)
+    val = valid.contiguous().view(torch.uint8)
+    keep = torch.empty((b, k), dtype=torch.bool, device=mat.device)
     lib = build.library("nms_sweep")
     fn = lib.nms_sweep_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -70,7 +75,7 @@ def suppression_sweep(suppress_mat, valid):
         build.check(fn(mat.data_ptr(), val.data_ptr(), keep.data_ptr(), b, k, stream),
                     "nms_sweep")
     suppression_sweep.launches += 1
-    return keep.bool()
+    return keep
 
 
 suppression_sweep.launches = 0
