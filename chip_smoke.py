@@ -16,13 +16,34 @@ Phases (any failure exits non-zero):
   5. serve YOLOv3-416 (Darknet-53, 3 heads, 80 COCO classes, seeded
      weights) through build_serving_predictor + DetectionApp, buckets
      [1, 4, 16], fp32 and bf16, encoded images from 48 closed-loop client
-     threads (3 s warm-up, then a 20 s measured window per tier), then
+     threads (3 s warm-up, then a 10 s measured window per tier), then
      yolo_nms_exact at threshold 0.004 on one served batch's heads;
      both kernels' launch counters must rise over this run;
   6. YOLOv3-tiny with the in-repo trained checkpoint on the 32 shapes_toy
      images: the port on the card (fp32, no TF32) against the port on the
      CPU (decoded heads, NMS on the same inputs, served detections; an
-     image that differs must show the near-tie that makes it differ).
+     image that differs must show the near-tie that makes it differ);
+  7. K3 (fused int8 1×1 conv) against its plain version, bit-equal, int8
+     and f32 outputs, leaky on and off, at the largest and smallest
+     YOLOv3-416 B=16 shapes and one ragged M; times, bound, and
+     torch._int_mm + a torch epilogue as the library yardstick;
+  8. K6 (int8 k×k conv) against its plain version, bit-equal, for 3×3
+     stride 1 and 2 and both convs of the space-to-depth stem; times,
+     bound, and a cuDNN TF32 conv of the int8 values + torch epilogue as
+     the library yardstick;
+  9. the int8 tiers at full width: YOLOv3-416 calibrated on the smoke
+     images, ``int8`` and ``int8_chain``: the card against the CPU on the
+     same quantized params (every quantized layer bit-equal, heads 1e-3),
+     device forward ms at B=16, K3/K6 launches per forward;
+ 10. K4 (fused int8 residual block): every residual stage of that
+     chain-quantized model through K4 chained in halo layout against the
+     unfused chain K3 → K6 → add_requant on the same int8 input (bit-equal),
+     K4 against its plain version (bit-equal), both times;
+ 11. serve the ``int8`` tier for a 20 s window as in 5; K3 and K6 must
+     launch while serving;
+ 12. trained YOLOv3-tiny, ``int8_chain``: detections on the card against
+     the CPU on the same quantized params (held as in 6), and against the
+     fp32 detections (printed).
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -42,13 +63,15 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CALIBRATION_DIR = os.path.join(ROOT, "datasets/shapes_toy/coco/images")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
+INT8_OPS_PER_S = 1979e12   # H100 SXM int8 tensor cores, dense
 IOU_THR = 0.5
 # serving: closed-loop clients, a warm-up then a measured window per tier
 SERVE_CLIENTS = 48
 SERVE_WARM_S = 3.0
-SERVE_WINDOW_S = 20.0
+SERVE_WINDOW_S = {"fp32": 10.0, "bf16": 10.0, "int8": 20.0}
 # an image may differ end to end between card and CPU only where a
 # decision of greedy NMS sits within this margin of flipping
 NEAR_TIE = 1e-5
@@ -173,13 +196,16 @@ def encoded_requests():
 
 def serve_tier(tier, inference_app, serve_app, bodies):
     model_dir = os.path.join(ROOT, "config/models/yolov3")
+    window_s = SERVE_WINDOW_S[tier]
+    tier_keys = (dict(quantize=tier, calibration_images_dir=CALIBRATION_DIR)
+                 if tier.startswith("int8") else dict(compute_precision=tier))
     t0 = time.monotonic()
     predictor, names, _ = inference_app.build_serving_predictor(
         os.path.join(model_dir, "model.yaml"),
         os.path.join(ROOT, "datasets/coco2012/coco.names"),
         os.path.join(ROOT, "datasets/coco2012/anchors.txt"),
         None, 416, yolo_max_boxes=100, nms_iou_threshold=0.5, nms_score_threshold=0.1,
-        compute_precision=tier, seed=0)
+        seed=0, **tier_keys)
     if len(names) != 80:
         raise AssertionError(f"expected the 80 COCO classes, got {len(names)}")
     app = serve_app.DetectionApp(predictor, names, 416, batch_buckets=(1, 4, 16),
@@ -192,7 +218,7 @@ def serve_tier(tier, inference_app, serve_app, bodies):
         # returns; enough clients to keep the 16 bucket fillable
         latencies, finished, errors, detections = [], [], [], []
         t1 = time.monotonic()
-        t_warm, t_end = t1 + SERVE_WARM_S, t1 + SERVE_WARM_S + SERVE_WINDOW_S
+        t_warm, t_end = t1 + SERVE_WARM_S, t1 + SERVE_WARM_S + window_s
 
         def client(t):
             i = t
@@ -227,9 +253,9 @@ def serve_tier(tier, inference_app, serve_app, bodies):
         hist = {k: v - hist0.get(k, 0)
                 for k, v in app.stats.snapshot()["batch_histogram"].items()}
         p50, p99 = np.percentile(latencies, [50, 99])
-        row = dict(tier=tier, client_threads=SERVE_CLIENTS, window_s=SERVE_WINDOW_S,
+        row = dict(tier=tier, client_threads=SERVE_CLIENTS, window_s=window_s,
                    setup_s=setup_s, requests_in_window=len(finished),
-                   images_per_s=len(finished) / SERVE_WINDOW_S,
+                   images_per_s=len(finished) / window_s,
                    latency_samples=len(latencies), p50_ms=float(p50), p99_ms=float(p99),
                    batch_histogram={k: v for k, v in hist.items() if v},
                    detections=sum(detections))
@@ -341,6 +367,26 @@ def near_tie_witness(nms_mod, g_boxes, g_scores, c_boxes, c_scores, nms_kw):
                 iou_flips=int(iou_flip.sum()) // 2, margin=max(margins) if margins else None)
 
 
+def compare_detections(nms_mod, card, cpu, nms_kw):
+    """Per image, the card's served detections against the CPU's: a witness
+    row for each image whose detections differ (``near_tie_witness``), and the
+    largest box and score error over the images that agree."""
+    gb, gc, gs, gsel, gnv = card
+    cb, cc, cs, csel, cnv = cpu
+    witnesses, box_err, score_err = [], 0.0, 0.0
+    for i in range(gb.shape[0]):
+        gi, ci = gsel[i, : int(gnv[i])].long(), csel[i, : int(cnv[i])].long()
+        if int(gnv[i]) != int(cnv[i]) or not torch.equal(gc[i, gi], cc[i, ci]):
+            witnesses.append(dict(image=i, detections_card=int(gnv[i]),
+                                  detections_cpu=int(cnv[i]),
+                                  **near_tie_witness(nms_mod, gb[i], gs[i], cb[i], cs[i],
+                                                     nms_kw)))
+            continue
+        box_err = max(box_err, max_abs(gb[i, gi], cb[i, ci]))
+        score_err = max(score_err, max_abs(gs[i, gi], cs[i, ci]))
+    return witnesses, box_err, score_err
+
+
 def phase_trained(inference_app, models, decode, nms_mod):
     """YOLOv3-tiny + the trained checkpoint on the 32 shapes_toy images: the
     card (fp32, no TF32) against the CPU.
@@ -392,19 +438,9 @@ def phase_trained(inference_app, models, decode, nms_mod):
         pred, _, _ = inference_app.build_serving_predictor(
             model, names, anchors_file, ckpt, 416, nms_score_threshold=0.1, device=dev)
         outs[dev] = [t.cpu() for t in pred(images)]
-    gb, gc, gs, gsel, gnv = outs["cuda"]
-    cb, cc, cs, csel, cnv = outs["cpu"]
-    witnesses, box_err, score_err = [], 0.0, 0.0
-    for i in range(len(files)):
-        gi, ci = gsel[i, : int(gnv[i])].long(), csel[i, : int(cnv[i])].long()
-        if int(gnv[i]) != int(cnv[i]) or not torch.equal(gc[i, gi], cc[i, ci]):
-            witnesses.append(dict(image=i, detections_card=int(gnv[i]),
-                                  detections_cpu=int(cnv[i]),
-                                  **near_tie_witness(nms_mod, gb[i], gs[i], cb[i], cs[i],
-                                                     nms_kw)))
-            continue
-        box_err = max(box_err, max_abs(gb[i, gi], cb[i, ci]))
-        score_err = max(score_err, max_abs(gs[i, gi], cs[i, ci]))
+    (gsel, gnv), (csel, cnv) = outs["cuda"][3:], outs["cpu"][3:]
+    witnesses, box_err, score_err = compare_detections(nms_mod, outs["cuda"], outs["cpu"],
+                                                       nms_kw)
     row = dict(images=len(files), detections_card=int(gnv.sum()),
                detections_cpu=int(cnv.sum()), images_differing=witnesses,
                decoded_max_abs_err={"boxes": errs[0], "conf": errs[1], "probs": errs[2]},
@@ -418,6 +454,374 @@ def phase_trained(inference_app, models, decode, nms_mod):
         raise AssertionError(f"trained tiny: card vs CPU beyond tolerance {row}")
 
 
+def tensor(a, dtype=None):
+    return torch.as_tensor(a, dtype=dtype).cuda()
+
+
+def conv_bound(in_bytes, weight_bytes, out_bytes, cout, macs):
+    """(bound_ms, bound_by, bytes, ops): each input read once, the output
+    written once, against 2·macs int8 operations on the tensor cores."""
+    need = in_bytes + weight_bytes + 8 * cout + 4 + out_bytes
+    ops = 2 * macs
+    t_bytes, t_ops = need / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", need, ops
+
+
+def phase_k3(conv1x1):
+    """K3 at the largest and smallest 1×1 convs of YOLOv3-416 at B=16 and at
+    one ragged M. The library yardstick is torch._int_mm (s8·s8 → s32 in
+    device memory) followed by the epilogue as element-wise torch ops."""
+    from yolov3_tpu_torch.ops.cuda.requant import conv_epilogue
+
+    results = []
+    for m, k, n in ((692224, 64, 32), (2704, 1024, 512), (43227, 256, 128)):
+        rng = np.random.RandomState(n)
+        x = tensor(rng.randint(-127, 128, (m, k)).astype(np.int8))
+        w = tensor(rng.randint(-127, 128, (n, k)).astype(np.int8))
+        scale = tensor((rng.rand(n) * 2e-4 + 1e-5).astype(np.float32))
+        bias = tensor(rng.randn(n).astype(np.float32))
+        inv = tensor(np.float32([1 / 0.0529]))
+        equal, err = True, 0.0
+        for leaky in (True, False):
+            for out_dtype in (torch.int8, torch.float32):
+                got = conv1x1.conv1x1_int8_requant(x, w, scale, bias, inv, leaky=leaky,
+                                                   out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                want = conv1x1.conv1x1_int8_requant_plain(x, w, scale, bias, inv, leaky=leaky,
+                                                          out_dtype=out_dtype)
+                equal &= torch.equal(got, want)
+                err = max(err, max_abs(got.float(), want.float()))
+        ms = cuda_ms(lambda: conv1x1.conv1x1_int8_requant(x, w, scale, bias, inv, leaky=True),
+                     50)
+        plain_ms = cuda_ms(lambda: conv1x1.conv1x1_int8_requant_plain(
+            x, w, scale, bias, inv, leaky=True), 3)
+        wt = w.t().contiguous()
+
+        def library():  # not used by the port: timed here as a yardstick only
+            return conv_epilogue(torch._int_mm(x, wt).to(torch.float32), scale, bias, inv,
+                                 True, torch.int8)
+
+        lib_equal = torch.equal(library(), conv1x1.conv1x1_int8_requant(
+            x, w, scale, bias, inv, leaky=True))
+        library_ms = cuda_ms(library, 20)
+        bound_ms, bound_by, need, ops = conv_bound(m * k, n * k, m * n, n, m * k * n)
+        row = dict(M=m, Cin=k, Cout=n, equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_equal=lib_equal, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=need, ops=ops, tops=ops / ms / 1e9)
+        log(f"K3 conv1x1_int8 {json.dumps(row)}")
+        if not equal:
+            raise AssertionError(f"K3 differs from its plain version at {(m, k, n)}")
+        results.append(row)
+    return results
+
+
+def phase_k6(conv_int8):
+    """K6 at four YOLOv3-416 B=16 shapes. The library yardstick is a cuDNN
+    convolution in TF32 over the int8 values as channels-last floats,
+    followed by the epilogue as element-wise torch ops."""
+    import torch.nn.functional as F
+
+    from yolov3_tpu_torch.ops.cuda.requant import conv_epilogue
+
+    results = []
+    for name, hw, cin, cout, k, stride, pad in (
+            ("3x3 s1 26^2 256->512", 26, 256, 512, 3, 1, ((1, 1), (1, 1))),
+            ("3x3 s2 52^2->26^2 256->512", 52, 256, 512, 3, 2, ((1, 0), (1, 0))),
+            ("s2d stem conv0 4x4 s2 416^2 3->128", 416, 3, 128, 4, 2, ((1, 2), (1, 2))),
+            ("s2d stem conv1 2x2 s1 208^2 128->64", 208, 128, 64, 2, 1, ((1, 0), (1, 0)))):
+        rng = np.random.RandomState(cout + k)
+        x = tensor(rng.randint(-127, 128, (16, hw, hw, cin)).astype(np.int8))
+        kq = tensor(rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8))
+        scale = tensor((rng.rand(cout) * 2e-5 + 1e-6).astype(np.float32))
+        bias = tensor(rng.randn(cout).astype(np.float32))
+        inv = tensor(np.float32([1 / 0.0529]))
+        kw = dict(stride=stride, padding=pad, leaky=True)
+        equal, err = True, 0.0
+        for out_dtype in (torch.int8, torch.float32):
+            got = conv_int8.conv_int8(x, kq, scale, bias, inv, out_dtype=out_dtype, **kw)
+            torch.cuda.synchronize()
+            want = conv_int8.conv_int8_plain(x, kq, scale, bias, inv, out_dtype=out_dtype, **kw)
+            equal &= torch.equal(got, want)
+            err = max(err, max_abs(got.float(), want.float()))
+        ms = cuda_ms(lambda: conv_int8.conv_int8(x, kq, scale, bias, inv, **kw), 30)
+        plain_ms = cuda_ms(lambda: conv_int8.conv_int8_plain(x, kq, scale, bias, inv, **kw), 2)
+        xf = x.permute(0, 3, 1, 2).float()  # NCHW view of channels-last memory
+        wf = kq.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
+        (top, bottom), (left, right) = pad
+
+        def library():  # not used by the port: timed here as a yardstick only
+            acc = F.conv2d(F.pad(xf, (left, right, top, bottom)), wf, stride=stride)
+            return conv_epilogue(acc.permute(0, 2, 3, 1), scale, bias, inv, True, torch.int8)
+
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            library_ms = cuda_ms(library, 10)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        b, ho, wo, _ = got.shape
+        bound_ms, bound_by, need, ops = conv_bound(
+            x.numel(), kq.numel(), b * ho * wo * cout, cout, b * ho * wo * cout * k * k * cin)
+        row = dict(shape=name, B=16, equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=need,
+                   ops=ops, tops=ops / ms / 1e9)
+        log(f"K6 conv_int8 {json.dumps(row)}")
+        if not equal:
+            raise AssertionError(f"K6 differs from its plain version at {name}")
+        results.append(row)
+    return results
+
+
+def device_time_by_kernel(fn):
+    """One call of ``fn`` under torch.profiler → (ms the device was busy, {kernel name: ms},
+    launches on the device, host ms of the call, {torch op: [calls, device ms]}).
+    ``None`` when the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    by_name, count = {}, 0
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0) or 0
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+            count += 1
+    total = sum(by_name.values())
+    ops = {}
+    for e in prof.key_averages():  # the torch ops that launched them, by device time
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us and e.key.startswith("aten::"):
+            ops[e.key] = [e.count, us / 1e3]
+    return (total, by_name, count, host_ms, ops) if total > 0 else None
+
+
+def kernel_share(profiled):
+    """The profile of one forward as a JSON-able dict: device-busy ms, the
+    share of K3 and K6 in it, device launches, and the host's enqueue ms."""
+    if profiled is None:
+        return "not measured (the profiler showed no device time)"
+    total, by_name, count, host_ms, ops = profiled
+    pick = lambda key: sum(ms for name, ms in by_name.items() if key in name)  # noqa: E731
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(device_busy_ms=total, conv1x1_int8_ms=pick("conv1x1_int8_kernel"),
+                conv_int8_ms=pick("conv_int8_kernel"), device_launches=count,
+                host_enqueue_ms=host_ms, top=[[n[:60], ms] for n, ms in top],
+                torch_ops=dict(sorted(ops.items(), key=lambda kv: -kv[1][1])[:10]))
+
+
+def smoke_images(bodies, n, size=416):
+    from yolov3_tpu_torch.data.image import decode_image, resize_bilinear
+
+    return np.stack([resize_bilinear(decode_image(bodies[i % len(bodies)]) / 255.0, size, size)
+                     for i in range(n)]).astype(np.float32)
+
+
+def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
+    """YOLOv3-416 at full width, seeded weights, calibrated once on the card
+    on 8 smoke images; for ``int8`` and ``int8_chain`` the SAME quantized
+    params run on the card and on the CPU (calibration itself is not
+    bit-portable: it reads absmax off an fp forward). Held: every quantized
+    layer's output bit-equal (between quantized layers all arithmetic is
+    integer or element-wise f32), heads within 1e-3 (one fp conv each).
+    Each mode also answers a B=16 batch through ``make_predictor``, which
+    calibrates for itself. Returns the chain-mode spec and params for the K4
+    stage runs."""
+    from yolov3_tpu_torch.config import get_anchors, read_class_names
+    from yolov3_tpu_torch.models.network import to_device
+    from yolov3_tpu_torch.ops.quantize import calibrate_scales, quantize_params
+    from yolov3_tpu_torch.ops.s2d import s2d_stem
+
+    names = read_class_names(os.path.join(ROOT, "datasets/coco2012/coco.names"))
+    spec0 = models.parse_model_config(os.path.join(ROOT, "config/models/yolov3/model.yaml"),
+                                      len(names))
+    params, state = models.init_model(spec0, torch.Generator().manual_seed(0))
+    folded = to_device(models.fold_batch_norm(params, state), "cuda")
+    calibration = [smoke_images(bodies, 8)]
+    in_absmax, out_absmax = calibrate_scales(spec0, folded, calibration)
+    anchors = get_anchors(os.path.join(ROOT, "datasets/coco2012/anchors.txt"))
+    pair = torch.from_numpy(smoke_images(bodies, 2))
+    batch = torch.from_numpy(smoke_images(bodies, 16)).cuda()
+    rows, chain = [], None
+    for mode in ("int8", "int8_chain"):
+        q = quantize_params(spec0, folded, in_absmax,
+                            out_absmax=out_absmax if mode == "int8_chain" else None)
+        spec, q = s2d_stem(spec0, q, image_size=416)
+        quantized = [(sm, key) for sm in q for key, e in q[sm].items()
+                     if "kernel_q" in e or set(e) == {"out_scale"}]
+        seen = {}
+        with torch.inference_mode():
+            heads = {}
+            for dev in ("cuda", "cpu"):
+                taps = seen.setdefault(dev, {})
+                heads[dev] = models.apply_model(
+                    spec, to_device(q, dev), {}, pair.to(dev),
+                    out_observer=lambda sm, key, x, taps=taps: taps.__setitem__(
+                        (sm, key), x.cpu()) if (sm, key) in quantized else None)
+        unequal = [tap for tap in quantized
+                   if not torch.equal(seen["cuda"][tap], seen["cpu"][tap])]
+        head_err = max(max_abs(g.cpu(), c) for g, c in zip(heads["cuda"], heads["cpu"]))
+        finite = all(bool(torch.isfinite(h).all()) for h in heads["cuda"])
+        conv1x1.conv1x1_int8_requant.launches = conv_int8.conv_int8.launches = 0
+        with torch.inference_mode():
+            models.apply_model(spec, q, {}, batch)
+            launches = dict(conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
+                            conv_int8=conv_int8.conv_int8.launches)
+            fwd = cuda_ms(lambda: models.apply_model(spec, q, {}, batch), 5)
+            profiled = kernel_share(device_time_by_kernel(
+                lambda: models.apply_model(spec, q, {}, batch)))
+        predictor = inference_app.make_predictor(
+            spec0, params, state, anchors, len(names), 100, 0.5, 0.1, quantize=mode,
+            calibration_batches=calibration, image_size=416)
+        boxes, _, scores, selected, num_valid = predictor(batch)
+        torch.cuda.synchronize()
+        predictor_ms = cuda_ms(lambda: predictor(batch), 3)
+        if (tuple(selected.shape) != (16, 100) or not bool(torch.isfinite(boxes).all())
+                or not bool(torch.isfinite(scores).all()) or int(num_valid.min()) == 0):
+            raise AssertionError(f"{mode}: make_predictor's answer is malformed")
+        row = dict(mode=mode, quantized_layers=len(quantized), layers_unequal=len(unequal),
+                   first_unequal=[list(t) for t in unequal[:3]], head_max_abs_err=head_err,
+                   forward_ms_b16=fwd, predictor_ms_b16=predictor_ms,
+                   detections_b16=int(num_valid.sum()), launches_per_forward=launches,
+                   profile=profiled)
+        log(f"int8 forward YOLOv3-416 card vs CPU {json.dumps(row)}")
+        if unequal or not finite or head_err > 1e-3:
+            raise AssertionError(f"{mode}: the card disagrees with the CPU: {row}")
+        if launches["conv1x1_int8"] == 0 or launches["conv_int8"] == 0:
+            raise AssertionError(f"{mode}: a forward did not go through K3 and K6: {launches}")
+        rows.append(row)
+        chain = (spec, q)
+    return rows, chain, batch
+
+
+def phase_k4(models, resblock, chain, batch):
+    """The residual stages of the chain-quantized YOLOv3-416 at B=16: each
+    stage's blocks through K4 chained in halo layout against the unfused
+    chain K3 → K6 → add_requant on the same int8 input (the backbone's own
+    activation there). Held: stage outputs bit-equal, and one K4 block per
+    stage bit-equal to its plain version."""
+    from yolov3_tpu_torch.models import layers as L
+    from yolov3_tpu_torch.models import network
+    from yolov3_tpu_torch.models.spec import SubModelSpec
+
+    spec, q = chain
+    sm = spec.sub_models[0]
+    sm_q = q[sm.name]
+    stages = resblock.residual_blocks(sm)
+    if [len(st) for st in stages] != [1, 2, 8, 8, 4]:
+        raise AssertionError(f"Darknet-53 has residual stages 1, 2, 8, 8, 4, found {stages}")
+    # every stage's real input: the backbone cut off before each stage
+    feeders = SubModelSpec(name=sm.name, layers=sm.layers[:stages[-1][0]], inputs=sm.inputs,
+                           outputs_layers=tuple(st[0] - 1 for st in stages),
+                           input_shape=sm.input_shape)
+    with torch.inference_mode():
+        inputs = network._apply_sub_model(feeders, sm_q, {}, batch.permute(0, 3, 1, 2),
+                                          spec.nclasses, torch.float32)
+
+        def unfused(x, starts):
+            for i in starts:
+                a = L.conv2d_int8(x, sm_q[f"layer{i}"], 1, 1, leaky=True)
+                a = L.conv2d_int8(a, sm_q[f"layer{i + 1}"], 1, 1, leaky=True)
+                x = L.add_requant(x, a, sm_q[f"layer{i + 2}"]["out_scale"])
+            return x
+
+        # K4's path, driven once with the count at 0: all five stages
+        resblock.fused_resblock.launches = 0
+        fused_out = [resblock.fused_stage((x.q, x.scale), sm_q, st)
+                     for x, st in zip(inputs, stages)]
+        torch.cuda.synchronize()
+        path_launches = resblock.fused_resblock.launches
+
+        rows = []
+        for x, st, (fq, fscale) in zip(inputs, stages, fused_out):
+            if not isinstance(x, L.QAct):
+                raise AssertionError("the chain-mode backbone should feed int8 to every stage")
+            b, h, w, c = x.q.shape
+            want = unfused(x, st)
+            stage_equal = torch.equal(fq, want.q) and float(fscale) == float(want.scale)
+            kwargs, _ = resblock.block_args(sm_q[f"layer{st[0]}"], sm_q[f"layer{st[0] + 1}"],
+                                            sm_q[f"layer{st[0] + 2}"], x.scale)
+            xp = resblock.to_halo(x.q)
+            got = resblock.fused_resblock(xp, **kwargs, b=b, h=h, w=w)
+            plain = resblock.fused_resblock_plain(xp, **kwargs, b=b, h=h, w=w)
+            block_equal = torch.equal(got, plain)
+            err = int((got.int() - plain.int()).abs().max())
+            ms = cuda_ms(lambda: resblock.fused_resblock(xp, **kwargs, b=b, h=h, w=w), 10)
+            plain_ms = cuda_ms(lambda: resblock.fused_resblock_plain(xp, **kwargs, b=b, h=h,
+                                                                      w=w), 2)
+            fused_ms = cuda_ms(lambda: resblock.fused_stage((x.q, x.scale), sm_q, st), 5)
+            unfused_ms = cuda_ms(lambda: unfused(x, st), 5)
+            cm = c // 2
+            bound_ms, bound_by, need, ops = conv_bound(
+                xp.numel(), 10 * c * cm + 8 * cm, xp.numel(), c, b * h * w * 10 * c * cm)
+            row = dict(stage=f"{h}^2 C={c}", B=b, blocks=len(st), plan=resblock.plan(
+                b, h, w, c, cm), stage_equal_to_unfused=stage_equal, equal=block_equal,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=need, ops=ops, tops=ops / ms / 1e9,
+                stage_fused_ms=fused_ms, stage_unfused_ms=unfused_ms,
+                distinct_values=int(torch.unique(fq).numel()))
+            log(f"K4 resblock_int8 {json.dumps(row)}")
+            if not (stage_equal and block_equal):
+                raise AssertionError(f"K4 disagrees at stage {row['stage']}")
+            rows.append(row)
+    if path_launches != sum(len(st) for st in stages):
+        raise AssertionError(f"K4 launched {path_launches} times over the stage runs")
+    return rows, path_launches
+
+
+def phase_trained_int8(inference_app, models, nms_mod):
+    """Trained YOLOv3-tiny, ``int8_chain`` (maxpools and the upsample stay
+    int8): calibrated once on the card on 8 of the images, the same quantized
+    params then serve all 32 images on the card and on the CPU through
+    ``make_predictor``; held like the fp32 run (an image may differ only with
+    a near-tie witness). Against the fp32 detections: printed only."""
+    from yolov3_tpu_torch.config import get_anchors, read_class_names
+    from yolov3_tpu_torch.data.image import decode_image, resize_bilinear
+    from yolov3_tpu_torch.io.resolve import load_weights
+    from yolov3_tpu_torch.models.network import to_device
+    from yolov3_tpu_torch.ops.quantize import calibrate_scales, quantize_params
+
+    files = sorted(glob.glob(os.path.join(CALIBRATION_DIR, "*.jpg")))
+    images = np.stack([resize_bilinear(decode_image(open(f, "rb").read()) / 255.0, 416, 416)
+                       for f in files]).astype(np.float32)
+    names = os.path.join(ROOT, "datasets/shapes_toy/class.names")
+    nc = len(read_class_names(names))
+    anchors = get_anchors(os.path.join(ROOT, "datasets/shapes_toy/anchors/anchors_tiny.txt"))
+    spec = models.parse_model_config(os.path.join(ROOT, "config/models/yolov3_tiny/model.yaml"),
+                                     nc)
+    params, state = models.init_model(spec, torch.Generator().manual_seed(0))
+    params, state = load_weights(spec, params, state,
+                                 os.path.join(ROOT, "checkpoints/output/yolov3_train_tiny.tf"))
+    folded = to_device(models.fold_batch_norm(params, state), "cuda")
+    in_absmax, out_absmax = calibrate_scales(spec, folded, [images[:8]])
+    q = quantize_params(spec, folded, in_absmax, out_absmax=out_absmax)
+    nms_kw = dict(max_boxes=100, iou_threshold=0.5, score_threshold=0.1)
+    args = (anchors, nc, 100, 0.5, 0.1)
+    outs = {dev: [t.cpu() for t in inference_app.make_predictor(
+        spec, to_device(q, dev), {}, *args, fold_bn=False, device=dev)(images)]
+        for dev in ("cuda", "cpu")}
+    fp32 = [t.cpu() for t in inference_app.make_predictor(spec, params, state, *args)(images)]
+    witnesses, box_err, score_err = compare_detections(nms_mod, outs["cuda"], outs["cpu"],
+                                                       nms_kw)
+    fp_diff, fp_box, fp_score = compare_detections(nms_mod, outs["cuda"], fp32, nms_kw)
+    row = dict(images=len(files), detections_card=int(outs["cuda"][4].sum()),
+               detections_cpu=int(outs["cpu"][4].sum()), images_differing=witnesses,
+               box_max_abs_err=box_err, score_max_abs_err=score_err,
+               vs_fp32=dict(detections_fp32=int(fp32[4].sum()),
+                            images_identical=len(files) - len(fp_diff),
+                            max_abs_score_diff_all_candidates=max_abs(outs["cuda"][2], fp32[2]),
+                            box_max_abs_err_identical=fp_box,
+                            score_max_abs_err_identical=fp_score))
+    log(f"trained tiny int8_chain card vs CPU {json.dumps(row)}")
+    unexplained = [w["image"] for w in witnesses
+                   if w["margin"] is None or w["margin"] > NEAR_TIE]
+    if unexplained or box_err > 1e-3 or score_err > 1e-4 or int(outs["cuda"][4].sum()) == 0:
+        raise AssertionError(f"trained tiny int8_chain: card vs CPU beyond tolerance {row}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -427,7 +831,8 @@ def main() -> int:
     from yolov3_tpu_torch.apps import inference_app, serve_app
     from yolov3_tpu_torch.ops import decode
     from yolov3_tpu_torch.ops import nms as nms_mod
-    from yolov3_tpu_torch.ops.cuda import build, nms_kernel, round_sweep
+    from yolov3_tpu_torch.ops.cuda import (build, conv1x1, conv_int8, nms_kernel, resblock,
+                                           round_sweep)
 
     # phase 1 — card identity and the fp32 settings
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -451,24 +856,52 @@ def main() -> int:
                                        nms_kernel, round_sweep)
     phase_trained(inference_app, models, decode, nms_mod)
 
+    # the int8 tiers: kernels against their plain versions, the full-width
+    # forward, K4's stage runs, then the int8 tier served (K3 and K6 counted
+    # over that window alone) and the trained tiny model
+    k3 = phase_k3(conv1x1)
+    k6 = phase_k6(conv_int8)
+    bodies = encoded_requests()
+    int8_rows, chain, batch = phase_int8_forward(models, inference_app, bodies, conv1x1,
+                                                 conv_int8)
+    k4, k4_launches = phase_k4(models, resblock, chain, batch)
+    del chain, batch
+    torch.cuda.empty_cache()
+    conv1x1.conv1x1_int8_requant.launches = conv_int8.conv_int8.launches = 0
+    _, int8_serve = serve_tier("int8", inference_app, serve_app, bodies)
+    launches.update(conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
+                    conv_int8=conv_int8.conv_int8.launches, resblock_int8=k4_launches)
+    log(f"int8 serving launches {json.dumps(launches)}")
+    if launches["conv1x1_int8"] == 0 or launches["conv_int8"] == 0:
+        raise AssertionError(f"the int8 tier served without K3 or K6: {launches}")
+    serve_rows.append(int8_serve)
+    phase_trained_int8(inference_app, models, nms_mod)
+
+    def kernel_row(name, source, replaces, shapes, main, library=True):
+        return dict(name=name, route="cuda", source=f"yolov3_tpu_torch/ops/cuda/csrc/{source}",
+                    replaces=replaces, launches=launches[name],
+                    equal_to_plain=all(r["equal"] for r in shapes),
+                    max_abs_err=max(r["max_abs_err"] for r in shapes), ms=main["ms"],
+                    plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                    bound_by=main.get("bound_by", "bytes"),
+                    library_ms=main["library_ms"] if library else None, shapes=shapes)
+
+    # each kernel's row: times at its first (main-path) shape; K4's at the 52²
+    # stage, where 8 of Darknet-53's 23 blocks run
     kernels = [
-        dict(name="nms_sweep", route="cuda",
-             source="yolov3_tpu_torch/ops/cuda/csrc/nms_sweep.cu",
-             replaces="yolov3_tpu/ops/pallas/nms_kernel.py:76",
-             launches=launches["nms_sweep"], equal_to_plain=all(r["equal"] for r in k1),
-             max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
-             kernel_ms=k1[0]["ms"], plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
-             bound_by="bytes", library_ms=None, shapes=k1),
-        dict(name="round_sweep", route="cuda",
-             source="yolov3_tpu_torch/ops/cuda/csrc/round_sweep.cu",
-             replaces="yolov3_tpu/ops/pallas/round_sweep.py:110",
-             launches=launches["round_sweep"], equal_to_plain=all(r["equal"] for r in k2),
-             max_abs_err=max(r["max_abs_err"] for r in k2), ms=k2[0]["ms"],
-             kernel_ms=k2[0]["ms"], plain_ms=k2[0]["plain_ms"], bound_ms=k2[0]["bound_ms"],
-             bound_by=k2[0]["bound_by"], library_ms=None, shapes=k2),
+        kernel_row("nms_sweep", "nms_sweep.cu", "yolov3_tpu/ops/pallas/nms_kernel.py:76", k1,
+                   k1[0], library=False),
+        kernel_row("round_sweep", "round_sweep.cu", "yolov3_tpu/ops/pallas/round_sweep.py:110",
+                   k2, k2[0], library=False),
+        kernel_row("conv1x1_int8", "conv1x1_int8.cu", "yolov3_tpu/ops/pallas/conv1x1.py:111",
+                   k3, k3[0]),
+        kernel_row("resblock_int8", "resblock_int8.cu", "yolov3_tpu/ops/pallas/resblock.py:189",
+                   k4, k4[2], library=False),
+        kernel_row("conv_int8", "conv_int8.cu", "yolov3_tpu/models/layers.py:256", k6, k6[0]),
     ]
     log(f"card: {smi}")
-    log(json.dumps({"kernels": kernels, "serve": serve_rows, "card": smi}))
+    log(json.dumps({"kernels": kernels, "serve": serve_rows, "int8_forward": int8_rows,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from yolov3_tpu_torch.ops.cuda import nms_kernel, round_sweep
+from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock, round_sweep
 
 
 def _sweep_case(seed, b, k, valid_frac=0.6):
@@ -70,3 +70,82 @@ def test_cuda_round_sweep_equals_plain(cuda_device, n, max_boxes, score_t):
     torch.cuda.synchronize()
     want_sel, want_nv = round_sweep.round_sweep_ref(bt, st, 0.5, score_t, max_boxes)
     assert torch.equal(sel, want_sel) and torch.equal(nv, want_nv)
+
+
+def _epilogue(rng, n, device, scale_max):
+    scale = torch.from_numpy((rng.rand(n) * scale_max).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.randn(n).astype(np.float32)).to(device)
+    return scale, bias, torch.tensor([17.3], dtype=torch.float32, device=device)
+
+
+def _int8(rng, shape, device, lim=127):
+    return torch.from_numpy(rng.randint(-lim, lim + 1, shape).astype(np.int8)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 64, 32), (169, 256, 128), (1000, 27, 16),
+                                   (257, 48, 255), (129, 80, 65)])
+@pytest.mark.parametrize("leaky", [True, False])
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.float32])
+def test_cuda_conv1x1_int8_equals_plain(cuda_device, m, k, n, leaky, out_dtype):
+    """K3 on ragged M, K and N. Tolerance: none — integer sums, and an
+    epilogue that rounds where the plain version's element-wise ops do."""
+    rng = np.random.RandomState(m + n)
+    x, w = _int8(rng, (m, k), cuda_device), _int8(rng, (n, k), cuda_device)
+    scale, bias, inv = _epilogue(rng, n, cuda_device, 1e-4)
+    before = conv1x1.conv1x1_int8_requant.launches
+    got = conv1x1.conv1x1_int8_requant(x, w, scale, bias, inv, leaky=leaky,
+                                       out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert conv1x1.conv1x1_int8_requant.launches == before + 1
+    want = conv1x1.conv1x1_int8_requant_plain(x, w, scale, bias, inv, leaky=leaky,
+                                              out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout,k,stride,pad", [
+    (2, 9, 11, 16, 24, 3, 1, ((1, 1), (1, 1))),      # 3×3 s1 SAME
+    (2, 13, 10, 48, 64, 3, 2, ((1, 0), (1, 0))),     # 3×3 s2, Darknet top-left pad
+    (1, 12, 14, 3, 40, 4, 2, ((1, 2), (1, 2))),      # the s2d stem's conv0, Cin = 3
+    (2, 11, 9, 32, 20, 2, 1, ((1, 0), (1, 0))),      # the s2d stem's conv1
+    (2, 10, 10, 3, 16, 3, 1, ((1, 1), (1, 1))),      # an un-rewritten stem conv, K = 27
+    (1, 7, 7, 20, 130, 3, 1, ((1, 1), (1, 1))),      # Cin not a multiple of 16
+])
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.float32])
+def test_cuda_conv_int8_equals_plain(cuda_device, b, h, w, cin, cout, k, stride, pad,
+                                     out_dtype):
+    """K6. Tolerance: none."""
+    rng = np.random.RandomState(cin * cout + k)
+    x, kq = _int8(rng, (b, h, w, cin), cuda_device), _int8(rng, (cout, k, k, cin), cuda_device)
+    scale, bias, inv = _epilogue(rng, cout, cuda_device, 1e-5)
+    before = conv_int8.conv_int8.launches
+    got = conv_int8.conv_int8(x, kq, scale, bias, inv, stride=stride, padding=pad,
+                              leaky=True, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert conv_int8.conv_int8.launches == before + 1
+    want = conv_int8.conv_int8_plain(x, kq, scale, bias, inv, stride=stride, padding=pad,
+                                     leaky=True, out_dtype=out_dtype)
+    assert tuple(got.shape) == tuple(want.shape) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,cm", [(2, 13, 13, 128, 64), (1, 7, 9, 256, 128),
+                                        (3, 5, 6, 64, 32), (2, 30, 17, 96, 48)])
+def test_cuda_fused_resblock_equals_plain(cuda_device, b, h, w, c, cm):
+    """K4 over several bands and channel slices. Tolerance: none — the whole
+    halo matrix, zero ring included."""
+    rng = np.random.RandomState(c + h)
+    xp = resblock.to_halo(_int8(rng, (b, h, w, c), cuda_device))
+    w1, w2 = _int8(rng, (cm, c), cuda_device), _int8(rng, (9, c, cm), cuda_device, 20)
+    scale1, bias1, _ = _epilogue(rng, cm, cuda_device, 1e-3)
+    scale2, bias2, _ = _epilogue(rng, c, cuda_device, 1e-4)
+    s = [torch.tensor(v, dtype=torch.float32, device=cuda_device)
+         for v in (1 / 0.05177, 1 / 0.07273, 0.07273, 0.04131, 1 / 0.06113)]
+    args = (xp, w1, w2, scale1, bias1, s[0], scale2, bias2, s[1], s[2], s[3], s[4])
+    before = resblock.fused_resblock.launches
+    got = resblock.fused_resblock(*args, b=b, h=h, w=w)
+    torch.cuda.synchronize()
+    assert resblock.fused_resblock.launches == before + 1
+    want = resblock.fused_resblock_plain(*args, b=b, h=h, w=w)
+    assert torch.equal(got, want) and len(torch.unique(got)) > 20

@@ -57,3 +57,24 @@ def test_wrappers_raise_on_unsupported_device():
     with pytest.raises(ValueError):
         round_sweep.round_sweep(torch.zeros((1, 4, 4), device="meta"),
                                 torch.zeros((1, 4), device="meta"), 0.5, 0.1)
+
+
+def test_build_names_a_library_by_its_source_and_the_headers_it_includes(tmp_path, monkeypatch):
+    """An edit to a shared header (``requant.cuh``) must rebuild every kernel
+    that includes it, directly or through another header, and no other."""
+    import shutil
+
+    from yolov3_tpu_torch.ops.cuda import build
+
+    assert set(build._with_headers("resblock_int8.cu", {})) == {
+        "resblock_int8.cu", "int8_mma.cuh", "requant.cuh"}
+    assert set(build._with_headers("nms_sweep.cu", {})) == {"nms_sweep.cu"}
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", str(copy))
+    before = {name: build._target(name) for name in build.SOURCES}
+    with open(copy / "requant.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: build._target(name) for name in build.SOURCES}
+    changed = {name for name in build.SOURCES if before[name] != after[name]}
+    assert changed == {"conv1x1_int8", "conv_int8", "resblock_int8"}

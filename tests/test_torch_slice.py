@@ -1,7 +1,8 @@
 """The port's serving slice end to end on the CPU, against the JAX package:
 ``build_serving_predictor`` + ``DetectionApp`` on config/serve_config.yaml
 (yolov3_tiny, the in-repo trained checkpoint) at 128 px, the HTTP server
-through ``Serve``, and the port's import boundary (no jax, no yolov3_tpu).
+through ``Serve`` (fp32 and the int8 tier), and the port's import boundary
+(no jax, no yolov3_tpu).
 
 Tolerance: selected indices, counts and classes identical; boxes and
 scores 1e-4 absolute (float32 forward, convolutions summed in another
@@ -127,8 +128,35 @@ def test_serve_http_endpoint_on_cpu():
     assert not thread.is_alive()
 
 
+def test_serve_int8_tier_on_cpu():
+    """One request through ``Serve`` with ``quantize: int8`` on the CPU,
+    calibrated on the shapes_toy images: the int8 tier answers with
+    detections (each conv quantized, here through the kernels' plain
+    versions) and says so on /healthz."""
+    cfg = _serve_cfg()
+    cfg.update(port=0, batch_buckets=[1], serve_forever=False, device="cpu", quantize="int8",
+               calibration_images_dir=os.path.join(REPO, "datasets/shapes_toy/coco/images"))
+    httpd, app = Serve()(**cfg)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        req = urllib.request.Request(f"{url}/detect", data=open(_image_files(1)[0], "rb").read(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = json.loads(r.read())
+        assert body["detections"] and all(0 <= d["score"] <= 1 for d in body["detections"])
+        with urllib.request.urlopen(f"{url}/healthz", timeout=10) as r:
+            assert json.loads(r.read())["quantize"] == "int8"
+    finally:
+        httpd.shutdown()
+        app.shutdown()
+        thread.join(10)
+    assert not thread.is_alive()
+
+
 @pytest.mark.parametrize("extra", [{"artifact": "m.yoloexp"}, {"data_parallel": True},
-                                   {"spatial_partitioning": 2}, {"quantize": "int8"}])
+                                   {"spatial_partitioning": 2}])
 def test_later_slices_raise(extra):
     cfg = _serve_cfg()
     cfg.update(serve_forever=False, device="cpu", **extra)
@@ -138,7 +166,10 @@ def test_later_slices_raise(extra):
 
 def test_port_imports_no_jax():
     code = ("import sys; import yolov3_tpu_torch.apps.serve_app, yolov3_tpu_torch.apps.cli, "
-            "yolov3_tpu_torch.io, yolov3_tpu_torch.models.convert; "
+            "yolov3_tpu_torch.io, yolov3_tpu_torch.models.convert, "
+            "yolov3_tpu_torch.ops.quantize, yolov3_tpu_torch.ops.s2d, "
+            "yolov3_tpu_torch.ops.cuda.conv1x1, yolov3_tpu_torch.ops.cuda.conv_int8, "
+            "yolov3_tpu_torch.ops.cuda.resblock; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'yolov3_tpu' or m.startswith('yolov3_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -385,6 +385,8 @@ class Serve:
     Accepts the serve-config schema of the JAX package's ``serve.py``:
     the detect-config keys (model/weights/anchors/names/NMS/precision) plus
     ``host``, ``port``, ``batch_buckets``, ``batch_timeout_ms``, ``warmup``.
+    ``quantize: int8`` / ``int8_chain`` serves the int8 PTQ tier, calibrated
+    on the images of ``calibration_images_dir``.
     ``device`` (default: the CUDA card) may be set to ``cpu``. The keys
     ``artifact``, ``data_parallel`` and ``spatial_partitioning`` belong to
     later slices of the port and raise ``NotImplementedError``.
@@ -407,6 +409,7 @@ class Serve:
         batch_buckets=(1, 4, 16),
         batch_timeout_ms=5.0,
         warmup=True,
+        calibration_images_dir=None,
         artifact=None,
         data_parallel=False,
         spatial_partitioning=1,
@@ -436,7 +439,8 @@ class Serve:
             model_config_file, classes_name_file, anchors_file,
             input_weights_path, image_size, yolo_max_boxes,
             nms_iou_threshold, nms_score_threshold, quantize,
-            compute_precision, nms_per_class=nms_per_class, device=device)
+            compute_precision, calibration_images_dir, letterbox=letterbox,
+            nms_per_class=nms_per_class, device=device)
 
         app = DetectionApp(
             predictor, class_names, image_size,

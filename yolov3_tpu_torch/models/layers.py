@@ -1,4 +1,9 @@
-"""Primitive layer ops — plain PyTorch functions on NCHW tensors (fp path).
+"""Primitive layer ops — plain PyTorch functions.
+
+The fp ops take NCHW tensors; the int8 ops (``QAct``, ``dequantize``,
+``requantize``, ``add_requant``, ``conv2d_int8``) take and return NHWC, the
+JAX package's layout, because an int8 conv is a matrix product only with
+channels innermost.
 
 Counterpart of ``yolov3_tpu/models/layers.py``; the semantics are the
 reference's Keras layer stack (core/parse_model.py:13-213):
@@ -12,13 +17,21 @@ reference's Keras layer stack (core/parse_model.py:13-213):
     (``_pool_same_pads``: tiny's 2×2 stride-1 pool pads (0, 1)).
 
 Kernels are OIHW (PyTorch's layout); ``models/convert.py`` moves the JAX
-package's HWIO kernels across. The int8 tier is a later slice of the port.
+package's HWIO kernels across. Quantized kernels (``kernel_q``) are int8
+(cout, kh, kw, cin): one row per output channel with the contraction
+(tap-major, channel-minor) contiguous, which is what the int8 kernels read.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
+
+from ..ops.cuda.conv1x1 import conv1x1_int8_requant
+from ..ops.cuda.conv_int8 import conv_int8
+from ..ops.cuda.requant import requant_clip
 
 BN_EPS = 1e-3
 LEAKY_SLOPE = 0.1
@@ -60,6 +73,92 @@ def leaky_relu(x, slope=LEAKY_SLOPE):
 
 def upsample_nearest(x, stride: int):
     return x.repeat_interleave(stride, dim=2).repeat_interleave(stride, dim=3)
+
+
+# ---------------------------------------------------------------------------
+# int8 tier (NHWC)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QAct:
+    """Quantized activation flowing between layers: symmetric int8 + scale.
+
+    fp value = q * scale. ``q`` is a contiguous NHWC int8 tensor, ``scale`` a
+    0-d float32 tensor on the same device (a Python float is f64 and would
+    round the products elsewhere than the JAX package's f32 scalars do).
+    Deliberately not a tuple: the interpreter tells single activations from
+    multi-input lists with isinstance checks.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def dequantize(x: QAct, dtype=torch.float32):
+    return (x.q.to(torch.float32) * x.scale).to(dtype)
+
+
+def requantize(y32, out_scale) -> QAct:
+    """fp32 → symmetric int8 at ``out_scale``: multiply by the f32 reciprocal
+    (computed once), round half to even, clip to ±127."""
+    inv = torch.reciprocal(out_scale)
+    return QAct(requant_clip(y32, inv).to(torch.int8), out_scale)
+
+
+def add_requant(a: QAct, b: QAct, out_scale) -> QAct:
+    """Shortcut of two int8 activations: dequantize both, add in fp32,
+    requantize."""
+    y32 = a.q.to(torch.float32) * a.scale + b.q.to(torch.float32) * b.scale
+    return requantize(y32, out_scale)
+
+
+def quantize_input(x, in_scale):
+    """fp activation → int8 at ``in_scale`` (a true f32 division, as the JAX
+    package's)."""
+    return torch.clamp(torch.round(x.to(torch.float32) / in_scale), -127, 127).to(torch.int8)
+
+
+def conv2d_int8(x, qparams, stride: int, pad: int, leaky: bool = False,
+                fp_dtype=torch.float32, explicit_pad=None):
+    """Quantized conv: int8 weights × int8 activations, int32 sums, rescale.
+
+    qparams: ``kernel_q`` int8 (cout, kh, kw, cin); ``w_scale`` (cout,) f32;
+    ``in_scale`` () f32 (used only when ``x`` is an fp tensor); ``bias``
+    (cout,) f32 (BN folded); optional ``out_scale`` () f32 — when present
+    the epilogue requantizes and a ``QAct`` comes back, so conv chains stay
+    int8 end to end.
+
+    ``x``: an fp NHWC tensor (quantized here with ``in_scale``; the result is
+    fp NHWC in ``x.dtype``) or a ``QAct`` (consumed as it is). A 1×1 stride-1
+    conv goes to the fused matmul kernel (``ops/cuda/conv1x1.py``), every
+    other shape to the implicit-GEMM kernel (``ops/cuda/conv_int8.py``); on
+    CPU tensors both wrappers run their plain versions.
+    """
+    if isinstance(x, QAct):
+        xq, in_scale = x.q, x.scale
+    else:
+        in_scale = qparams["in_scale"]
+        fp_dtype = x.dtype
+        xq = quantize_input(x, in_scale).contiguous()
+    kq = qparams["kernel_q"]
+    cout, kh, kw, cin = kq.shape
+    scale = (qparams["w_scale"] * in_scale).to(torch.float32)
+    out_scale = qparams.get("out_scale")
+    inv = None if out_scale is None else torch.reciprocal(out_scale)
+    out_dtype = torch.int8 if out_scale is not None else torch.float32
+    if kh == 1 and kw == 1 and stride == 1 and explicit_pad is None:
+        b, h, w, _ = xq.shape
+        y = conv1x1_int8_requant(xq.reshape(-1, cin), kq.reshape(cout, cin), scale,
+                                 qparams["bias"], inv, leaky=leaky,
+                                 out_dtype=out_dtype).reshape(b, h, w, cout)
+    else:
+        y = conv_int8(xq, kq, scale, qparams["bias"], inv, stride=stride,
+                      padding=conv_padding(kh, stride, pad, explicit_pad), leaky=leaky,
+                      out_dtype=out_dtype)
+    if out_scale is not None:
+        return QAct(y, out_scale)
+    return y.to(fp_dtype)
 
 
 def _pool_same_pads(hw, size_xy, stride_xy):

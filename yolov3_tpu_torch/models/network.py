@@ -7,11 +7,19 @@ keys, so checkpoints move across unchanged (``io/checkpoint.py``):
     params[sub_model][f"layer{i}"] = {"kernel" (OIHW), ("bias" | "bn": {gamma, beta})}
     state [sub_model][f"layer{i}"] = {"mean", "var"}          (BN layers only)
 
-Activations flow NCHW inside; the public boundary keeps the JAX layout:
-``images`` are NHWC and each head output is ``(B, g, g, 3, 5+nc)`` (the
-head is permuted to NHWC before the reshape, so channel ``a·(5+nc)+f``
-maps exactly as in JAX). A conv applies BN iff its param dict holds a
-"bn" entry, which makes ``fold_batch_norm`` a pure params→params transform.
+fp activations flow as logical NCHW inside; the public boundary keeps the
+JAX layout: ``images`` are NHWC and each head output is ``(B, g, g, 3,
+5+nc)`` (the head is permuted to NHWC before the reshape, so channel
+``a·(5+nc)+f`` maps exactly as in JAX). A conv applies BN iff its param dict
+holds a "bn" entry, which makes ``fold_batch_norm`` a pure params→params
+transform.
+
+The int8 tiers (``ops/quantize.py``): a conv whose entry holds ``kernel_q``
+takes the int8 path (``layers.conv2d_int8``), whose kernels want channels
+innermost. Quantized activations travel as ``layers.QAct`` with a contiguous
+NHWC ``q``; fp tensors stay logical NCHW but, coming from the NHWC image or
+from an int8 conv, are channels-last in memory, so the NHWC view a quantized
+conv asks for is free and nothing bounces between layouts per layer.
 """
 
 from __future__ import annotations
@@ -22,8 +30,17 @@ from . import layers as L
 from .spec import LayerSpec, ModelSpec, SubModelSpec
 
 
-def _route_sources(layer: LayerSpec, inputs_entry, layer_outs):
-    """Reference core/parse_model.py:102-140 route semantics."""
+def _deq(x, fp_dtype):
+    """QAct → fp (logical NCHW over the NHWC memory); fp tensors pass through."""
+    if isinstance(x, L.QAct):
+        return L.dequantize(x, fp_dtype).permute(0, 3, 1, 2)
+    return x
+
+
+def _route_sources(layer: LayerSpec, inputs_entry, layer_outs, fp_dtype):
+    """Reference core/parse_model.py:102-140 route semantics. Quantized
+    sources of a concat are dequantized: int8 tensors with different scales
+    have no single-scale concatenation."""
     source = dict(layer["source"])
     selected = []
     if "layers" in source:
@@ -36,52 +53,101 @@ def _route_sources(layer: LayerSpec, inputs_entry, layer_outs):
     if len(selected) == 1:
         return selected[0]
     if len(selected) == 2:
-        return torch.cat(selected, dim=1)
+        return torch.cat([_deq(s, fp_dtype) for s in selected], dim=1)
     raise ValueError(f"Invalid number of route sources: {len(selected)}")
 
 
+def _pool_int8(q, size_xy, stride_xy, padding):
+    """Max-pool of an NHWC int8 tensor. ``max_pool2d`` has no int8 kernel on
+    CUDA, so the values go through float32 and back, which is exact."""
+    y = L.max_pool(q.permute(0, 3, 1, 2).to(torch.float32), size_xy, stride_xy, padding)
+    return y.permute(0, 2, 3, 1).to(torch.int8).contiguous()
+
+
 def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
-                     nclasses: int):
+                     nclasses: int, fp_dtype, conv_observer=None, out_observer=None):
+    """Run one sub-model's layer list; returns its selected outputs.
+
+    ``conv_observer(sm_name, layer_key, x)`` is called with each conv's
+    input and ``out_observer(sm_name, layer_key, x)`` with each layer's
+    output, both as fp tensors — used by int8 calibration.
+
+    Activations may flow as ``layers.QAct`` between quantized convs: a conv
+    whose entry carries ``out_scale`` emits one; a shortcut of two QActs
+    whose entry carries ``out_scale`` is a dequant-add-requant; upsample and
+    maxpool pass int8 through with the scale (both are monotone and keep the
+    lattice); routes, fp convs and ``yolo`` dequantize.
+    """
     x = inputs_entry if not isinstance(inputs_entry, (list, tuple)) else inputs_entry[0]
     layer_outs = []
     for i, layer in enumerate(sm.layers):
         key = f"layer{i}"
         if layer.kind == "convolutional":
             p = sm_params[key]
-            x = L.conv2d(x, p["kernel"], layer["stride"], layer.get("pad", 1),
-                         explicit_pad=layer.get("explicit_pad"))
-            if "bn" in p:
-                x = L.batch_norm(x, p["bn"], sm_state[key])
-            elif "bias" in p:
-                x = x + p["bias"].to(x.dtype).view(1, -1, 1, 1)
-            if layer.get("activation") == "leaky":
-                x = L.leaky_relu(x)
+            if conv_observer is not None:
+                conv_observer(sm.name, key, _deq(x, fp_dtype))
+            leaky = layer.get("activation") == "leaky"
+            if "kernel_q" in p:
+                if not isinstance(x, L.QAct):
+                    x = x.permute(0, 2, 3, 1)  # NHWC; a view when channels-last
+                x = L.conv2d_int8(x, p, layer["stride"], layer.get("pad", 1), leaky=leaky,
+                                  fp_dtype=fp_dtype, explicit_pad=layer.get("explicit_pad"))
+                if not isinstance(x, L.QAct):
+                    x = x.permute(0, 3, 1, 2)
+            else:
+                x = L.conv2d(_deq(x, fp_dtype), p["kernel"], layer["stride"],
+                             layer.get("pad", 1), explicit_pad=layer.get("explicit_pad"))
+                if "bn" in p:
+                    x = L.batch_norm(x, p["bn"], sm_state[key])
+                elif "bias" in p:
+                    x = x + p["bias"].to(x.dtype).view(1, -1, 1, 1)
+                if leaky:
+                    x = L.leaky_relu(x)
         elif layer.kind == "shortcut":
-            x = layer_outs[layer["from"]] + x
+            other = layer_outs[layer["from"]]
+            qentry = sm_params.get(key)
+            if (isinstance(x, L.QAct) and isinstance(other, L.QAct)
+                    and qentry is not None and "out_scale" in qentry):
+                x = L.add_requant(other, x, qentry["out_scale"])
+            else:
+                x = _deq(other, fp_dtype) + _deq(x, fp_dtype)
         elif layer.kind == "route":
-            x = _route_sources(layer, inputs_entry, layer_outs)
+            x = _route_sources(layer, inputs_entry, layer_outs, fp_dtype)
         elif layer.kind == "upsample":
-            x = L.upsample_nearest(x, layer["stride"])
+            if isinstance(x, L.QAct):
+                s = layer["stride"]
+                x = L.QAct(x.q.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2),
+                           x.scale)
+            else:
+                x = L.upsample_nearest(x, layer["stride"])
         elif layer.kind == "maxpool":
-            x = L.max_pool(x, list(layer["size_xy"]), list(layer["stride_xy"]),
-                           layer["padding"])
+            args = (list(layer["size_xy"]), list(layer["stride_xy"]), layer["padding"])
+            if isinstance(x, L.QAct):
+                x = L.QAct(_pool_int8(x.q, *args), x.scale)
+            else:
+                x = L.max_pool(x, *args)
         elif layer.kind == "yolo":
             # raw logits, no activation (reference parse_model.py:209-211);
             # NHWC before the reshape keeps JAX's channel→(anchor, field) map
+            x = _deq(x, fp_dtype)
             b, c, h, w = x.shape
             x = x.permute(0, 2, 3, 1).reshape(b, h, w, 3, 5 + nclasses)
         else:
             raise ValueError(f"unknown layer kind {layer.kind}")
+        if out_observer is not None:
+            out_observer(sm.name, key, _deq(x, fp_dtype))
         layer_outs.append(x)
     return [layer_outs[i] for i in sm.outputs_layers]
 
 
-def apply_model(spec: ModelSpec, params, state, images):
+def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
+                out_observer=None):
     """Inference forward. ``images``: (B, H, W, 3) float tensor.
 
     Returns the list of head outputs ``(B, g, g, 3, 5+nc)`` in the order of
     the sub-models whose name contains ``spec.output_stage`` (13-grid head
-    first for yolov3), in ``images.dtype``.
+    first for yolov3), in ``images.dtype``. The observers see every conv's
+    input and every layer's output (int8 calibration).
     """
     x = images.permute(0, 3, 1, 2)
     produced = {}
@@ -92,7 +158,8 @@ def apply_model(spec: ModelSpec, params, state, images):
             srcs = [produced[name][entry_index] for name, entry_index in sm.inputs]
             inputs_entry = srcs[0] if len(srcs) == 1 else srcs
         produced[sm.name] = _apply_sub_model(sm, params[sm.name], state.get(sm.name, {}),
-                                             inputs_entry, spec.nclasses)
+                                             inputs_entry, spec.nclasses, images.dtype,
+                                             conv_observer, out_observer)
     outputs = []
     for sm in spec.output_sub_models:
         outputs.extend(produced[sm.name])

@@ -3,7 +3,16 @@
   * ``nms_kernel.suppression_sweep`` (K1, ``csrc/nms_sweep.cu``) replaces
     ``yolov3_tpu/ops/pallas/nms_kernel.py::pallas_suppression_sweep``;
   * ``round_sweep.round_sweep`` (K2, ``csrc/round_sweep.cu``) replaces
-    ``yolov3_tpu/ops/pallas/round_sweep.py::pallas_round_sweep``.
+    ``yolov3_tpu/ops/pallas/round_sweep.py::pallas_round_sweep``;
+  * ``conv1x1.conv1x1_int8_requant`` (K3, ``csrc/conv1x1_int8.cu``) replaces
+    ``yolov3_tpu/ops/pallas/conv1x1.py::conv1x1_int8_requant``;
+  * ``resblock.fused_resblock`` (K4, ``csrc/resblock_int8.cu``) replaces
+    ``yolov3_tpu/ops/pallas/resblock.py::fused_resblock``;
+  * ``conv_int8.conv_int8`` (K6, ``csrc/conv_int8.cu``) is the int8 k×k conv
+    that the JAX package leaves to XLA and PyTorch does not have on CUDA;
+  * ``csrc/requant.cuh`` (K0) is the int8 epilogue K3, K4 and K6 share, the
+    counterpart of ``yolov3_tpu/ops/pallas/common.py``; ``requant.py`` is its
+    plain version.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in

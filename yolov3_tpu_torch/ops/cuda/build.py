@@ -5,8 +5,10 @@ functions that take raw pointers and a stream and return the launch's
 ``cudaError_t``). ``nvcc`` compiles each into its own shared library under
 ``build/torch_kernels/`` at the repository root, all files at once in
 parallel, and ``ctypes`` loads them. Nothing includes PyTorch's headers,
-so a build takes seconds. Libraries are named by a hash of their source and
-flags, so an unchanged source is not rebuilt within a checkout.
+so a build takes seconds. Libraries are named by a hash of their source, of
+the ``csrc/*.cuh`` headers it includes (an edit to a shared header rebuilds
+every kernel that uses it) and of the flags, so an unchanged source is not
+rebuilt within a checkout.
 
 Builds happen at first use (``library``), never at import: the CPU tests
 import every module on a machine without ``nvcc``.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +28,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
-SOURCES = ("nms_sweep", "round_sweep")
+SOURCES = ("nms_sweep", "round_sweep", "conv1x1_int8", "conv_int8", "resblock_int8")
 # sm_90a: Hopper's arch-specific target. --fmad=false keeps every a*b+c two
 # roundings, as the element-wise PyTorch ops of the plain versions do; no
 # --use_fast_math, so division stays div.rn.
@@ -45,9 +48,21 @@ def _nvcc() -> str:
     return path
 
 
+def _with_headers(filename: str, seen: dict[str, bytes]) -> dict[str, bytes]:
+    """``filename`` of ``csrc/`` and, recursively, every ``csrc`` header it
+    includes with quotes → their contents."""
+    if filename not in seen:
+        with open(os.path.join(CSRC, filename), "rb") as f:
+            seen[filename] = f.read()
+        for header in re.findall(rb'^\s*#\s*include\s*"([^"]+)"', seen[filename], re.M):
+            _with_headers(header.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    files = _with_headers(f"{name}.cu", {})
+    digest = hashlib.sha256(b"".join(files[f] for f in sorted(files))
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

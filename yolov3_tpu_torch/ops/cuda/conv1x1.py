@@ -1,0 +1,93 @@
+"""K3 — the fused int8 1×1 conv: CUDA kernel + plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``yolov3_tpu/ops/pallas/conv1x1.py``
+(``conv1x1_int8_requant``):
+
+    acc = xq @ wqᵀ                       s8 × s8 → s32, exact
+    y   = f32(acc) · scale + bias        two roundings, per output channel
+    y   = leaky(y)                       optional, slope 0.1
+    out = int8(clip(rint(y · inv), ±127))    or y itself when out is f32
+
+xq (M, Cin) int8 is the NHWC activation seen as a matrix; wq is the port's
+packed weight (Cout, Cin) int8 — one row per output channel, the
+contraction contiguous (the JAX kernel takes the transpose, (Cin, Cout)).
+The TPU kernel's row-tile picking and channel gates were VMEM and lane
+facts; here every int8 1×1 stride-1 conv takes this kernel, any M, Cin and
+Cout (ragged edges are masked in the kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .requant import conv_epilogue
+
+
+def conv1x1_int8_requant_plain(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
+                               out_dtype=torch.int8):
+    """Plain PyTorch version, exact on the CPU and on the card: the product
+    runs in float64 (sums ≤ Cin·127² are exact there) and is rounded to
+    float32 once, as the kernel's ``__int2float_rn`` does."""
+    acc = (xq.to(torch.float64) @ wq.to(torch.float64).t()).to(torch.float32)
+    return conv_epilogue(acc, scale, bias, inv_out_scale, leaky, out_dtype)
+
+
+def check_epilogue_args(what, x, cout, scale, bias, inv_out_scale, out_dtype):
+    """Raise on what the int8 kernels do not take; returns the pointer of the
+    requant reciprocal (``scale``'s when the output is f32 and none is read)."""
+    if out_dtype not in (torch.int8, torch.float32):
+        raise ValueError(f"{what}: out_dtype must be int8 or float32, got {out_dtype}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (cout,) or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous f32 ({cout},) tensor on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if out_dtype == torch.float32:
+        return scale.data_ptr()
+    if (inv_out_scale is None or inv_out_scale.dtype != torch.float32
+            or inv_out_scale.numel() != 1 or inv_out_scale.device != x.device):
+        raise ValueError(f"{what}: int8 output needs inv_out_scale as a one-element f32 "
+                         f"tensor on {x.device}")
+    return inv_out_scale.data_ptr()
+
+
+def conv1x1_int8_requant(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
+                         out_dtype=torch.int8):
+    """xq (M, Cin) int8, wq (Cout, Cin) int8, scale/bias (Cout,) f32,
+    inv_out_scale a one-element f32 tensor (unused, may be None, when
+    ``out_dtype`` is float32) → (M, Cout) ``out_dtype``. CPU tensors take
+    the plain version; CUDA tensors launch ``conv1x1_int8_kernel`` (counted
+    in ``conv1x1_int8_requant.launches``) or raise."""
+    if xq.device.type == "cpu":
+        return conv1x1_int8_requant_plain(xq, wq, scale, bias, inv_out_scale, leaky=leaky,
+                                          out_dtype=out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"conv1x1_int8_requant: unsupported device {xq.device}")
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
+        raise ValueError(f"conv1x1_int8_requant: shapes {tuple(xq.shape)}, {tuple(wq.shape)}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or wq.device != xq.device:
+        raise ValueError(f"conv1x1_int8_requant: needs int8 on one device, got {xq.dtype}, "
+                         f"{wq.dtype}")
+    if not (xq.is_contiguous() and wq.is_contiguous()):
+        raise ValueError("conv1x1_int8_requant: needs contiguous xq and wq")
+    m, cin = xq.shape
+    cout = wq.shape[0]
+    inv_ptr = check_epilogue_args("conv1x1_int8_requant", xq, cout, scale, bias,
+                                  inv_out_scale, out_dtype)
+    out = torch.empty((m, cout), dtype=out_dtype, device=xq.device)
+    fn = build.library("conv1x1_int8").conv1x1_int8_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        build.check(fn(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                       inv_ptr, out.data_ptr(), m, cin, cout, int(bool(leaky)),
+                       int(out_dtype == torch.float32), stream), "conv1x1_int8")
+    conv1x1_int8_requant.launches += 1
+    return out
+
+
+conv1x1_int8_requant.launches = 0

@@ -1,0 +1,88 @@
+"""K6 — the int8 k×k conv with the requant epilogue: CUDA kernel + plain version.
+
+The JAX package has no Pallas source for this one: it leaves the int8 3×3
+and strided convs to XLA's convolution (``yolov3_tpu/models/layers.py``,
+``conv2d_int8``, the ``lax.conv_general_dilated`` branch). PyTorch has no
+int8 convolution on CUDA, so the port carries a kernel of its own
+(``csrc/conv_int8.cu``), an implicit GEMM over NHWC:
+
+    acc[b,oh,ow,co] = Σ_{dy,dx,ci} xq[b, oh·s − top + dy, ow·s − left + dx, ci]
+                                   · kq[co, dy, dx, ci]          (zero outside)
+
+followed by K3's epilogue (scale, bias, leaky, requant or f32). It takes any
+square kernel, stride, asymmetric padding and channel count — the Darknet
+3×3 stride-1/2 convs and both convs of the space-to-depth stem (4×4 stride 2
+with Cin = 3, 2×2 stride 1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+from .conv1x1 import check_epilogue_args
+from .requant import conv_epilogue
+
+
+def out_size(size: int, k: int, stride: int, pads) -> int:
+    return (size + pads[0] + pads[1] - k) // stride + 1
+
+
+def conv_int8_plain(xq, kq, scale, bias, inv_out_scale, *, stride: int, padding,
+                    leaky: bool, out_dtype=torch.int8):
+    """Plain PyTorch version, exact on the CPU and on the card: a float64
+    convolution of the int8 values (sums ≤ 16·1024·127² are exact there;
+    ``round`` takes off what a transform-based algorithm might add), rounded
+    to float32 once, then the epilogue in the kernel's order."""
+    (top, bottom), (left, right) = padding
+    x = F.pad(xq.permute(0, 3, 1, 2).to(torch.float64), (left, right, top, bottom))
+    acc = F.conv2d(x, kq.permute(0, 3, 1, 2).to(torch.float64), stride=stride)
+    acc = acc.round().permute(0, 2, 3, 1).to(torch.float32)
+    return conv_epilogue(acc, scale, bias, inv_out_scale, leaky, out_dtype)
+
+
+def conv_int8(xq, kq, scale, bias, inv_out_scale, *, stride: int, padding, leaky: bool,
+              out_dtype=torch.int8):
+    """xq (B, H, W, Cin) int8 NHWC, kq (Cout, kh, kw, Cin) int8, scale/bias
+    (Cout,) f32, inv_out_scale a one-element f32 tensor (unused when
+    ``out_dtype`` is float32), ``padding`` ((top, bottom), (left, right)) →
+    (B, Ho, Wo, Cout) ``out_dtype``. CPU tensors take the plain version; CUDA
+    tensors launch ``conv_int8_kernel`` (counted in ``conv_int8.launches``)
+    or raise."""
+    if xq.device.type == "cpu":
+        return conv_int8_plain(xq, kq, scale, bias, inv_out_scale, stride=stride,
+                               padding=padding, leaky=leaky, out_dtype=out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"conv_int8: unsupported device {xq.device}")
+    if xq.dim() != 4 or kq.dim() != 4 or xq.shape[3] != kq.shape[3]:
+        raise ValueError(f"conv_int8: shapes {tuple(xq.shape)}, {tuple(kq.shape)}")
+    if xq.dtype != torch.int8 or kq.dtype != torch.int8 or kq.device != xq.device:
+        raise ValueError(f"conv_int8: needs int8 on one device, got {xq.dtype}, {kq.dtype}")
+    if not (xq.is_contiguous() and kq.is_contiguous()):
+        raise ValueError("conv_int8: needs contiguous xq (NHWC) and kq")
+    b, h, w, cin = xq.shape
+    cout, kh, kw, _ = kq.shape
+    (top, bottom), (left, right) = padding
+    ho, wo = out_size(h, kh, stride, (top, bottom)), out_size(w, kw, stride, (left, right))
+    if ho <= 0 or wo <= 0 or b * ho * wo >= 2 ** 31 or xq.numel() >= 2 ** 31:
+        raise ValueError(f"conv_int8: output {b}×{ho}×{wo} out of range")
+    inv_ptr = check_epilogue_args("conv_int8", xq, cout, scale, bias, inv_out_scale,
+                                  out_dtype)
+    out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=xq.device)
+    fn = build.library("conv_int8").conv_int8_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        build.check(fn(xq.data_ptr(), kq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                       inv_ptr, out.data_ptr(), b, h, w, cin, cout, kh, kw, stride, top,
+                       left, ho, wo, int(bool(leaky)) | (int(out_dtype == torch.float32) << 1),
+                       stream), "conv_int8")
+    conv_int8.launches += 1
+    return out
+
+
+conv_int8.launches = 0

@@ -1,0 +1,223 @@
+"""K4 — the fused int8 residual block: CUDA kernel + plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``yolov3_tpu/ops/pallas/resblock.py``
+(``fused_resblock``), with its contract and its flat zero-halo layout:
+activations travel between fused blocks as a matrix ``(B·(H+2)·(W+2), C)``
+int8 whose rows are the pixels of the zero-padded image, so a stage of
+blocks pays one layout change in (``to_halo``) and one out (``from_halo``).
+
+    q1  = requant(leaky(acc1·scale1 + bias1), inv_s1)      1×1 squeeze C→Cm
+    q2  = requant(leaky(acc2·scale2 + bias2), inv_s2)      3×3 expand Cm→C
+    out = requant(x·s_x + q2·s2, inv_out)                  shortcut add
+
+bit-compatible with the unfused chain ``conv2d_int8`` (K3) → ``conv2d_int8``
+(K6) → ``add_requant``. The weights come packed as the port keeps them, one
+row per output channel: w1 (Cm, C), w2 (9, C, Cm) tap-major (tap = dy·3+dx);
+the JAX kernel takes the transposes. ``block_args`` builds a block's
+arguments from chain-mode quantized params. Like the JAX package, the port
+wires this kernel into no predictor: stage runs (``chip_smoke.py``) time it
+against the unfused chain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import build
+from .requant import leaky, requant_clip
+
+_TILE_ROWS = 128            # rows of a block tile (csrc/int8_mma.cuh: kBM)
+_TILE_LD = 80               # bytes per staged tile row (kLd)
+_MAX_SMEM = 232448          # bytes of shared memory a block may use on sm_90
+
+
+def halo_mask(h: int, w: int) -> np.ndarray:
+    """(Hp·Wp,) int8 mask: 1 on interior pixels, 0 on the halo ring."""
+    m = np.zeros((h + 2, w + 2), np.int8)
+    m[1:h + 1, 1:w + 1] = 1
+    return m.reshape(-1)
+
+
+def to_halo(x):
+    """(B, H, W, C) → flat zero-halo matrix (B·(H+2)·(W+2), C)."""
+    b, h, w, c = x.shape
+    return F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b * (h + 2) * (w + 2), c)
+
+
+def from_halo(xp, b: int, h: int, w: int):
+    """Inverse of ``to_halo``: the interior as (B, H, W, C)."""
+    return xp.reshape(b, h + 2, w + 2, xp.shape[1])[:, 1:h + 1, 1:w + 1, :]
+
+
+def block_args(squeeze, expand, shortcut, s_x):
+    """One residual block's kernel arguments from chain-mode quantized params.
+
+    ``squeeze`` / ``expand``: the 1×1 and 3×3 conv entries (``kernel_q``
+    (cout, kh, kw, cin), ``w_scale``, ``bias``, ``out_scale``); ``shortcut``:
+    the shortcut layer's entry (``out_scale``); ``s_x``: the scale of the
+    block's input activation. Every scalar is the f32 value the unfused chain
+    computes (``w_scale·in_scale``, ``1/out_scale``), so the fused block is
+    bit-equal to it. Returns ``(kwargs for fused_resblock, output scale)``.
+    """
+    k1, k2 = squeeze["kernel_q"], expand["kernel_q"]
+    cm, c = k1.shape[0], k1.shape[3]
+    if tuple(k1.shape) != (cm, 1, 1, c) or tuple(k2.shape) != (c, 3, 3, cm):
+        raise ValueError(f"block_args: not a 1×1 squeeze + 3×3 expand pair: "
+                         f"{tuple(k1.shape)}, {tuple(k2.shape)}")
+    s1, s2 = squeeze["out_scale"], expand["out_scale"]
+    return dict(
+        w1=k1.reshape(cm, c),
+        w2=k2.permute(1, 2, 0, 3).reshape(9, c, cm).contiguous(),
+        scale1=(squeeze["w_scale"] * s_x).to(torch.float32), bias1=squeeze["bias"],
+        inv_s1=torch.reciprocal(s1),
+        scale2=(expand["w_scale"] * s1).to(torch.float32), bias2=expand["bias"],
+        inv_s2=torch.reciprocal(s2), s2=s2, s_x=s_x,
+        inv_out=torch.reciprocal(shortcut["out_scale"])), shortcut["out_scale"]
+
+
+def residual_blocks(sm):
+    """The residual stages of a sub-model: a list of stages, each the list of
+    layer indices ``i`` at which a block starts (``i``: 1×1 stride-1 conv,
+    ``i+1``: 3×3 stride-1 conv, ``i+2``: shortcut from −3), consecutive blocks
+    forming one stage."""
+    stages, i, n = [], 0, len(sm.layers)
+    while i + 2 < n:
+        a, b, c = sm.layers[i:i + 3]
+        if (a.kind == "convolutional" and a.get("size") == 1 and a.get("stride") == 1
+                and b.kind == "convolutional" and b.get("size") == 3 and b.get("stride") == 1
+                and b.get("pad", 1) == 1 and a.get("activation") == "leaky"
+                and b.get("activation") == "leaky"
+                and c.kind == "shortcut" and int(c["from"]) == -3):
+            if stages and stages[-1][-1] == i - 3:
+                stages[-1].append(i)
+            else:
+                stages.append([i])
+            i += 3
+        else:
+            i += 1
+    return stages
+
+
+def fused_stage(x, sm_params, starts):
+    """Run one residual stage through the fused kernel, chained in halo layout:
+    one ``to_halo`` in, one block launch per entry of ``starts`` (layer indices
+    from ``residual_blocks``), one ``from_halo`` out. ``x``: the stage's input
+    as ``(q, scale)`` with q (B, H, W, C) int8; ``sm_params``: the sub-model's
+    chain-mode quantized params. Returns ``(q, scale)`` of the stage's output."""
+    q, scale = x
+    b, h, w, _ = q.shape
+    xp = to_halo(q)
+    for i in starts:
+        kwargs, scale = block_args(sm_params[f"layer{i}"], sm_params[f"layer{i + 1}"],
+                                   sm_params[f"layer{i + 2}"], scale)
+        xp = fused_resblock(xp, **kwargs, b=b, h=h, w=w)
+    return from_halo(xp, b, h, w).contiguous(), scale
+
+
+def fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x,
+                         inv_out, *, b: int, h: int, w: int):
+    """Plain PyTorch version, exact on the CPU and on the card: both products
+    run in float64 (exact for these sums) and are rounded to float32 once,
+    then the epilogues in float32 in the kernel's order."""
+    c, cm = xp.shape[1], w1.shape[0]
+    x4 = xp.reshape(b, h + 2, w + 2, c)
+    acc1 = (x4.to(torch.float64) @ w1.to(torch.float64).t()).to(torch.float32)
+    q1 = requant_clip(leaky(acc1 * scale1 + bias1), inv_s1)
+    mask = torch.from_numpy(halo_mask(h, w)).to(xp.device).reshape(1, h + 2, w + 2, 1)
+    q1 = torch.where(mask != 0, q1, torch.zeros_like(q1))
+    # the zero halo is the 3×3 conv's SAME padding: a VALID conv over it
+    weight = w2.reshape(3, 3, c, cm).permute(2, 3, 0, 1).to(torch.float64)
+    acc2 = F.conv2d(q1.permute(0, 3, 1, 2).to(torch.float64), weight)
+    acc2 = acc2.round().permute(0, 2, 3, 1).to(torch.float32)
+    q2 = requant_clip(leaky(acc2 * scale2 + bias2), inv_s2)
+    yf = x4[:, 1:h + 1, 1:w + 1].to(torch.float32) * s_x + q2 * s2
+    out = torch.zeros_like(x4)
+    out[:, 1:h + 1, 1:w + 1] = requant_clip(yf, inv_out).to(torch.int8)
+    return out.reshape(xp.shape)
+
+
+def plan(b: int, h: int, w: int, c: int, cm: int, sms: int = 132):
+    """(band_rows, slice_cols, q_rows, tile_cols) for the kernel's grid of
+    (bands, channel slices, images): the choice that fits the q1 band into
+    shared memory and needs the fewest tile steps on the slowest SM, counting
+    the halo rows and the squeeze that bands and slices recompute."""
+    tile = 128 if c >= 128 else 64
+    wp = w + 2
+    best = None
+    for slices in (1, 2, 4, 8, 16):
+        if slices > 1 and (c % slices or (c // slices) % tile):
+            continue
+        for rows in range(1, h + 1):
+            q_rows = -(-rows * wp // _TILE_ROWS) * _TILE_ROWS + 2 * wp + 2
+            smem = q_rows * (cm + 16) + (_TILE_ROWS + tile) * _TILE_LD
+            if smem > _MAX_SMEM:
+                break
+            squeeze = -(-(rows + 2) * wp // _TILE_ROWS) * -(-cm // tile) * -(-c // 64)
+            expand = -(-rows * wp // _TILE_ROWS) * -(-c // slices // tile) * 9 * -(-cm // 64)
+            blocks = -(-h // rows) * slices * b
+            cost = -(-blocks // sms) * (squeeze + expand)
+            if best is None or cost < best[0]:
+                best = (cost, rows, c // slices, q_rows, tile)
+    if best is None:
+        raise ValueError(f"fused_resblock: no band of a {h}×{w} image at Cm={cm} fits "
+                         f"{_MAX_SMEM} bytes of shared memory")
+    return best[1:]
+
+
+def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
+                   *, b: int, h: int, w: int):
+    """One residual block over the flat zero-halo layout.
+
+    xp (B·(H+2)·(W+2), C) int8 zero-halo; w1 (Cm, C) int8; w2 (9, C, Cm) int8;
+    scale1/bias1 (Cm,) f32 with scale1 = w1_scale·s_x; scale2/bias2 (C,) f32
+    with scale2 = w2_scale·s1; the six scalars 0-d f32 tensors (the f32
+    reciprocals and scales of the unfused chain). Returns the same-shape
+    halo matrix at scale 1/inv_out. CPU tensors take the plain version; CUDA
+    tensors launch ``resblock_int8_kernel`` (counted in
+    ``fused_resblock.launches``) or raise."""
+    if xp.device.type == "cpu":
+        return fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2,
+                                    s2, s_x, inv_out, b=b, h=h, w=w)
+    if xp.device.type != "cuda":
+        raise ValueError(f"fused_resblock: unsupported device {xp.device}")
+    c, cm = xp.shape[1], w1.shape[0]
+    if (xp.dim() != 2 or xp.shape[0] != b * (h + 2) * (w + 2) or tuple(w1.shape) != (cm, c)
+            or tuple(w2.shape) != (9, c, cm)):
+        raise ValueError(f"fused_resblock: shapes {tuple(xp.shape)}, {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)} for b={b}, h={h}, w={w}")
+    if c % 32 or cm % 16:
+        raise ValueError(f"fused_resblock: needs C % 32 == 0 and Cm % 16 == 0, got {c}, {cm}")
+    tensors = (xp, w1, w2, scale1, bias1, scale2, bias2)
+    if any(t.device != xp.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("fused_resblock: needs contiguous tensors on one device")
+    if any(t.dtype != torch.int8 for t in tensors[:3]) or any(
+            t.dtype != torch.float32 for t in tensors[3:]):
+        raise ValueError("fused_resblock: needs int8 xp/w1/w2 and f32 scales and biases")
+    if (tuple(scale1.shape), tuple(bias1.shape), tuple(scale2.shape),
+            tuple(bias2.shape)) != ((cm,), (cm,), (c,), (c,)):
+        raise ValueError("fused_resblock: scale/bias shapes do not match (Cm,), (C,)")
+    if xp.numel() >= 2 ** 31:
+        raise ValueError("fused_resblock: activation too large for 32-bit row indices")
+    sc = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=xp.device).reshape(())
+                      for v in (inv_s1, inv_s2, s2, s_x, inv_out)])
+    rows, slice_cols, q_rows, tile = plan(
+        b, h, w, c, cm, torch.cuda.get_device_properties(xp.device).multi_processor_count)
+    out = torch.empty_like(xp)
+    fn = build.library("resblock_int8").resblock_int8_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        build.check(fn(xp.data_ptr(), w1.data_ptr(), w2.data_ptr(), scale1.data_ptr(),
+                       bias1.data_ptr(), scale2.data_ptr(), bias2.data_ptr(), sc.data_ptr(),
+                       out.data_ptr(), b, h, w, c, cm, rows, slice_cols, q_rows, tile, stream),
+                    "resblock_int8")
+    fused_resblock.launches += 1
+    return out
+
+
+fused_resblock.launches = 0
