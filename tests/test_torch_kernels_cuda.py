@@ -6,13 +6,15 @@ alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Inputs are made with numpy from a seed. Tolerance: none."""
+Inputs are made with numpy from a seed. Tolerance: none, except K5's sums
+(stated at their test)."""
 
 import numpy as np
 import pytest
 import torch
 
-from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock, round_sweep
+from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel, resblock,
+                                       round_sweep)
 
 
 def _sweep_case(seed, b, k, valid_frac=0.6):
@@ -149,3 +151,85 @@ def test_cuda_fused_resblock_equals_plain(cuda_device, b, h, w, c, cm):
     assert resblock.fused_resblock.launches == before + 1
     want = resblock.fused_resblock_plain(*args, b=b, h=h, w=w)
     assert torch.equal(got, want) and len(torch.unique(got)) > 20
+
+
+def _activation(seed, shape, dtype, channels_last, device):
+    """A (B, C, H, W) activation with a mean well off zero in some channels
+    and one constant channel, in the asked memory format."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape).astype(np.float32) * 2 + rng.randn(1, shape[1], 1, 1) * 3
+    x[:, 0] = 1.5
+    t = torch.from_numpy(x.astype(np.float32)).to(device=device, dtype=dtype)
+    return t.contiguous(memory_format=torch.channels_last) if channels_last else t.contiguous()
+
+
+BN_SHAPES = [(3, 32, 5, 7), (2, 64, 26, 26), (4, 256, 13, 13), (2, 1024, 4, 4), (2, 40, 9, 11),
+             (1, 3, 8, 8), (2, 32, 104, 104)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_cuda_bn_sums_against_float64(cuda_device, shape, dtype, channels_last):
+    """K5 forward. Tolerance: ``SUM_RTOL`` (1e-5) of Σ|x| and of Σx² against
+    float64 (another order of summation than the plain version's); two
+    launches bit-identical; the plain version inside the same tolerance."""
+    x = _activation(sum(shape), shape, dtype, channels_last, cuda_device)
+    before = bn_stats.bn_sums.launches
+    s, q = bn_stats.bn_sums(x)
+    torch.cuda.synchronize()
+    assert bn_stats.bn_sums.launches == before + 1
+    s_again, q_again = bn_stats.bn_sums(x)
+    assert torch.equal(s, s_again) and torch.equal(q, q_again)
+    x64 = x.double()
+    ref_s, ref_q = x64.sum(dim=(0, 2, 3)), (x64 * x64).sum(dim=(0, 2, 3))
+    scale_s = x64.abs().sum(dim=(0, 2, 3))
+    for got_s, got_q in ((s, q), bn_stats.bn_sums_plain(x)):
+        assert float(((got_s.double() - ref_s).abs() / scale_s).max()) <= bn_stats.SUM_RTOL
+        assert float(((got_q.double() - ref_q).abs() / ref_q).max()) <= bn_stats.SUM_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_cuda_bn_moments_backward_equals_plain(cuda_device, shape, dtype, channels_last):
+    """K5 backward through autograd. Tolerance: none — ``a·x + b`` rounds in
+    the kernel where the plain version's element-wise ops do; dx keeps x's
+    dtype and memory format. The moments themselves: 1e-5 relative to
+    max(|mean|, 1) and max(var, 1) (they inherit the sums' tolerance)."""
+    x = _activation(sum(shape) + 1, shape, dtype, channels_last, cuda_device)
+    rng = np.random.RandomState(0)
+    wm = torch.from_numpy(rng.randn(shape[1]).astype(np.float32)).to(cuda_device)
+    wv = torch.from_numpy(rng.randn(shape[1]).astype(np.float32)).to(cuda_device)
+    grads, moments = [], []
+    before = bn_stats.bn_moments_dx.launches
+    for fn in (bn_stats.bn_moments, bn_stats.bn_moments_plain):
+        xi = x.clone(memory_format=torch.preserve_format).requires_grad_(True)
+        mean, var = fn(xi)
+        ((mean * wm).sum() + (var * wv).sum()).backward()
+        grads.append(xi.grad)
+        moments.append((mean.detach(), var.detach()))
+    torch.cuda.synchronize()
+    assert bn_stats.bn_moments_dx.launches == before + 1
+    assert grads[0].dtype == dtype and grads[0].stride() == x.stride()
+    # the two forwards differ within the sums' tolerance, so feed both
+    # backwards the same mean before asking for equal bits
+    mean = moments[0][0]
+    assert torch.equal(bn_stats.bn_moments_dx(x, mean, wm, wv),
+                       bn_stats.bn_moments_dx_plain(x, mean, wm, wv))
+    for got, want in zip(moments[0], moments[1]):
+        assert float(((got - want).abs() / want.abs().clamp(min=1.0)).max()) <= 1e-5
+    assert float(moments[0][1][0]) < 1e-3  # the constant channel's variance
+
+
+@pytest.mark.cuda
+def test_cuda_bn_stats_raises_on_what_it_does_not_take(cuda_device):
+    x = torch.zeros((2, 8, 6, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="dense channels-last or NCHW"):
+        bn_stats.bn_sums(x[:, :, ::2])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bn_stats.bn_sums(x.half())
+    with pytest.raises(ValueError, match=r"\(B, C, H, W\)"):
+        bn_stats.bn_sums(x[0])

@@ -1,0 +1,387 @@
+"""Train application — the reference train.py surface on PyTorch and one CUDA card.
+
+Counterpart of ``yolov3_tpu/apps/train_app.py``. Accepts the same
+train_config.yaml schema (keys splatted into ``Train()``) and reproduces the
+observable behaviour: model summary dump beside the checkpoints, the
+transfer-learning dispatch, per-batch loss logging in ``eager_tf`` mode,
+periodic and final weight saving, a validation pass per epoch, early
+stopping on val_loss with best-weights restore, full-state resume, EMA shadow
+weights.
+
+Differences, by design:
+  * the step runs eagerly on one device — the card unless the config says
+    ``device: cpu``; with more than one visible card it still trains on one;
+  * checkpoints are the JAX package's native ``.npz`` files, so either
+    package loads the other's weights and resumes the other's train state;
+  * keys that belong to later slices of the port raise ``NotImplementedError``
+    by name (``DEFERRED_KEYS``); none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import count_file_lines, get_anchors
+from ..data.pipeline import Batcher, DevicePrefetcher, batched, create_dataset
+from ..device import resolve_device
+from ..io.checkpoint import checkpoint_keys, load_train_state, save_train_state
+from ..io.resolve import load_weights, native_path, save_weights
+from ..models import init_model, parse_model_config
+from ..models.network import head_grid_sizes, to_device
+from ..models.transfer import bn_frozen_selectors, do_transfer_learning
+from ..models.transfer import trainable_mask as make_trainable_mask
+from ..parallel.train_step import (epoch_learning_rate, init_train_state, make_adam,
+                                   make_adam_scheduled, make_eval_step, make_train_step)
+from ..tree import tree_map
+
+log = logging.getLogger(__name__)
+
+# config keys of later slices of the port: a true value raises by name
+DEFERRED_KEYS = ("qat", "augmentation", "stem_s2d", "multi_scale", "device_dataset",
+                 "multihost", "spatial_partitioning", "tensorboard", "profile_trace_dir",
+                 "bn_stats_subsample")
+
+
+def _entry_param_count(entry) -> int:
+    return sum(_entry_param_count(v) if isinstance(v, dict) else v.numel()
+               for v in entry.values())
+
+
+def model_summary(spec, params, image_size=None) -> str:
+    """Keras-summary-style dump: per-sub-model layer table with kinds,
+    per-conv param counts, and (when image_size is given) the head grids."""
+    lines = [f'Model "{spec.output_stage}-staged" — {len(spec.sub_models)} sub-models']
+    total = 0
+    for sm in spec.sub_models:
+        n = _entry_param_count(params.get(sm.name, {}))
+        total += n
+        lines.append(f"\n{sm.name}: {len(sm.layers)} layers, {n:,} params")
+        for i, layer in enumerate(sm.layers):
+            desc = layer.kind
+            if layer.kind == "convolutional":
+                entry = params[sm.name][f"layer{i}"]
+                cout, cin, kh, kw = entry["kernel"].shape  # OIHW
+                desc += (f" {kh}x{kw} {cin}→{cout}"
+                         f" s{layer['stride']}"
+                         f"{' +bn' if 'bn' in entry else ''}"
+                         f" {layer.get('activation')}  ({_entry_param_count(entry):,} params)")
+            elif layer.kind == "maxpool":
+                desc += f" {list(layer['size_xy'])}/{list(layer['stride_xy'])}"
+            elif layer.kind == "upsample":
+                desc += f" x{layer['stride']}"
+            elif layer.kind == "shortcut":
+                desc += f" from {layer['from']}"
+            lines.append(f"  [{i:3d}] {desc}")
+    lines.append(f"\nTotal params: {total:,}")
+    if image_size:
+        lines.append(f"Head grids @ {image_size}: {head_grid_sizes(spec, image_size)}")
+    return "\n".join(lines)
+
+
+def _ema_config(ema_conf):
+    """``ema`` config value → (conf dict or None, decay or None)."""
+    if not ema_conf:
+        return None, None
+    if isinstance(ema_conf, dict):
+        ema_conf = dict(ema_conf)
+    elif isinstance(ema_conf, float):  # shorthand: `ema: 0.9995`
+        ema_conf = {"decay": ema_conf}
+    elif ema_conf is True:
+        ema_conf = {}
+    else:
+        raise ValueError(f"ema must be true, a decay float, or a dict, got {ema_conf!r}")
+    decay = float(ema_conf.get("decay", 0.9999))
+    if not 0.0 <= decay <= 1.0:
+        raise ValueError(f"ema decay must be in [0, 1], got {decay}")
+    return ema_conf, decay
+
+
+class Train:
+    def __call__(
+        self,
+        model_config_file,
+        image_size,
+        batch_size,
+        max_bboxes,
+        debug_mode,
+        anchors_file,
+        learning_rate,
+        early_stop_patience,
+        epochs,
+        training_mode,
+        render_dataset_example,
+        max_dataset_examples,
+        transfer_learning_config,
+        dataset_config,
+        classes_name_file,
+        output_checkpoints_path,
+        early_stopping,
+        weights_save_peroid,
+        resume=False,
+        debug_nans=False,
+        mixed_precision=False,
+        remat=False,
+        accum_steps=1,
+        device=None,
+        **kwargs,
+    ):
+        for key in DEFERRED_KEYS:
+            if kwargs.get(key):
+                raise NotImplementedError(
+                    f"{key}: not ported yet (a later slice of the port); remove the key "
+                    "or train with the JAX package")
+        if remat not in (False, True, "conv", None):
+            raise ValueError(f"remat must be false, true, or 'conv', got {remat!r}")
+        if remat == "conv":
+            raise NotImplementedError("remat: conv is not ported yet; use remat: true")
+        if render_dataset_example:
+            raise NotImplementedError("render_dataset_example: the renderer is not ported yet")
+        if not logging.getLogger().handlers:
+            logging.basicConfig(level=logging.INFO, format="%(levelname)s:%(name)s:%(message)s")
+        logging.getLogger().setLevel(logging.INFO)
+        if kwargs.get("compilation_cache"):
+            log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
+        if debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+        dev = resolve_device(device)
+        if dev.type == "cuda" and torch.cuda.device_count() > 1:
+            log.info(f"{torch.cuda.device_count()} cards visible; training on {dev}")
+        seed = int(kwargs.get("seed", 0))
+
+        anchors_table = get_anchors(anchors_file)
+        nclasses = count_file_lines(classes_name_file)
+
+        spec = parse_model_config(model_config_file, nclasses)
+        params, bn_state = init_model(spec, torch.Generator().manual_seed(seed))
+
+        summary_dir = os.path.dirname(output_checkpoints_path) or "."
+        os.makedirs(summary_dir, exist_ok=True)
+        with open(os.path.join(summary_dir, "model_summary.txt"), "w") as f:
+            f.write(model_summary(spec, params, image_size) + "\n")
+
+        # --- transfer learning dispatch (reference train.py:160-166) ---
+        trainable_mask = None
+        bn_frozen = ()
+        tlc = transfer_learning_config
+        if tlc and tlc.get("transfer_list"):
+            tl = tlc["transfer_list"]
+            if "all" in tl:
+                params, bn_state = load_weights(spec, params, bn_state, tlc["input_weights_path"])
+            elif "none" not in tl:
+                def load_fn(output_stage):
+                    ref_spec = spec.with_output_stage(output_stage)
+                    rp, rs = init_model(ref_spec, torch.Generator().manual_seed(0))
+                    return load_weights(ref_spec, rp, rs, tlc["input_weights_path"])
+
+                params, bn_state, trainable_mask, bn_frozen = do_transfer_learning(
+                    spec, params, bn_state, tlc, load_fn)
+            else:
+                # 'none' still honors freeze lists
+                trainable_mask = make_trainable_mask(params, tlc.get("freeze_train_list"))
+                bn_frozen = bn_frozen_selectors(tlc.get("batch_norm_freeze_list"))
+
+        lr_schedule = kwargs.get("lr_schedule")
+        grad_clip_norm = kwargs.get("grad_clip_norm")
+        optimizer_conf = kwargs.get("optimizer")
+        make = make_adam_scheduled if lr_schedule else make_adam
+        optimizer = make(learning_rate, grad_clip_norm, optimizer_conf)
+        grid_sizes = head_grid_sizes(spec, image_size)
+
+        dataset, dataset_size = create_dataset(
+            dataset_config, image_size, max_bboxes, classes_name_file, max_dataset_examples)
+        if 0 < min(s for s in dataset_size if s is not None) < batch_size:
+            raise ValueError("Dataset size less than batch size!")
+        ds_train, ds_val = dataset
+
+        if debug_mode:
+            # eager single-batch assignment check (reference
+            # preprocess_dataset_debug, core/preprocess_dataset.py:94-120)
+            from ..ops.assign import assign_targets
+
+            _, labels = next(iter(Batcher(ds_train, min(batch_size, 2))))
+            grids = assign_targets(torch.from_numpy(labels).to(dev), anchors_table, grid_sizes)
+            for s, cube in enumerate(grids):
+                n = int(cube[..., 4].sum())
+                log.info(f"debug_mode: scale {s} (g={cube.shape[1]}): {n} boxes assigned")
+
+        ema_conf, ema_decay = _ema_config(kwargs.get("ema"))
+        if ema_conf is not None:
+            log.info(f"ema: decay {ema_decay}"
+                     + (", used for validation/early-stopping"
+                        if ema_conf.get("use_for_validation") else ""))
+
+        train_step = make_train_step(
+            spec, anchors_table, grid_sizes, batch_size, optimizer, bn_frozen=bn_frozen,
+            trainable_mask=trainable_mask,
+            compute_dtype=torch.bfloat16 if mixed_precision else None,
+            remat=bool(remat), seed=seed, accum_steps=accum_steps, ema_decay=ema_decay,
+            ema_warmup=bool(ema_conf.get("warmup", True)) if ema_conf is not None else True)
+        eval_step = make_eval_step(spec, anchors_table, grid_sizes, batch_size,
+                                   bn_frozen=bn_frozen)
+
+        shuffle_conf = kwargs.get("shuffle")
+        if shuffle_conf:
+            shuffle_buffer = int(shuffle_conf.get("buffer", 1024)
+                                 if isinstance(shuffle_conf, dict) else 1024)
+            log.info(f"shuffle: buffer {shuffle_buffer}")
+        else:
+            shuffle_buffer = 0
+        stream_workers = kwargs.get("stream_workers")
+        if stream_workers is not None:
+            stream_workers = int(stream_workers)
+            if stream_workers < 1:
+                raise ValueError(f"stream_workers must be >= 1, got {stream_workers}")
+
+        train_state = init_train_state(to_device(params, dev), to_device(bn_state, dev),
+                                       optimizer, ema=ema_conf is not None)
+        verbose = training_mode == "eager_tf"
+
+        # full-state resume (params + BN stats + optimizer moments + step)
+        state_path = native_path(output_checkpoints_path).replace(".npz", ".train_state.npz")
+        ema_path = native_path(output_checkpoints_path).replace(".npz", ".ema.npz")
+        start_epoch = 1
+        if resume and os.path.exists(state_path):
+            # the core state loads strictly; the EMA subtree may be absent
+            # (resuming a pre-EMA run with `ema:` newly enabled) — it reseeds
+            # from the restored weights
+            want_ema = "ema" in train_state
+            have_ema = want_ema and any(k.startswith("ema/") for k in checkpoint_keys(state_path))
+            like = (train_state if have_ema else
+                    {k: v for k, v in train_state.items() if k != "ema"})
+            restored, saved_epoch = load_train_state(state_path, like, optimizer, dev)
+            if want_ema and not have_ema:
+                clone = lambda t: t.clone()  # noqa: E731
+                restored["ema"] = {"params": tree_map(clone, restored["params"]),
+                                   "bn_state": tree_map(clone, restored["bn_state"])}
+                log.info("resume: checkpoint has no EMA state; "
+                         "seeded EMA from the restored weights")
+            train_state = restored
+            start_epoch = int(saved_epoch or 0) + 1
+            log.info(f"resumed full train state from {state_path} at epoch {start_epoch}")
+
+        def save_all(epoch):
+            save_weights(spec, train_state["params"], train_state["bn_state"],
+                         output_checkpoints_path, step=epoch)
+            save_train_state(state_path, train_state, optimizer, step=epoch)
+            if "ema" in train_state:
+                save_weights(spec, train_state["ema"]["params"],
+                             train_state["ema"]["bn_state"], ema_path, step=epoch)
+
+        best_val = float("inf")
+        best_weights = None
+        patience_left = early_stop_patience
+        last_epoch = start_epoch - 1
+        step_seconds: list[float] = []  # host time to enqueue each step
+        cur_lr = learning_rate
+        for epoch in range(start_epoch, epochs + 1):
+            last_epoch = epoch
+            if lr_schedule:
+                cur_lr = epoch_learning_rate(learning_rate, epoch, epochs, lr_schedule)
+                train_state = {**train_state, "opt_state": {
+                    **train_state["opt_state"],
+                    "learning_rate": torch.tensor(cur_lr, dtype=torch.float32)}}
+                log.info(f"epoch {epoch}: learning_rate {cur_lr:.6g}")
+            t0 = time.time()
+            nbatches = 0
+            # epoch-keyed shuffle seed: fresh order each epoch, identical
+            # sequence across an interrupted+resumed run
+            epoch_iter = DevicePrefetcher(
+                batched(ds_train, batch_size, shuffle_buffer=shuffle_buffer or None,
+                        seed=seed * 1000003 + epoch, num_workers=stream_workers), dev)
+            for images, labels in epoch_iter:
+                t_step = time.perf_counter()
+                train_state, metrics = train_step(train_state, images, labels)
+                step_seconds.append(time.perf_counter() - t_step)
+                nbatches += 1
+                if verbose:
+                    self._log_metrics(epoch, "train", nbatches - 1, cur_lr, metrics)
+            if nbatches == 0:
+                raise ValueError("Dataset size less than batch size!")
+            # fetch the last step's loss BEFORE taking the epoch time: the loop
+            # above only enqueues work, the scalar fetch waits for the epoch's
+            # final step, so the logged rate is honest
+            epoch_train_loss = float(metrics["total_loss"])
+            dt = time.time() - t0
+            log.info(f"epoch {epoch}: {nbatches} steps in {dt:.2f}s "
+                     f"({nbatches * batch_size / dt:.1f} img/s)")
+            log.info(f"epoch {epoch}: train_loss {epoch_train_loss:.4f}")
+
+            if epoch % weights_save_peroid == 0:
+                save_all(epoch)
+
+            # validation pass (train.py:80-91). With `ema.use_for_validation`
+            # the pass (and thus early stopping + best-weights restore) runs
+            # on the EMA shadow — the weights one would actually serve.
+            val_src = (train_state["ema"]
+                       if ema_conf and ema_conf.get("use_for_validation") else train_state)
+            val_losses = []
+            val_iter = DevicePrefetcher(
+                batched(ds_val, batch_size, num_workers=stream_workers), dev)
+            for batch_i, (images, labels) in enumerate(val_iter):
+                metrics = eval_step(val_src["params"], val_src["bn_state"], images, labels)
+                # keep the per-batch loss on the device: one stacked fetch
+                # after the loop waits once instead of once per batch
+                val_losses.append(metrics["total_loss"])
+                if verbose:
+                    self._log_metrics(epoch, "val", batch_i, cur_lr, metrics)
+            if val_losses:
+                val_losses = torch.stack(val_losses).cpu().tolist()
+                log.info(f"epoch {epoch}: val_loss {float(np.mean(val_losses)):.4f}")
+
+            if early_stopping and val_losses:
+                val_loss = float(np.mean(val_losses))
+                if val_loss < best_val:
+                    best_val = val_loss
+                    snapshot = lambda t: t.detach().cpu().clone()  # noqa: E731
+                    best_weights = (tree_map(snapshot, val_src["params"]),
+                                    tree_map(snapshot, val_src["bn_state"]))
+                    patience_left = early_stop_patience
+                else:
+                    patience_left -= 1
+                    if patience_left <= 0:
+                        log.info(f"early stopping at epoch {epoch} "
+                                 f"(best val_loss {best_val:.4f})")
+                        if best_weights is not None:
+                            # restore the best weights INTO the train state so
+                            # the final save persists them (Keras EarlyStopping
+                            # restore_best_weights). When validation monitored
+                            # the EMA shadow the best snapshot is an EMA one: it
+                            # goes back into the shadow, and the raw params stay
+                            # coherent with the optimizer moments for resume.
+                            p, s = (to_device(t, dev) for t in best_weights)
+                            if ema_conf and ema_conf.get("use_for_validation"):
+                                train_state = dict(train_state,
+                                                   ema={"params": p, "bn_state": s})
+                            else:
+                                train_state = dict(train_state, params=p, bn_state=s)
+                        break
+
+        # final save so short runs always leave a checkpoint, stamped with the
+        # actual last epoch so resume accounting stays correct
+        save_all(last_epoch)
+        if step_seconds:
+            d = np.asarray(step_seconds)
+            log.info("step timing (host enqueue): " + str({
+                "steps": len(d), "mean_ms": float(d.mean() * 1000),
+                "p50_ms": float(np.percentile(d, 50) * 1000),
+                "p95_ms": float(np.percentile(d, 95) * 1000)}))
+        return train_state
+
+    @staticmethod
+    def _log_metrics(epoch, split, batch, lr, metrics):
+        # format parity with reference train.py:70-75
+        per_grid = [float(x) for x in metrics["per_grid"].cpu()]
+        per_source = metrics["per_source"].cpu().numpy()
+        pgs = [list(map(float, row)) for row in metrics["per_grid_per_source"].cpu()]
+        log.info(
+            f"{epoch}_{split}_{batch}_lr:{lr:.6f}, "
+            f"totLoss:{float(metrics['total_loss'])}, "
+            f"perGrid{per_grid}, "
+            f"perSource[xy,wh,obj,class]:{per_source}, "
+            f"perGridPerSource:{pgs}"
+        )

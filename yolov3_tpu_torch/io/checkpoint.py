@@ -4,7 +4,10 @@ Counterpart of ``yolov3_tpu/io/checkpoint.py`` (native format only): one
 ``.npz`` of flattened tree leaves keyed by '/'-joined paths plus a JSON
 manifest, written atomically. The trees here are JAX-layout numpy trees
 (HWIO kernels); ``models/convert.py`` turns them into the port's tensors,
-so one file serves both packages.
+so one file serves both packages. ``save_train_state`` / ``load_train_state``
+do that for a whole train state (params, BN state, optimizer moments, step,
+EMA): the file they write is the JAX package's ``.train_state.npz``, its
+optimizer state flattened by position, and either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -47,6 +50,12 @@ def save_checkpoint(path: str, tree, step: int | None = None):
             os.unlink(tmp)
 
 
+def checkpoint_keys(path: str):
+    """Array key names of a native checkpoint without loading the arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        return [k for k in z.files if k != _MANIFEST_KEY]
+
+
 def load_checkpoint(path: str, like=None, partial: bool = False):
     """Load a native checkpoint → ``(tree, step)``. With ``like`` (a template
     tree of numpy arrays) leaves are restored into its structure and dtypes;
@@ -72,6 +81,8 @@ def load_checkpoint(path: str, like=None, partial: bool = False):
 def _unflatten_like(like, flat, prefix=""):
     if isinstance(like, dict):
         return {k: _unflatten_like(v, flat, f"{prefix}{k}/") for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return tuple(_unflatten_like(v, flat, f"{prefix}{i}/") for i, v in enumerate(like))
     arr = flat.get(prefix[:-1])
     if arr is None:  # partial load: keep the template's value
         return like
@@ -91,3 +102,20 @@ def _nest(flat):
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return root
+
+
+def save_train_state(path: str, train_state, optimizer, step: int | None = None):
+    """The port's full train state → ``path`` in the JAX package's key layout."""
+    from ..models.convert import train_state_to_jax
+
+    save_checkpoint(path, train_state_to_jax(train_state, optimizer), step=step)
+
+
+def load_train_state(path: str, like, optimizer, device="cpu"):
+    """Load a full train state into the structure of ``like`` (a train state
+    of the port, e.g. a fresh ``init_train_state``) → ``(train_state, step)``.
+    Strict: a missing key raises, so a resume never drops optimizer state."""
+    from ..models.convert import train_state_from_jax, train_state_to_jax
+
+    tree, step = load_checkpoint(path, like=train_state_to_jax(like, optimizer))
+    return train_state_from_jax(tree, optimizer, device), step

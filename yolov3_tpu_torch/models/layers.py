@@ -11,7 +11,8 @@ reference's Keras layer stack (core/parse_model.py:13-213):
   * convolutional: Darknet padding — 'SAME' for stride 1 (``p=(k-1)//2``
     before, ``k-1-p`` after), explicit ((1,0),(1,0)) zero-pad + VALID for
     stride 2; bias only when no BN; LeakyReLU(0.1).
-  * batch norm (inference): Keras eps 1e-3, ``(x-mean)·gamma·rsqrt(var+eps)+beta``.
+  * batch norm: Keras eps 1e-3, ``(x-mean)·gamma·rsqrt(var+eps)+beta``; in
+    training the batch statistics come from the K5 kernels, momentum 0.99.
   * upsample: nearest-neighbour ×stride.
   * maxpool: Keras MaxPooling2D; 'same' pads are the asymmetric TF ones
     (``_pool_same_pads``: tiny's 2×2 stride-1 pool pads (0, 1)).
@@ -29,11 +30,13 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda.bn_stats import bn_moments
 from ..ops.cuda.conv1x1 import conv1x1_int8_requant
 from ..ops.cuda.conv_int8 import conv_int8
 from ..ops.cuda.requant import requant_clip
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 LEAKY_SLOPE = 0.1
 
 
@@ -59,12 +62,37 @@ def conv2d(x, kernel, stride: int, pad: int, explicit_pad=None):
     return F.conv2d(x, kernel.to(x.dtype), stride=stride)
 
 
-def batch_norm(x, bn_params, bn_state, eps=BN_EPS):
-    """Inference-mode BatchNorm over channel axis 1 with running statistics."""
-    scale = bn_params["gamma"] * torch.rsqrt(bn_state["var"] + eps)
+def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM, eps=BN_EPS,
+               phases: int = 1):
+    """Functional BatchNorm over channel axis 1. Returns ``(y, new_state)``.
+
+    In training mode the statistics are the batch's mean and biased variance
+    over (N, H, W), computed in f32 whatever ``x``'s dtype by
+    ``ops/cuda/bn_stats.py::bn_moments`` (on a CUDA tensor its CUDA kernels,
+    forward and backward), and the running statistics move by ``momentum``.
+    Normalization runs in ``x``'s dtype with ``mean.to(x.dtype)``, as the JAX
+    package's does. The new state is detached: no gradient flows into it.
+
+    ``phases > 1`` (the statistics of the space-to-depth training stem) is
+    not carried by the port yet.
+    """
+    if phases != 1:
+        raise NotImplementedError("batch_norm: phases > 1 (the space-to-depth training "
+                                  "stem's statistics) is not ported yet")
+    if train:
+        mean, var = bn_moments(x)
+        new_state = {
+            "mean": (momentum * bn_state["mean"] + (1.0 - momentum) * mean).detach(),
+            "var": (momentum * bn_state["var"] + (1.0 - momentum) * var).detach(),
+        }
+    else:
+        mean, var = bn_state["mean"], bn_state["var"]
+        new_state = bn_state
+    scale = bn_params["gamma"] * torch.rsqrt(var + eps)
     shape = (1, -1, 1, 1)
-    return ((x - bn_state["mean"].to(x.dtype).view(shape))
-            * scale.to(x.dtype).view(shape) + bn_params["beta"].to(x.dtype).view(shape))
+    y = ((x - mean.to(x.dtype).view(shape))
+         * scale.to(x.dtype).view(shape) + bn_params["beta"].to(x.dtype).view(shape))
+    return y, new_state
 
 
 def leaky_relu(x, slope=LEAKY_SLOPE):

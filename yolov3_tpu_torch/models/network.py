@@ -25,6 +25,7 @@ conv asks for is free and nothing bounces between layouts per layer.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from . import layers as L
 from .spec import LayerSpec, ModelSpec, SubModelSpec
@@ -65,8 +66,13 @@ def _pool_int8(q, size_xy, stride_xy, padding):
 
 
 def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
-                     nclasses: int, fp_dtype, conv_observer=None, out_observer=None):
+                     nclasses: int, fp_dtype, conv_observer=None, out_observer=None,
+                     bn_train: bool = False, new_state=None):
     """Run one sub-model's layer list; returns its selected outputs.
+
+    ``bn_train`` runs every BatchNorm on the batch's statistics; each BN
+    layer's new running statistics go into the dict ``new_state`` (when one
+    is given) under the layer's key.
 
     ``conv_observer(sm_name, layer_key, x)`` is called with each conv's
     input and ``out_observer(sm_name, layer_key, x)`` with each layer's
@@ -98,7 +104,9 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                 x = L.conv2d(_deq(x, fp_dtype), p["kernel"], layer["stride"],
                              layer.get("pad", 1), explicit_pad=layer.get("explicit_pad"))
                 if "bn" in p:
-                    x = L.batch_norm(x, p["bn"], sm_state[key])
+                    x, layer_state = L.batch_norm(x, p["bn"], sm_state[key], bn_train)
+                    if new_state is not None:
+                        new_state[key] = layer_state
                 elif "bias" in p:
                     x = x + p["bias"].to(x.dtype).view(1, -1, 1, 1)
                 if leaky:
@@ -141,29 +149,57 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
 
 
 def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
-                out_observer=None):
-    """Inference forward. ``images``: (B, H, W, 3) float tensor.
+                out_observer=None, train: bool = False, bn_frozen: tuple = (),
+                remat=False):
+    """Forward pass. ``images``: (B, H, W, 3) float tensor.
 
     Returns the list of head outputs ``(B, g, g, 3, 5+nc)`` in the order of
     the sub-models whose name contains ``spec.output_stage`` (13-grid head
-    first for yolov3), in ``images.dtype``. The observers see every conv's
-    input and every layer's output (int8 calibration).
+    first for yolov3), in ``images.dtype``; with ``train=True`` returns
+    ``(outputs, new_state)``, the BatchNorm running statistics after this
+    batch, as the JAX package's ``apply_model`` does. The observers see every
+    conv's input and every layer's output (int8 calibration).
+
+    ``bn_frozen``: substrings of sub-model names whose BN layers keep their
+    running statistics during training (transfer learning's
+    batch_norm_freeze_list). ``remat=True`` checkpoints each sub-model: its
+    activations are recomputed in the backward pass instead of kept; the new
+    BN state is the first forward's, the recomputation's is dropped.
     """
+    if remat == "conv":
+        raise NotImplementedError("remat: conv (save only the conv outputs) is not ported "
+                                  "yet; use remat: true or false")
     x = images.permute(0, 3, 1, 2)
     produced = {}
+    new_state = {}
     for sm in spec.sub_models:
         if sm.inputs is None:
             inputs_entry = x
         else:
             srcs = [produced[name][entry_index] for name, entry_index in sm.inputs]
             inputs_entry = srcs[0] if len(srcs) == 1 else srcs
-        produced[sm.name] = _apply_sub_model(sm, params[sm.name], state.get(sm.name, {}),
-                                             inputs_entry, spec.nclasses, images.dtype,
-                                             conv_observer, out_observer)
+        bn_train = train and not any(s and s in sm.name for s in bn_frozen)
+
+        def run(sm_params, sm_state, inputs, _sm=sm, _bn=bn_train):
+            sm_new_state = {}
+            outs = _apply_sub_model(_sm, sm_params, sm_state, inputs, spec.nclasses,
+                                    images.dtype, conv_observer, out_observer,
+                                    bn_train=_bn, new_state=sm_new_state)
+            return outs, sm_new_state
+
+        if remat and train:
+            outs, sm_new_state = torch.utils.checkpoint.checkpoint(
+                run, params[sm.name], state.get(sm.name, {}), inputs_entry,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            outs, sm_new_state = run(params[sm.name], state.get(sm.name, {}), inputs_entry)
+        produced[sm.name] = outs
+        if sm_new_state:
+            new_state[sm.name] = sm_new_state
     outputs = []
     for sm in spec.output_sub_models:
         outputs.extend(produced[sm.name])
-    return outputs
+    return (outputs, new_state) if train else outputs
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +277,16 @@ def to_device(tree, device, dtype=None):
     if isinstance(tree, dict):
         return {k: to_device(v, device, dtype) for k, v in tree.items()}
     return tree.to(device=device, dtype=dtype or tree.dtype)
+
+
+def l2_regularization(params, decay: float):
+    """Keras l2(decay) on every conv kernel, frozen or not: decay · Σ w², in f32."""
+    total = 0.0
+    for sm_params in params.values():
+        for entry in sm_params.values():
+            k = entry["kernel"].float()
+            total = total + torch.sum(k * k)
+    return decay * total
 
 
 def fold_batch_norm(params, state, eps: float = L.BN_EPS):

@@ -8,6 +8,9 @@
     ``yolov3_tpu/ops/pallas/conv1x1.py::conv1x1_int8_requant``;
   * ``resblock.fused_resblock`` (K4, ``csrc/resblock_int8.cu``) replaces
     ``yolov3_tpu/ops/pallas/resblock.py::fused_resblock``;
+  * ``bn_stats.bn_moments`` (K5, ``csrc/bn_stats.cu``: ``bn_sums`` forward,
+    ``bn_moments_dx`` backward) replaces
+    ``yolov3_tpu/ops/pallas/bn_stats.py::bn_sums`` / ``bn_moments``;
   * ``conv_int8.conv_int8`` (K6, ``csrc/conv_int8.cu``) is the int8 k×k conv
     that the JAX package leaves to XLA and PyTorch does not have on CUDA;
   * ``csrc/requant.cuh`` (K0) is the int8 epilogue K3, K4 and K6 share, the

@@ -28,7 +28,8 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
-SOURCES = ("nms_sweep", "round_sweep", "conv1x1_int8", "conv_int8", "resblock_int8")
+SOURCES = ("nms_sweep", "round_sweep", "conv1x1_int8", "conv_int8", "resblock_int8",
+           "bn_stats")
 # sm_90a: Hopper's arch-specific target. --fmad=false keeps every a*b+c two
 # roundings, as the element-wise PyTorch ops of the plain versions do; no
 # --use_fast_math, so division stays div.rn.
