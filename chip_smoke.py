@@ -27,14 +27,18 @@ Phases (any failure exits non-zero):
      and f32 outputs, leaky on and off, at the largest and smallest
      YOLOv3-416 B=16 shapes and one ragged M; times, bound, and
      torch._int_mm + a torch epilogue as the library yardstick;
-  8. K6 (int8 k×k conv) against its plain version, bit-equal, for 3×3
-     stride 1 and 2 and both convs of the space-to-depth stem; times,
-     bound, and a cuDNN TF32 conv of the int8 values + torch epilogue as
-     the library yardstick;
+  8. K6 (int8 k×k conv) against its plain version, bit-equal, at ten
+     YOLOv3-416 shapes: 3×3 stride 1 and 2 at 26², both convs of the
+     space-to-depth stem, one 3×3 stride-1 conv per stage at B=16 and the
+     head's 13² conv at the serving buckets 1 and 4; for each the path the
+     launch took (wgmma or mma.sync, read off the profiled kernel's name),
+     tile, grid, times, TOP/s, bound, and a cuDNN TF32 conv of the int8
+     values + torch epilogue as the library yardstick;
   9. the int8 tiers at full width: YOLOv3-416 calibrated on the smoke
      images, ``int8`` and ``int8_chain``: the card against the CPU on the
      same quantized params (every quantized layer bit-equal, heads 1e-3),
-     device forward ms at B=16, K3/K6 launches per forward;
+     device forward ms at B=16, K3/K6 launches per forward, and K6's launches
+     of one forward grouped by shape (count, ms, bound) from the profiler;
  10. K4 (fused int8 residual block): every residual stage of that
      chain-quantized model through K4 chained in halo layout against the
      unfused chain K3 → K6 → add_requant on the same int8 input (bit-equal),
@@ -46,11 +50,14 @@ Phases (any failure exits non-zero):
      fp32 detections (printed);
  13. K5 (BatchNorm statistics, forward and backward) against its plain
      version at B=16 shapes of YOLOv3-416 (C=32 at 416², 64 at 208², 256 at
-     52², 1024 at 13²) and one odd shape, f32 and bf16, channels-last and
-     NCHW memory: sums within 1e-5 of Σ|x| and Σx² against float64, two
-     launches bit-identical, dx bit-equal to the plain version; times, the
-     byte bound, and torch.var_mean / torch.batch_norm_stats as the library
-     yardstick;
+     52², 512 at 26², 1024 at 13²) and one odd shape, f32 and bf16,
+     channels-last and NCHW memory: sums within 1e-5 of Σ|x| and Σx² against
+     float64, two launches bit-identical, mean and var bit-equal to the plain
+     expression evaluated on the card, dx bit-equal to the plain version, one
+     device launch a call each way (profiler); the event-loop time, the
+     device time of one call and the host's µs a call, the byte bound, and
+     torch.var_mean / torch.batch_norm_stats as the library yardstick; then
+     two calls at once on two streams;
  14. one training forward and backward of YOLOv3-416 at B=2, seeded weights
      and labels, fp32 without TF32, the card against the CPU: targets
      bit-equal, loss terms 1e-4 relative, new BN state 1e-4, and every
@@ -62,7 +69,8 @@ Phases (any failure exits non-zero):
      ``mixed_precision``: finite falling loss, K5 launches 72 × steps each
      way, the three checkpoint files, a resumed eleventh epoch, the serving
      predictor answering from the trained checkpoint; ms per step, img/s,
-     peak memory and K5's share of a step's device time.
+     peak memory, device launches per step (72 + 72 of them K5's) and K5's
+     share of a step's device time.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -95,10 +103,20 @@ SERVE_WINDOW_S = {"fp32": 10.0, "bf16": 10.0, "int8": 10.0}
 # an image may differ end to end between card and CPU only where a
 # decision of greedy NMS sits within this margin of flipping
 NEAR_TIE = 1e-5
+# launches of torch.cuda._sleep that open every profiler window (see device_time_by_kernel)
+PROFILER_LEAD_LAUNCHES = 1000
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def timed(name, phase, *args):
+    """Run one phase and log the seconds it took."""
+    t0 = time.monotonic()
+    out = phase(*args)
+    log(f"phase {name}: {time.monotonic() - t0:.1f} s")
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -112,6 +130,20 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps):
+    """Mean host microseconds one call of ``fn`` takes to return: a host clock
+    over ``reps`` calls that the device is never waited for, one synchronize
+    before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
 
 
 def max_abs(a, b) -> float:
@@ -536,25 +568,20 @@ def phase_k3(conv1x1):
 
 
 def phase_k6(conv_int8):
-    """K6 at four YOLOv3-416 B=16 shapes. The library yardstick is a cuDNN
-    convolution in TF32 over the int8 values as channels-last floats,
-    followed by the epilogue as element-wise torch ops."""
+    """K6 at ten YOLOv3-416 shapes (``kernel_times.K6_SHAPES``): the main-path
+    conv and the strided conv of its stage, both convs of the space-to-depth
+    stem, one 3×3 stride-1 conv per stage at B=16 and the head's 13² conv at
+    the serving buckets 1 and 4. The library yardstick is a cuDNN convolution
+    in TF32 over the int8 values as channels-last floats, followed by the
+    epilogue as element-wise torch ops."""
     import torch.nn.functional as F
 
+    from yolov3_tpu_torch.ops.cuda.kernel_times import K6_SHAPES, conv_case
     from yolov3_tpu_torch.ops.cuda.requant import conv_epilogue
 
     results = []
-    for name, hw, cin, cout, k, stride, pad in (
-            ("3x3 s1 26^2 256->512", 26, 256, 512, 3, 1, ((1, 1), (1, 1))),
-            ("3x3 s2 52^2->26^2 256->512", 52, 256, 512, 3, 2, ((1, 0), (1, 0))),
-            ("s2d stem conv0 4x4 s2 416^2 3->128", 416, 3, 128, 4, 2, ((1, 2), (1, 2))),
-            ("s2d stem conv1 2x2 s1 208^2 128->64", 208, 128, 64, 2, 1, ((1, 0), (1, 0)))):
-        rng = np.random.RandomState(cout + k)
-        x = tensor(rng.randint(-127, 128, (16, hw, hw, cin)).astype(np.int8))
-        kq = tensor(rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8))
-        scale = tensor((rng.rand(cout) * 2e-5 + 1e-6).astype(np.float32))
-        bias = tensor(rng.randn(cout).astype(np.float32))
-        inv = tensor(np.float32([1 / 0.0529]))
+    for name, batch, hw, cin, cout, k, stride, pad in K6_SHAPES:
+        x, kq, scale, bias, inv = conv_case(batch, hw, cin, cout, k)
         kw = dict(stride=stride, padding=pad, leaky=True)
         equal, err = True, 0.0
         for out_dtype in (torch.int8, torch.float32):
@@ -563,6 +590,7 @@ def phase_k6(conv_int8):
             want = conv_int8.conv_int8_plain(x, kq, scale, bias, inv, out_dtype=out_dtype, **kw)
             equal &= torch.equal(got, want)
             err = max(err, max_abs(got.float(), want.float()))
+            del want
         ms = cuda_ms(lambda: conv_int8.conv_int8(x, kq, scale, bias, inv, **kw), 30)
         plain_ms = cuda_ms(lambda: conv_int8.conv_int8_plain(x, kq, scale, bias, inv, **kw), 2)
         xf = x.permute(0, 3, 1, 2).float()  # NCHW view of channels-last memory
@@ -581,42 +609,66 @@ def phase_k6(conv_int8):
         b, ho, wo, _ = got.shape
         bound_ms, bound_by, need, ops = conv_bound(
             x.numel(), kq.numel(), b * ho * wo * cout, cout, b * ho * wo * cout * k * k * cin)
-        row = dict(shape=name, B=16, equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        plan = conv_int8.plan(b * ho * wo, cin, cout, k * k * cin)
+        profiled = device_time_by_kernel(lambda: conv_int8.conv_int8(x, kq, scale, bias, inv, **kw))
+        if profiled is None or len(profiled[5]) != 1:
+            raise AssertionError(f"K6 at {name}: expected one device launch, profiler saw "
+                                 f"{profiled and profiled[5]}")
+        kernel_name, device_ms = profiled[5][0]
+        launched = "wgmma" if "wgmma" in kernel_name else "mma.sync"
+        row = dict(shape=name, B=batch, path=launched, tile=plan["tile"], grid=plan["grid"],
+                   equal=equal, max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=need,
                    ops=ops, tops=ops / ms / 1e9)
         log(f"K6 conv_int8 {json.dumps(row)}")
         if not equal:
             raise AssertionError(f"K6 differs from its plain version at {name}")
+        if launched != plan["path"] or launched != ("wgmma" if cin % 16 == 0 else "mma.sync"):
+            raise AssertionError(f"K6 took the wrong path at {name}: launched {kernel_name}, "
+                                 f"plan {plan}")
         results.append(row)
+        del x, kq, xf, wf, got
+        torch.cuda.empty_cache()
     return results
 
 
 def device_time_by_kernel(fn):
     """One call of ``fn`` under torch.profiler → (ms the device was busy, {kernel name: ms},
-    launches on the device, host ms of the call, {torch op: [calls, device ms]}).
+    launches on the device, host ms of the call, {torch op: [calls, device ms]},
+    [(kernel name, ms), ...] in the order the device started them).
     ``None`` when the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # lead-in: the profiler drops the first device records of a window, one
+        # or two of them some twenty seconds after a process's first window
+        # and more later (its device clock drifts against the host's), so the
+        # window opens with launches nobody reads and fn's come well inside it
+        for _ in range(PROFILER_LEAD_LAUNCHES):
+            torch.cuda._sleep(64)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-    by_name, count = {}, 0
+    by_name, count, started = {}, 0, []
     for e in prof.events():
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+        if (getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.name):
             us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0) or 0
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
             count += 1
+            started.append((e.time_range.start, e.name, us / 1e3))
     total = sum(by_name.values())
+    in_order = [(name, ms) for _, name, ms in sorted(started)]
     ops = {}
     for e in prof.key_averages():  # the torch ops that launched them, by device time
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         if us and e.key.startswith("aten::"):
             ops[e.key] = [e.count, us / 1e3]
-    return (total, by_name, count, host_ms, ops) if total > 0 else None
+    return (total, by_name, count, host_ms, ops, in_order) if total > 0 else None
 
 
 def kernel_share(profiled):
@@ -624,13 +676,69 @@ def kernel_share(profiled):
     share of K3 and K6 in it, device launches, and the host's enqueue ms."""
     if profiled is None:
         return "not measured (the profiler showed no device time)"
-    total, by_name, count, host_ms, ops = profiled
+    total, by_name, count, host_ms, ops, _ = profiled
     pick = lambda key: sum(ms for name, ms in by_name.items() if key in name)  # noqa: E731
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(device_busy_ms=total, conv1x1_int8_ms=pick("conv1x1_int8_kernel"),
-                conv_int8_ms=pick("conv_int8_kernel"), device_launches=count,
+                conv_int8_ms=pick("conv_int8_"), device_launches=count,
                 host_enqueue_ms=host_ms, top=[[n[:60], ms] for n, ms in top],
                 torch_ops=dict(sorted(ops.items(), key=lambda kv: -kv[1][1])[:10]))
+
+
+def profile_recording_k6(conv_int8, forward):
+    """``device_time_by_kernel(forward)`` with every K6 call of the profiled
+    run recorded as (B, H, W, Cin, Cout, k, stride, Ho, Wo), in call order."""
+    from yolov3_tpu_torch.models import layers
+
+    runs, real = [], layers.conv_int8
+
+    def recording(xq, kq, *args, **kw):
+        b, h, w, cin = xq.shape
+        cout, k = kq.shape[0], kq.shape[1]
+        runs[-1].append((b, h, w, cin, cout, k, kw["stride"],
+                         conv_int8.out_size(h, k, kw["stride"], kw["padding"][0]),
+                         conv_int8.out_size(w, k, kw["stride"], kw["padding"][1])))
+        return real(xq, kq, *args, **kw)
+
+    def recorded_forward():
+        runs.append([])
+        return forward()
+
+    layers.conv_int8 = recording
+    try:
+        profiled = device_time_by_kernel(recorded_forward)
+    finally:
+        layers.conv_int8 = real
+    return profiled, runs[-1]  # the last run is the one the profile shows
+
+
+def k6_launches_by_shape(profiled, calls):
+    """K6's launches of one forward grouped by shape, largest launches × gap
+    first: count, device ms of one launch (mean), its bound, and count ×
+    (ms − bound). The profiler's K6 kernels, in device order, are matched to
+    the recorded calls one to one."""
+    if profiled is None:
+        return "not measured (the profiler showed no device time)"
+    kernels = [(n, ms) for n, ms in profiled[5] if "conv_int8_" in n]
+    if len(kernels) != len(calls):
+        raise AssertionError(f"{len(calls)} K6 calls but {len(kernels)} K6 kernels profiled")
+    groups = {}
+    for (b, h, w, cin, cout, k, stride, ho, wo), (name, ms) in zip(calls, kernels):
+        key = f"{k}x{k} s{stride} {h}^2 {cin}->{cout}"
+        bound_ms, bound_by, _, ops = conv_bound(b * h * w * cin, cout * k * k * cin,
+                                                b * ho * wo * cout, cout,
+                                                b * ho * wo * cout * k * k * cin)
+        g = groups.setdefault(key, dict(shape=key, count=0, ms_sum=0.0, bound_ms=bound_ms,
+                                        bound_by=bound_by, ops=ops,
+                                        path="wgmma" if "wgmma" in name else "mma.sync"))
+        g["count"] += 1
+        g["ms_sum"] += ms
+    rows = []
+    for g in groups.values():
+        ms = g.pop("ms_sum") / g["count"]
+        rows.append(dict(g, ms=ms, tops=g["ops"] / ms / 1e9,
+                         launches_x_gap_ms=g["count"] * (ms - g["bound_ms"])))
+    return sorted(rows, key=lambda r: -r["launches_x_gap_ms"])
 
 
 def smoke_images(bodies, n, size=416):
@@ -691,8 +799,10 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
             launches = dict(conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
                             conv_int8=conv_int8.conv_int8.launches)
             fwd = cuda_ms(lambda: models.apply_model(spec, q, {}, batch), 5)
-            profiled = kernel_share(device_time_by_kernel(
-                lambda: models.apply_model(spec, q, {}, batch)))
+            raw, k6_calls = profile_recording_k6(
+                conv_int8, lambda: models.apply_model(spec, q, {}, batch))
+            profiled = kernel_share(raw)
+            k6_by_shape = k6_launches_by_shape(raw, k6_calls)
         predictor = inference_app.make_predictor(
             spec0, params, state, anchors, len(names), 100, 0.5, 0.1, quantize=mode,
             calibration_batches=calibration, image_size=416)
@@ -706,7 +816,7 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
                    first_unequal=[list(t) for t in unequal[:3]], head_max_abs_err=head_err,
                    forward_ms_b16=fwd, predictor_ms_b16=predictor_ms,
                    detections_b16=int(num_valid.sum()), launches_per_forward=launches,
-                   profile=profiled)
+                   profile=profiled, conv_int8_by_shape=k6_by_shape)
         log(f"int8 forward YOLOv3-416 card vs CPU {json.dumps(row)}")
         if unequal or not finite or head_err > 1e-3:
             raise AssertionError(f"{mode}: the card disagrees with the CPU: {row}")
@@ -844,13 +954,39 @@ def phase_trained_int8(inference_app, models, nms_mod):
 
 def phase_k5(bn_stats):
     """K5 forward and backward at B=16 shapes of YOLOv3-416 and one odd
-    shape, f32 and bf16, both memory formats. The library yardsticks are
-    torch.batch_norm_stats (one call: mean and invstd) and torch.var_mean
-    (biased); neither is used by the port."""
+    shape (``kernel_times.K5_SHAPES``), f32 and bf16, both memory formats.
+    Beside ``ms`` (a loop of calls between two events: the larger of the
+    host's and the device's cost of a call) each row has the device time of
+    one call from torch.profiler and the host's microseconds a call. The
+    library yardsticks are torch.batch_norm_stats (one call: mean and invstd)
+    and torch.var_mean (biased); neither is used by the port. Then two calls
+    at once on two streams."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import K5_SHAPES
+
+    def one_launch_each(x, mean, dmean, dvar):
+        """Device µs of one forward and one backward call, which must be one
+        launch each: both run in one profiler window."""
+        def both():
+            moments_no_grad(x)
+            bn_stats.bn_moments_dx(x, mean, dmean, dvar)
+
+        profiled = device_time_by_kernel(both)
+        if profiled is None:
+            raise AssertionError("K5: the profiler showed no device time")
+        names = [n for n, _ in profiled[5]]
+        if len(names) != 2 or "bn_moments_" not in names[0] or "bn_dx_kernel" not in names[1]:
+            raise AssertionError(f"K5: expected one launch of bn_moments_* and one of "
+                                 f"bn_dx_kernel, saw {names}")
+        return profiled[5][0][1] * 1e3, profiled[5][1][1] * 1e3
+
+    def moments_no_grad(x):
+        with torch.no_grad():
+            return bn_stats.bn_moments(x)
+
     results = []
-    for shape in ((16, 32, 416, 416), (16, 64, 208, 208), (16, 256, 52, 52),
-                  (16, 1024, 13, 13), (3, 32, 5, 7)):
+    for shape in K5_SHAPES:
         b, c, h, w = shape
+        n = b * h * w
         gen = torch.Generator(device="cuda").manual_seed(c * h)
         base = torch.randn(shape, generator=gen, device="cuda") * 2.0
         base += torch.randn((1, c, 1, 1), generator=gen, device="cuda") * 3.0
@@ -876,7 +1012,12 @@ def phase_k5(bn_stats):
                 plain_err = max(float(((ps.double() - ref_s).abs() / ref_abs).max()),
                                 float(((pq.double() - ref_q).abs() / ref_q).max()))
                 del ref_s, ref_abs, ref_q
-                mean = s1 / (b * h * w)
+                # the kernel's mean and var against the plain expression, evaluated
+                # by PyTorch on the card from the kernel's own sums
+                mean, var = moments_no_grad(x)
+                want_mean = s1 / n
+                want_var = torch.clamp(q1 / n - want_mean * want_mean, min=0.0)
+                moments_equal = torch.equal(mean, want_mean) and torch.equal(var, want_var)
                 dx = bn_stats.bn_moments_dx(x, mean, dmean, dvar)
                 torch.cuda.synchronize()
                 want = bn_stats.bn_moments_dx_plain(x, mean, dmean, dvar)
@@ -884,26 +1025,36 @@ def phase_k5(bn_stats):
                             and dx.stride() == x.stride())
                 dx_err = max_abs(dx.float(), want.float())
                 del dx, want
-                ms = cuda_ms(lambda: bn_stats.bn_sums(x), reps)
+                ms = cuda_ms(lambda: moments_no_grad(x), reps)
+                device_us, dx_device_us = one_launch_each(x, mean, dmean, dvar)
+                call_us = host_us(lambda: moments_no_grad(x), reps)
                 plain_ms = cuda_ms(lambda: bn_stats.bn_sums_plain(x), 5)
                 dx_ms = cuda_ms(lambda: bn_stats.bn_moments_dx(x, mean, dmean, dvar), reps)
+                dx_call_us = host_us(lambda: bn_stats.bn_moments_dx(x, mean, dmean, dvar), reps)
                 dx_plain_ms = cuda_ms(
                     lambda: bn_stats.bn_moments_dx_plain(x, mean, dmean, dvar), 5)
                 # yardsticks, timed here and used nowhere in the port
                 stats_ms = cuda_ms(lambda: torch.batch_norm_stats(x, 1e-3), reps)
+                stats_us = host_us(lambda: torch.batch_norm_stats(x, 1e-3), reps)
                 var_mean_ms = cuda_ms(
                     lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0), reps)
                 nbytes = x.numel() * x.element_size()
                 row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
                            memory="channels_last" if channels_last else "nchw",
-                           equal=same_bits and dx_equal and err <= bn_stats.SUM_RTOL,
+                           plan=list(bn_stats._plan(channels_last, b, c, h * w)),
+                           equal=(same_bits and dx_equal and moments_equal
+                                  and err <= bn_stats.SUM_RTOL),
                            bit_identical_relaunch=same_bits, max_abs_err=err,
-                           plain_sum_err=plain_err, dx_equal=dx_equal, dx_max_abs_err=dx_err,
-                           ms=ms, plain_ms=plain_ms, library_ms=min(stats_ms, var_mean_ms),
-                           batch_norm_stats_ms=stats_ms, var_mean_ms=var_mean_ms,
-                           bound_ms=(nbytes + 8 * c) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                           plain_sum_err=plain_err, moments_equal=moments_equal,
+                           dx_equal=dx_equal, dx_max_abs_err=dx_err,
+                           ms=ms, device_us=device_us, host_us=call_us, launches_per_call=1,
+                           plain_ms=plain_ms, library_ms=min(stats_ms, var_mean_ms),
+                           batch_norm_stats_ms=stats_ms, batch_norm_stats_host_us=stats_us,
+                           var_mean_ms=var_mean_ms,
+                           bound_ms=(nbytes + 16 * c) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                            bytes=nbytes, gb_per_s=nbytes / ms / 1e6,
-                           backward_ms=dx_ms, backward_plain_ms=dx_plain_ms,
+                           backward_ms=dx_ms, backward_device_us=dx_device_us,
+                           backward_host_us=dx_call_us, backward_plain_ms=dx_plain_ms,
                            backward_bound_ms=(2 * nbytes + 12 * c) / HBM_BYTES_PER_S * 1e3,
                            backward_gb_per_s=2 * nbytes / dx_ms / 1e6)
                 log(f"K5 bn_stats {json.dumps(row)}")
@@ -914,6 +1065,24 @@ def phase_k5(bn_stats):
                 del x
         del base
         torch.cuda.empty_cache()
+
+    # two calls at once on two streams: each stream has its own workspace
+    inputs = [torch.randn((16, 256, 52, 52), device="cuda") + 1.0,
+              torch.randn((16, 64, 208, 208), device="cuda") * 3.0]
+    want = [[t.clone() for t in moments_no_grad(x)] for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(10):
+        for i, (stream, x) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(stream):
+                got[i].append(moments_no_grad(x))
+    torch.cuda.synchronize()
+    streams_equal = all(torch.equal(m, want[i][0]) and torch.equal(v, want[i][1])
+                        for i in range(2) for m, v in got[i])
+    log(f"K5 bn_stats two streams {json.dumps(dict(calls=20, equal=streams_equal))}")
+    if not streams_equal:
+        raise AssertionError("K5: concurrent calls on two streams disagree with serial ones")
     return results
 
 
@@ -1170,13 +1339,15 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
             if profiled is None:
                 share = "not measured (the profiler showed no device time)"
             else:
-                total, by_name, count, host_ms, _ = profiled
+                total, by_name, count, host_ms, _, in_order = profiled
                 pick = lambda key: sum(ms for n, ms in by_name.items() if key in n)  # noqa: E731
-                k5_fwd = pick("bn_sums_") + pick("bn_fold_kernel")
-                k5_bwd = pick("bn_dx_kernel") + pick("bn_coef_kernel")
+                k5_fwd, k5_bwd = pick("bn_moments_"), pick("bn_dx_kernel")
+                k5_device_launches = sum("bn_moments_" in n or "bn_dx_kernel" in n
+                                         for n, _ in in_order)
                 top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
                 share = dict(device_busy_ms=total, k5_forward_ms=k5_fwd, k5_backward_ms=k5_bwd,
                              k5_share=(k5_fwd + k5_bwd) / total, device_launches=count,
+                             k5_device_launches=k5_device_launches,
                              host_enqueue_ms=host_ms, top=[[n[:60], ms] for n, ms in top])
             del state, train_state, predictor
             row = dict(tier=tier, card=smi, epochs=10, steps=steps, batch=16, image_size=416,
@@ -1198,6 +1369,8 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                   and launches == [72 * steps, 72 * steps] and all(written)
                   and len(resumed) == 1 and "at epoch 11" in resumed[0]
                   and resumed_epochs == ["11"] and served_ok)
+            if isinstance(share, dict) and share["k5_device_launches"] != 144:
+                ok = False  # one launch forward and one backward for each of the 72 layers
             if not ok:
                 raise AssertionError(f"the trainer's run failed its checks: {row}")
             total_launches[0] += launches[0]
@@ -1236,39 +1409,39 @@ def main() -> int:
     build.build_all()
     log(f"kernels built in {build.build_seconds:.1f}s into {build.BUILD_DIR}")
 
-    k1 = phase_k1(nms_mod, nms_kernel)
-    k2 = phase_k2(round_sweep)
-    serve_rows, launches = phase_serve(inference_app, serve_app, models, decode, nms_mod,
-                                       nms_kernel, round_sweep)
-    phase_trained(inference_app, models, decode, nms_mod)
+    k1 = timed("K1", phase_k1, nms_mod, nms_kernel)
+    k2 = timed("K2", phase_k2, round_sweep)
+    serve_rows, launches = timed("serve fp32 + bf16", phase_serve, inference_app, serve_app,
+                                 models, decode, nms_mod, nms_kernel, round_sweep)
+    timed("trained tiny", phase_trained, inference_app, models, decode, nms_mod)
 
     # the int8 tiers: kernels against their plain versions, the full-width
     # forward, K4's stage runs, then the int8 tier served (K3 and K6 counted
     # over that window alone) and the trained tiny model
-    k3 = phase_k3(conv1x1)
-    k6 = phase_k6(conv_int8)
+    k3 = timed("K3", phase_k3, conv1x1)
+    k6 = timed("K6", phase_k6, conv_int8)
     bodies = encoded_requests()
-    int8_rows, chain, batch = phase_int8_forward(models, inference_app, bodies, conv1x1,
-                                                 conv_int8)
-    k4, k4_launches = phase_k4(models, resblock, chain, batch)
+    int8_rows, chain, batch = timed("int8 forward", phase_int8_forward, models, inference_app,
+                                    bodies, conv1x1, conv_int8)
+    k4, k4_launches = timed("K4", phase_k4, models, resblock, chain, batch)
     del chain, batch
     torch.cuda.empty_cache()
     conv1x1.conv1x1_int8_requant.launches = conv_int8.conv_int8.launches = 0
-    _, int8_serve = serve_tier("int8", inference_app, serve_app, bodies)
+    _, int8_serve = timed("serve int8", serve_tier, "int8", inference_app, serve_app, bodies)
     launches.update(conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
                     conv_int8=conv_int8.conv_int8.launches, resblock_int8=k4_launches)
     log(f"int8 serving launches {json.dumps(launches)}")
     if launches["conv1x1_int8"] == 0 or launches["conv_int8"] == 0:
         raise AssertionError(f"the int8 tier served without K3 or K6: {launches}")
     serve_rows.append(int8_serve)
-    phase_trained_int8(inference_app, models, nms_mod)
+    timed("trained tiny int8", phase_trained_int8, inference_app, models, nms_mod)
 
     # the trainer: K5 against its plain version, one step against the CPU,
     # then Train itself with K5's counts set to 0 just before each run
     torch.cuda.empty_cache()
-    k5 = phase_k5(bn_stats)
-    train_step_row = phase_train_step_vs_cpu(models, bn_stats, bodies)
-    train_rows, k5_launches = phase_trainer(inference_app, bn_stats, bodies, smi)
+    k5 = timed("K5", phase_k5, bn_stats)
+    train_step_row = timed("train step vs CPU", phase_train_step_vs_cpu, models, bn_stats, bodies)
+    train_rows, k5_launches = timed("trainer", phase_trainer, inference_app, bn_stats, bodies, smi)
     launches["bn_stats"] = k5_launches[0]
     if min(k5_launches) == 0:
         raise AssertionError(f"the trainer ran without K5: {k5_launches}")

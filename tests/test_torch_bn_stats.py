@@ -83,6 +83,32 @@ def test_bn_moments_backward_matches_custom_vjp(name, jdtype, tdtype):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_bn_moments_forward_matches_pallas_interpret(shape, channels_last):
+    """mean and biased var of ``bn_moments`` on the CPU against the JAX
+    package's ``bn_moments`` through its Pallas kernel, every shape and both
+    memory formats, f32. Tolerance: rtol 1e-4 / atol 1e-5 (var is a difference
+    of two sums that were taken in two orders)."""
+    x = (np.random.RandomState(11).randn(*shape) * 2 + 0.5).astype(np.float32)
+    jmean, jvar = jax_bn_moments(jnp.asarray(x), True)
+    tmean, tvar = bn_stats.bn_moments(_nchw(x, torch.float32, channels_last))
+    np.testing.assert_allclose(tmean.numpy(), np.asarray(jmean), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tvar.numpy(), np.asarray(jvar), rtol=1e-4, atol=1e-5)
+    assert float(tvar.min()) >= 0.0
+
+
+@pytest.mark.parametrize("b,c,hw", [(16, 32, 416 * 416), (16, 1024, 169), (3, 32, 35)])
+def test_plan_hands_the_kernel_the_f32_reciprocal(b, c, hw):
+    """``_plan`` is cached and pure, and its ``inv_n`` is ``1.0f / f32(n)``:
+    what PyTorch's CUDA division of a tensor by a Python scalar multiplies by."""
+    for channels_last in (True, False):
+        plan = bn_stats._plan(channels_last, b, c, hw)
+        assert plan is bn_stats._plan(channels_last, b, c, hw)
+        assert plan[4] == float(np.float32(1.0) / np.float32(b * hw))
+        assert np.float32(plan[4]) == plan[4]
+
+
 def test_plain_and_wrapper_agree_on_cpu():
     """On a CPU tensor the wrapper IS the plain version, forward and backward."""
     x = torch.from_numpy(np.random.RandomState(5).randn(2, 16, 5, 5).astype(np.float32))

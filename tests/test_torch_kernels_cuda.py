@@ -131,6 +131,62 @@ def test_cuda_conv_int8_equals_plain(cuda_device, b, h, w, cin, cout, k, stride,
     assert tuple(got.shape) == tuple(want.shape) and torch.equal(got, want)
 
 
+# every non-1×1 conv shape class of YOLOv3-416: (hw, cin, cout, stride)
+K6_YOLOV3_CLASSES = [(416, 32, 64, 2), (208, 64, 128, 2), (104, 128, 256, 2), (52, 256, 512, 2),
+                     (26, 512, 1024, 2), (208, 32, 64, 1), (104, 64, 128, 1), (52, 128, 256, 1),
+                     (26, 256, 512, 1), (13, 512, 1024, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,cin,cout,stride", K6_YOLOV3_CLASSES)
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_cuda_conv_int8_yolov3_shapes_equal_plain(cuda_device, hw, cin, cout, stride, b):
+    """K6 at full width at every 3×3 shape class of YOLOv3-416 (each stage,
+    stride 1 and 2), batch buckets 1, 4 and 16, int8 and f32 output: the
+    wgmma path with and without the split contraction. Tolerance: none."""
+    rng = np.random.RandomState(hw + cout + b)
+    x, kq = _int8(rng, (b, hw, hw, cin), cuda_device), _int8(rng, (cout, 3, 3, cin), cuda_device)
+    scale, bias, inv = _epilogue(rng, cout, cuda_device, 2e-5)
+    pad = ((1, 1), (1, 1)) if stride == 1 else ((1, 0), (1, 0))
+    ho = conv_int8.out_size(hw, 3, stride, pad[0])
+    assert conv_int8.plan(b * ho * ho, cin, cout, 9 * cin)["path"] == "wgmma"
+    for out_dtype in (torch.int8, torch.float32):
+        got = conv_int8.conv_int8(x, kq, scale, bias, inv, stride=stride, padding=pad,
+                                  leaky=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = conv_int8.conv_int8_plain(x, kq, scale, bias, inv, stride=stride, padding=pad,
+                                         leaky=True, out_dtype=out_dtype)
+        assert tuple(got.shape) == (b, ho, ho, cout) and torch.equal(got, want)
+        del got, want
+    assert len(torch.unique(conv_int8.conv_int8(x, kq, scale, bias, inv, stride=stride,
+                                                padding=pad, leaky=True))) > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout,k,stride,pad", [
+    (3, 7, 5, 64, 200, 3, 1, ((1, 1), (1, 1))),      # ragged M (105) and N (200 = 128 + 72)
+    (1, 5, 5, 32, 136, 3, 1, ((1, 1), (1, 1))),      # N % 16 = 8: byte stores of int8
+    (2, 9, 9, 16, 7, 3, 1, ((1, 1), (1, 1))),        # odd N, K = 144 (one full k-tile + 16)
+    (1, 13, 13, 512, 1000, 3, 1, ((1, 1), (1, 1))),  # split contraction with a ragged N
+    (5, 6, 7, 80, 72, 5, 2, ((2, 1), (2, 1))),       # 5×5 s2, Cin = 80: taps change mid-tile
+    (2, 8, 8, 1040, 48, 1, 1, ((0, 0), (0, 0))),     # 1×1 through K6, Cin > 1024
+])
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.float32])
+def test_cuda_conv_int8_wgmma_ragged_equals_plain(cuda_device, b, h, w, cin, cout, k, stride,
+                                                  pad, out_dtype):
+    """K6's wgmma path on ragged M, N and contraction ends. Tolerance: none."""
+    rng = np.random.RandomState(cin + cout + k)
+    x, kq = _int8(rng, (b, h, w, cin), cuda_device), _int8(rng, (cout, k, k, cin), cuda_device)
+    scale, bias, inv = _epilogue(rng, cout, cuda_device, 1e-5)
+    for leaky in (True, False):
+        got = conv_int8.conv_int8(x, kq, scale, bias, inv, stride=stride, padding=pad,
+                                  leaky=leaky, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = conv_int8.conv_int8_plain(x, kq, scale, bias, inv, stride=stride, padding=pad,
+                                         leaky=leaky, out_dtype=out_dtype)
+        assert tuple(got.shape) == tuple(want.shape) and torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,cm", [(2, 13, 13, 128, 64), (1, 7, 9, 256, 128),
                                         (3, 5, 6, 64, 32), (2, 30, 17, 96, 48)])
@@ -233,3 +289,92 @@ def test_cuda_bn_stats_raises_on_what_it_does_not_take(cuda_device):
         bn_stats.bn_sums(x.half())
     with pytest.raises(ValueError, match=r"\(B, C, H, W\)"):
         bn_stats.bn_sums(x[0])
+
+
+def _device_kernels(fn):
+    """Names of the kernels one call of ``fn`` ran on the device (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+
+def _moments_on_card(x):
+    """The plain expression of (mean, var) evaluated on the card from K5's own sums."""
+    n = x.numel() // x.shape[1]
+    s, q = bn_stats.bn_sums(x)
+    mean = s / n
+    return mean, torch.clamp(q / n - mean * mean, min=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_SHAPES + [(16, 256, 52, 52)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_cuda_bn_moments_one_launch_and_equal_bits(cuda_device, shape, dtype, channels_last):
+    """K5's forward and backward are one device launch each, and the kernel's
+    mean and var are bit-equal to ``sum / n`` and ``clamp(sumsq / n − mean²,
+    0)`` evaluated by PyTorch on the card from the kernel's sums. Tolerance:
+    none."""
+    x = _activation(sum(shape) + 2, shape, dtype, channels_last, cuda_device)
+    with torch.no_grad():
+        mean, var = bn_stats.bn_moments(x)
+        want_mean, want_var = _moments_on_card(x)
+    assert torch.equal(mean, want_mean) and torch.equal(var, want_var)
+    assert float(var[0]) == 0.0 or float(var[0]) < 1e-3
+    with torch.no_grad():
+        names = _device_kernels(lambda: bn_stats.bn_moments(x))
+    if names:  # the profiler may show no device activity on some machines
+        assert len(names) == 1 and "bn_moments_" in names[0], names
+    dmean, dvar = torch.randn_like(mean), torch.randn_like(var)
+    names = _device_kernels(lambda: bn_stats.bn_moments_dx(x, mean, dmean, dvar))
+    if names:
+        assert len(names) == 1 and "bn_dx_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_cuda_bn_moments_two_streams_and_workspace_growth(cuda_device):
+    """Two calls on two streams at once each get their own workspace and the
+    right answer; a shape that needs a larger workspace after a smaller one
+    on the same stream is right too, and so is the smaller one again."""
+    small = _activation(1, (2, 32, 104, 104), torch.float32, False, cuda_device)
+    large = _activation(2, (16, 1024, 26, 52), torch.float32, False, cuda_device)
+    assert bn_stats._plan(False, 16, 1024, 26 * 52)[0] > 1  # it folds partial rows
+    want = {}
+    for name, x in (("small", small), ("large", large)):
+        want[name] = [t.clone() for t in bn_stats.bn_moments(x)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(20):
+        for i, (stream, x) in enumerate(zip(streams, (large, small))):
+            with torch.cuda.stream(stream):
+                got[i].append(bn_stats.bn_moments(x))
+    torch.cuda.synchronize()
+    keys = {k for k in bn_stats._workspaces if k[1] in {s.cuda_stream for s in streams}}
+    assert len(keys) == 2
+    for i, name in enumerate(("large", "small")):
+        for mean, var in got[i]:
+            assert torch.equal(mean, want[name][0]) and torch.equal(var, want[name][1])
+    # growth on one stream: small, then a shape whose partial rows need more
+    with torch.cuda.stream(torch.cuda.Stream()) as _:
+        stream = torch.cuda.current_stream().cuda_stream
+        first = bn_stats.bn_moments(small)
+        words = bn_stats._workspaces[(small.device.index, stream)].numel()
+        huge = _activation(3, (2, 2048, 64, 64), torch.float32, True, cuda_device)
+        p = bn_stats._plan(True, 2, 2048, 64 * 64)[0]
+        assert bn_stats._WORKSPACE_HEAD + p * 2 * 2048 > words
+        grown = bn_stats.bn_moments(huge)
+        again = bn_stats.bn_moments(small)
+        assert bn_stats._workspaces[(small.device.index, stream)].numel() > words
+        want_huge = _moments_on_card(huge)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], want["small"][0]) and torch.equal(again[1], want["small"][1])
+    assert torch.equal(grown[0], want_huge[0]) and torch.equal(grown[1], want_huge[1])
+    ref = huge.double().mean(dim=(0, 2, 3))
+    assert float((grown[0].double() - ref).abs().max()) <= 1e-5

@@ -68,8 +68,8 @@ def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM
 
     In training mode the statistics are the batch's mean and biased variance
     over (N, H, W), computed in f32 whatever ``x``'s dtype by
-    ``ops/cuda/bn_stats.py::bn_moments`` (on a CUDA tensor its CUDA kernels,
-    forward and backward), and the running statistics move by ``momentum``.
+    ``ops/cuda/bn_stats.py::bn_moments`` (on a CUDA tensor one kernel launch
+    forward and one backward), and the running statistics move by ``momentum``.
     Normalization runs in ``x``'s dtype with ``mean.to(x.dtype)``, as the JAX
     package's does. The new state is detached: no gradient flows into it.
 

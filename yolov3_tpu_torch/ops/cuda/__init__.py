@@ -8,14 +8,18 @@
     ``yolov3_tpu/ops/pallas/conv1x1.py::conv1x1_int8_requant``;
   * ``resblock.fused_resblock`` (K4, ``csrc/resblock_int8.cu``) replaces
     ``yolov3_tpu/ops/pallas/resblock.py::fused_resblock``;
-  * ``bn_stats.bn_moments`` (K5, ``csrc/bn_stats.cu``: ``bn_sums`` forward,
-    ``bn_moments_dx`` backward) replaces
-    ``yolov3_tpu/ops/pallas/bn_stats.py::bn_sums`` / ``bn_moments``;
-  * ``conv_int8.conv_int8`` (K6, ``csrc/conv_int8.cu``) is the int8 k×k conv
-    that the JAX package leaves to XLA and PyTorch does not have on CUDA;
+  * ``bn_stats.bn_moments`` (K5, ``csrc/bn_stats.cu``: ``bn_sums`` /
+    ``bn_moments`` forward in one launch, ``bn_moments_dx`` backward in one)
+    replaces ``yolov3_tpu/ops/pallas/bn_stats.py::bn_sums`` / ``bn_moments``;
+  * ``conv_int8.conv_int8`` (K6, ``csrc/conv_int8.cu`` on the ``wgmma`` main
+    loop of ``csrc/int8_wgmma.cuh``) is the int8 k×k conv that the JAX package
+    leaves to XLA and PyTorch does not have on CUDA;
   * ``csrc/requant.cuh`` (K0) is the int8 epilogue K3, K4 and K6 share, the
     counterpart of ``yolov3_tpu/ops/pallas/common.py``; ``requant.py`` is its
     plain version.
+
+``build.py`` compiles and loads the sources and sets every launch function's
+ctypes signature once; ``kernel_times.py`` times K5 and K6 alone on a card.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in

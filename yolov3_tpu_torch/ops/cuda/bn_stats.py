@@ -13,22 +13,35 @@ hand back either). The kernels read it where it lies, with one code path for
 each layout; any other stride pattern raises, and nothing copies or converts
 the activation before a launch.
 
+On a CUDA tensor the forward is one launch (``bn_moments_*_kernel``): every
+block writes its partial sums to a workspace and takes a ticket, and the block
+that draws the last ticket folds them and writes sum, sumsq, mean and var
+into the one (4, C) tensor the call allocates. The workspace (ticket counters
+and partial rows) is kept per (device, stream) and grows when a shape needs
+more; the kernel leaves the counters at 0, so nothing is cleared or allocated
+per call. ``_plan`` sizes grid and block from the shape alone. mean and var
+are bit-equal to the plain expression evaluated on the card, where PyTorch
+divides a tensor by a Python scalar by multiplying with the scalar's f32
+reciprocal: the kernel is given ``1.0f / f32(n)`` and does the same.
+
 The backward follows the TPU kernel's custom VJP: it does not look at the
 ``max(·, 0)``, so a channel whose variance clamps still passes ``dvar``
-through (differentiating the clamp would pass zero there). The kernel
-evaluates it as ``a·x + b`` with per-channel ``a = dvar·(2/n)`` and
-``b = dmean·(1/n) − a·mean``, every product and sum rounded once, which is
-exactly what the plain version's element-wise ops do: in f32 and in bf16 the
-two are bit-equal on one device.
+through (differentiating the clamp would pass zero there). One launch
+(``bn_dx_kernel``) evaluates it as ``a·x + b`` with per-channel
+``a = dvar·(2/n)`` and ``b = dmean·(1/n) − a·mean`` computed in the thread
+that uses them, every product and sum rounded once, which is exactly what the
+plain version's element-wise ops do: in f32 and in bf16 the two are bit-equal
+on one device.
 
 The forward's sums are taken in another order than the plain version's, so
 those are held to a tolerance: ``SUM_RTOL`` of Σ|x| and of Σx² against a
-float64 reference. Two launches on one input give the same bits (no atomics).
+float64 reference. Two launches on one input give the same bits (no atomics
+on floats; every order is fixed by the shape).
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,7 +51,12 @@ from . import build
 # |kernel − float64| ≤ SUM_RTOL · Σ|x| for the sum (a sum near zero has no
 # relative error of its own), ≤ SUM_RTOL · Σx² for the sum of squares
 SUM_RTOL = 1e-5
-_TARGET_BLOCKS = 2048  # about two waves of 8 blocks on each of 132 SMs
+_MAX_BLOCKS = 2048  # NCHW: about two waves of 8 blocks on each of 132 SMs
+_MAX_BLOCKS_CL = 1024  # channels-last: one wave, so the last block folds half as many rows
+_PER_THREAD = 64    # elements a thread should have to read before blocks are added
+_WORKSPACE_HEAD = 256  # 32-bit ticket counters before the partial rows (the kernel's kCounters)
+
+_workspaces: dict = {}  # (device index, stream handle) -> f32 workspace tensor
 
 
 def _check_activation(what: str, x):
@@ -51,6 +69,9 @@ def _check_activation(what: str, x):
         raise ValueError(f"{what}: needs 1 ≤ elements < 2^31, got {x.numel()}")
     b, c, h, w = x.shape
     if x.is_contiguous(memory_format=torch.channels_last):
+        if c > 32 * _WORKSPACE_HEAD:
+            raise ValueError(f"{what}: channels-last memory takes at most "
+                             f"{32 * _WORKSPACE_HEAD} channels, got {c}")
         return True, b, c, h * w
     if x.is_contiguous():
         return False, b, c, h * w
@@ -58,19 +79,64 @@ def _check_activation(what: str, x):
                      f"memory, got shape {tuple(x.shape)} strides {x.stride()}")
 
 
+@functools.lru_cache(maxsize=None)
 def _plan(channels_last: bool, b: int, c: int, hw: int):
-    """(p, per_block): blocks along the reduced axis and what each takes —
-    rows for channels-last memory, elements of a plane for NCHW planes.
-    Fixed by the shape, so the order of every sum is."""
+    """(p, per_block, threads, lanes, inv_n): ``p`` blocks along the reduced axis,
+    each taking ``per_block`` rows (channels-last memory; a block is 32
+    channels × 8 rows of threads, ``threads`` = 256, ``lanes`` = 32) or
+    ``per_block`` elements of a plane in every image (NCHW; a block has
+    ``threads`` threads in groups of ``lanes``, one group an image at a time;
+    slices start on multiples of 8 elements so that 16-byte loads stay legal).
+    ``inv_n`` is ``1.0f / f32(B·H·W)``, the reciprocal the kernel multiplies
+    by. A pure function of the shape, so the order of every sum is.
+
+    Sized from the bytes: a thread gets about ``_PER_THREAD`` elements before
+    blocks are added along the reduced axis, up to ``_MAX_BLOCKS`` in all, so
+    C=1024 at 13² or C=512 at 26² is one short block a channel (p = 1, no
+    fold) and C=32 at 416² is 64 blocks a channel."""
+    n = b * hw
+    inv_n = float(np.float32(1.0) / np.float32(n))
     if channels_last:
-        rows = b * hw
-        want = max(1, _TARGET_BLOCKS // ((c + 31) // 32))
-        per_block = max(32, -(-rows // want))
-        per_block = -(-per_block // 8) * 8
-        return -(-rows // per_block), per_block
-    want = max(1, _TARGET_BLOCKS // c)
-    per_block = max(1024, -(-hw // want))
-    return -(-hw // per_block), per_block
+        want = max(1, min(-(-n // (8 * _PER_THREAD // 4)),
+                          _MAX_BLOCKS_CL // ((c + 31) // 32)))
+        per_block = -(-(-(-n // want)) // 8) * 8
+        return -(-n // per_block), per_block, 256, 32, inv_n
+    threads = 128 if n <= 8192 else 256
+    want = max(1, min(-(-n // (threads * _PER_THREAD)), _MAX_BLOCKS // c))
+    per_block = hw if want == 1 else -(-max(32, -(-hw // want)) // 8) * 8
+    lanes = 256 if threads == 256 and per_block >= 2048 else 32
+    return -(-hw // per_block), per_block, threads, lanes, inv_n
+
+
+def _workspace(device, stream: int, words: int):
+    """The f32 workspace of one (device, stream), at least ``words`` long: the
+    zeroed ticket counters, then room for the partial rows. Two streams never
+    share one; it is replaced by a larger one when a shape needs more."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < words:
+        ws = torch.zeros(max(words, 1 << 16), dtype=torch.float32, device=device)
+        _workspaces[key] = ws
+    return ws
+
+
+def _launch_moments(x, out, channels_last, b, c, hw, p, per_block, threads, lanes, inv_n,
+                    stream):
+    ws = _workspace(x.device, stream, _WORKSPACE_HEAD + p * 2 * c)
+    return build.function("bn_stats", "bn_moments_launch")(
+        x.data_ptr(), ws.data_ptr(), out.data_ptr(), x.dtype == torch.bfloat16, channels_last,
+        b, c, hw, p, per_block, threads, lanes, inv_n, stream)
+
+
+def _moments_cuda(what: str, x):
+    """One launch → the (4, C) f32 tensor (sum, sumsq, mean, var) of a CUDA
+    activation, or raise."""
+    channels_last, b, c, hw = _check_activation(what, x)
+    out = torch.empty((4, c), dtype=torch.float32, device=x.device)
+    build.launch(_launch_moments, x.device, what, x, out, channels_last, b, c, hw,
+                 *_plan(channels_last, b, c, hw))
+    bn_sums.launches += 1
+    return out
 
 
 def bn_sums_plain(x):
@@ -82,26 +148,14 @@ def bn_sums_plain(x):
 
 def bn_sums(x):
     """x (B, C, H, W) f32 or bf16 → (sum, sumsq), two (C,) f32 tensors. CPU
-    tensors take the plain version; CUDA tensors launch ``bn_sums_*_kernel``
-    and the fold (counted in ``bn_sums.launches``) or raise."""
+    tensors take the plain version; CUDA tensors launch ``bn_moments_*_kernel``
+    once (counted in ``bn_sums.launches``) or raise."""
     if x.device.type == "cpu":
         return bn_sums_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"bn_sums: unsupported device {x.device}")
-    channels_last, b, c, hw = _check_activation("bn_sums", x)
-    p, per_block = _plan(channels_last, b, c, hw)
-    partial = torch.empty((p, 2, c), dtype=torch.float32, device=x.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    fn = build.library("bn_stats").bn_sums_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        build.check(fn(x.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                       int(x.dtype == torch.bfloat16), int(channels_last), b, c, hw, p,
-                       per_block, stream), "bn_sums")
-    bn_sums.launches += 1
-    return out[0], out[1]
+    total, total_sq, _, _ = _moments_cuda("bn_sums", x).unbind(0)
+    return total, total_sq
 
 
 bn_sums.launches = 0
@@ -141,21 +195,14 @@ def bn_moments_dx(x, mean, dmean, dvar):
     dx = torch.empty_like(x)  # keeps x's memory format
     if dx.stride() != x.stride():
         raise ValueError("bn_moments_dx: could not allocate dx in x's memory format")
-    ab = torch.empty((2, c), dtype=torch.float32, device=x.device)
     per_vector = 16 // x.element_size()
     vec = (x.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0
            and (c if channels_last else hw) % per_vector == 0)
     inv_n, two_inv_n = _scalars(b * hw)
-    fn = build.library("bn_stats").bn_moments_dx_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        build.check(fn(x.data_ptr(), vectors[1].data_ptr(), vectors[2].data_ptr(),
-                       vectors[0].data_ptr(), ab.data_ptr(), dx.data_ptr(),
-                       int(x.dtype == torch.bfloat16), int(channels_last), int(vec), b, c, hw,
-                       inv_n, two_inv_n, stream), "bn_moments_dx")
+    build.launch(build.function("bn_stats", "bn_moments_dx_launch"), x.device, "bn_moments_dx",
+                 x.data_ptr(), vectors[1].data_ptr(), vectors[2].data_ptr(),
+                 vectors[0].data_ptr(), dx.data_ptr(), x.dtype == torch.bfloat16, channels_last,
+                 vec, b, c, hw, inv_n, two_inv_n)
     bn_moments_dx.launches += 1
     return dx
 
@@ -169,10 +216,15 @@ class _BnMoments(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, plain: bool):
-        n = x.numel() // x.shape[1]
-        s, s2 = bn_sums_plain(x) if plain else bn_sums(x)
-        mean = s / n
-        var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        if plain or x.device.type == "cpu":
+            n = x.numel() // x.shape[1]
+            s, s2 = bn_sums_plain(x)
+            mean = s / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        elif x.device.type == "cuda":
+            _, _, mean, var = _moments_cuda("bn_moments", x).unbind(0)
+        else:
+            raise ValueError(f"bn_moments: unsupported device {x.device}")
         ctx.save_for_backward(x, mean)
         ctx.plain = plain
         return mean, var
@@ -186,7 +238,8 @@ class _BnMoments(torch.autograd.Function):
 
 def bn_moments(x):
     """x (B, C, H, W) → (mean, var), two (C,) f32 tensors, differentiable in
-    x. On a CUDA tensor forward and backward each launch their kernel."""
+    x. On a CUDA tensor the forward is one launch (counted in
+    ``bn_sums.launches``) and no other op, and the backward one launch."""
     return _BnMoments.apply(x, False)
 
 

@@ -11,7 +11,10 @@ every kernel that uses it) and of the flags, so an unchanged source is not
 rebuilt within a checkout.
 
 Builds happen at first use (``library``), never at import: the CPU tests
-import every module on a machine without ``nvcc``.
+import every module on a machine without ``nvcc``. When a library is loaded,
+each of its launch functions gets its ``argtypes`` and ``restype`` once, from
+``SIGNATURES``; a wrapper fetches the function with ``function`` and calls it
+through ``launch``, which hands it the current stream of the tensors' device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
@@ -35,6 +40,20 @@ SOURCES = ("nms_sweep", "round_sweep", "conv1x1_int8", "conv_int8", "resblock_in
 # --use_fast_math, so division stays div.rn.
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "--fmad=false", "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# source -> {launch function: argument types}; every pointer and the stream
+# (always the last argument) are c_void_p, or ctypes would cut them to 32 bits.
+# Every launch function returns the cudaError_t of its launch as an int.
+SIGNATURES = {
+    "nms_sweep": {"nms_sweep_launch": [_P] * 3 + [_I] * 2 + [_P]},
+    "round_sweep": {"round_sweep_launch": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P]},
+    "conv1x1_int8": {"conv1x1_int8_launch": [_P] * 6 + [_I] * 5 + [_P]},
+    "conv_int8": {"conv_int8_launch": [_P] * 6 + [_I] * 13 + [_P]},
+    "resblock_int8": {"resblock_int8_launch": [_P] * 9 + [_I] * 9 + [_P]},
+    "bn_stats": {"bn_moments_launch": [_P] * 3 + [_I] * 9 + [_F] + [_P],
+                 "bn_moments_dx_launch": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P]},
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -99,7 +118,11 @@ def build_all() -> dict[str, ctypes.CDLL]:
         if failed:
             raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
         for name in SOURCES:
-            _libs[name] = ctypes.CDLL(_target(name))
+            lib = ctypes.CDLL(_target(name))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _libs[name] = lib
         build_seconds = time.monotonic() - t0
         return _libs
 
@@ -111,7 +134,22 @@ def library(name: str) -> ctypes.CDLL:
     return libs[name]
 
 
-def check(err: int, what: str):
-    """Raise if a launch function returned a CUDA error."""
+def function(name: str, fn_name: str):
+    """Launch function ``fn_name`` of source ``name``, its signature set at load."""
+    return getattr(_libs[name] if len(_libs) == len(SOURCES) else library(name), fn_name)
+
+
+def launch(call, device, what: str, *args):
+    """Run ``call(*args, stream)`` — the argument order of every launch
+    function — where ``stream`` is the raw handle of ``device``'s current
+    stream, and raise if it returns a CUDA error. The device context is
+    entered only when ``device`` is not the current one."""
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        err = call(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = call(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

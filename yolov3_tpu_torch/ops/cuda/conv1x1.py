@@ -18,8 +18,6 @@ Cout (ragged edges are masked in the kernel).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import build
@@ -78,14 +76,10 @@ def conv1x1_int8_requant(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
     inv_ptr = check_epilogue_args("conv1x1_int8_requant", xq, cout, scale, bias,
                                   inv_out_scale, out_dtype)
     out = torch.empty((m, cout), dtype=out_dtype, device=xq.device)
-    fn = build.library("conv1x1_int8").conv1x1_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        build.check(fn(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                       inv_ptr, out.data_ptr(), m, cin, cout, int(bool(leaky)),
-                       int(out_dtype == torch.float32), stream), "conv1x1_int8")
+    build.launch(build.function("conv1x1_int8", "conv1x1_int8_launch"), xq.device,
+                 "conv1x1_int8", xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr(), inv_ptr, out.data_ptr(), m, cin, cout, int(bool(leaky)),
+                 int(out_dtype == torch.float32))
     conv1x1_int8_requant.launches += 1
     return out
 

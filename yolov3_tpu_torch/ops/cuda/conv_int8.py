@@ -13,11 +13,22 @@ followed by K3's epilogue (scale, bias, leaky, requant or f32). It takes any
 square kernel, stride, asymmetric padding and channel count — the Darknet
 3×3 stride-1/2 convs and both convs of the space-to-depth stem (4×4 stride 2
 with Cin = 3, 2×2 stride 1).
+
+Two paths, chosen from the shape alone (``plan`` mirrors the choice that
+``conv_int8_launch`` makes):
+
+* ``Cin % 16 == 0``: 128 × (64 | 128) output tiles on Hopper's ``wgmma``
+  (s8 × s8 → s32), both operands gathered by 16-byte ``cp.async`` copies into
+  a three-stage swizzled ring in shared memory, the epilogue staged through
+  shared memory and stored 16 bytes a thread. A grid too small for the card
+  (batch 1 and 4 at 13² and 26²) splits the contraction over the blocks of a
+  cluster, which add their exact s32 sums before the one epilogue.
+* otherwise (the image's Cin = 3): a byte-by-byte gather and ``mma.sync``.
+
+Both are bit-equal to ``conv_int8_plain``: integer sums, one epilogue.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +40,26 @@ from .requant import conv_epilogue
 
 def out_size(size: int, k: int, stride: int, pads) -> int:
     return (size + pads[0] + pads[1] - k) // stride + 1
+
+
+_BM, _BK, _MAX_SPLIT, _BLOCK_SLOTS = 128, 128, 8, 264
+
+
+def plan(m: int, cin: int, cout: int, k: int):
+    """What ``conv_int8_launch`` picks for an (M = B·Ho·Wo) × (K = kh·kw·Cin) ×
+    Cout product: ``dict(path, tile=(BM, BN), grid=(m_tiles, n_tiles, split))``.
+    ``path`` is "wgmma" when ``cin % 16 == 0``, else "mma.sync" (the byte
+    gather); ``split`` is the number of blocks that share one tile's
+    contraction (1 on the byte path)."""
+    if cin % 16 == 0:
+        bn = 128 if cout > 64 else 64
+        mt, nt, kt = -(-m // _BM), -(-cout // bn), -(-k // _BK)
+        split = 1
+        while split < _MAX_SPLIT and mt * nt * split * 2 <= _BLOCK_SLOTS and kt >= split * 4:
+            split *= 2
+        return dict(path="wgmma", tile=(_BM, bn), grid=(mt, nt, split))
+    bn = 128 if cout > 64 else 64 if cout > 32 else 32
+    return dict(path="mma.sync", tile=(_BM, bn), grid=(-(-m // _BM), -(-cout // bn), 1))
 
 
 def conv_int8_plain(xq, kq, scale, bias, inv_out_scale, *, stride: int, padding,
@@ -50,8 +81,8 @@ def conv_int8(xq, kq, scale, bias, inv_out_scale, *, stride: int, padding, leaky
     (Cout,) f32, inv_out_scale a one-element f32 tensor (unused when
     ``out_dtype`` is float32), ``padding`` ((top, bottom), (left, right)) →
     (B, Ho, Wo, Cout) ``out_dtype``. CPU tensors take the plain version; CUDA
-    tensors launch ``conv_int8_kernel`` (counted in ``conv_int8.launches``)
-    or raise."""
+    tensors launch ``conv_int8_wgmma_kernel`` or ``conv_int8_bytes_kernel``
+    (see ``plan``; counted in ``conv_int8.launches``) or raise."""
     if xq.device.type == "cpu":
         return conv_int8_plain(xq, kq, scale, bias, inv_out_scale, stride=stride,
                                padding=padding, leaky=leaky, out_dtype=out_dtype)
@@ -71,16 +102,13 @@ def conv_int8(xq, kq, scale, bias, inv_out_scale, *, stride: int, padding, leaky
         raise ValueError(f"conv_int8: output {b}×{ho}×{wo} out of range")
     inv_ptr = check_epilogue_args("conv_int8", xq, cout, scale, bias, inv_out_scale,
                                   out_dtype)
+    if cin % 16 == 0 and (xq.data_ptr() % 16 or kq.data_ptr() % 16):
+        raise ValueError("conv_int8: xq and kq must be 16-byte aligned when Cin % 16 == 0")
     out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=xq.device)
-    fn = build.library("conv_int8").conv_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        build.check(fn(xq.data_ptr(), kq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                       inv_ptr, out.data_ptr(), b, h, w, cin, cout, kh, kw, stride, top,
-                       left, ho, wo, int(bool(leaky)) | (int(out_dtype == torch.float32) << 1),
-                       stream), "conv_int8")
+    flags = int(bool(leaky)) | (int(out_dtype == torch.float32) << 1)
+    build.launch(build.function("conv_int8", "conv_int8_launch"), xq.device, "conv_int8",
+                 xq.data_ptr(), kq.data_ptr(), scale.data_ptr(), bias.data_ptr(), inv_ptr,
+                 out.data_ptr(), b, h, w, cin, cout, kh, kw, stride, top, left, ho, wo, flags)
     conv_int8.launches += 1
     return out
 

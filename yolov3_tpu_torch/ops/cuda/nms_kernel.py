@@ -16,8 +16,6 @@ here any K ≤ ``MAX_SWEEP_K`` works.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import build
@@ -65,15 +63,8 @@ def suppression_sweep(suppress_mat, valid):
     mat = suppress_mat.contiguous().view(torch.uint8)
     val = valid.contiguous().view(torch.uint8)
     keep = torch.empty((b, k), dtype=torch.bool, device=mat.device)
-    lib = build.library("nms_sweep")
-    fn = lib.nms_sweep_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(mat.device):
-        stream = torch.cuda.current_stream(mat.device).cuda_stream
-        build.check(fn(mat.data_ptr(), val.data_ptr(), keep.data_ptr(), b, k, stream),
-                    "nms_sweep")
+    build.launch(build.function("nms_sweep", "nms_sweep_launch"), mat.device, "nms_sweep",
+                 mat.data_ptr(), val.data_ptr(), keep.data_ptr(), b, k)
     suppression_sweep.launches += 1
     return keep
 

@@ -21,8 +21,6 @@ against the unfused chain.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -207,15 +205,10 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
     rows, slice_cols, q_rows, tile = plan(
         b, h, w, c, cm, torch.cuda.get_device_properties(xp.device).multi_processor_count)
     out = torch.empty_like(xp)
-    fn = build.library("resblock_int8").resblock_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        build.check(fn(xp.data_ptr(), w1.data_ptr(), w2.data_ptr(), scale1.data_ptr(),
-                       bias1.data_ptr(), scale2.data_ptr(), bias2.data_ptr(), sc.data_ptr(),
-                       out.data_ptr(), b, h, w, c, cm, rows, slice_cols, q_rows, tile, stream),
-                    "resblock_int8")
+    build.launch(build.function("resblock_int8", "resblock_int8_launch"), xp.device,
+                 "resblock_int8", xp.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                 scale1.data_ptr(), bias1.data_ptr(), scale2.data_ptr(), bias2.data_ptr(),
+                 sc.data_ptr(), out.data_ptr(), b, h, w, c, cm, rows, slice_cols, q_rows, tile)
     fused_resblock.launches += 1
     return out
 

@@ -17,8 +17,6 @@ rounds) and why its IoU rounds exactly as ``round_sweep_ref`` does.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import build
@@ -85,15 +83,9 @@ def round_sweep(bboxes, scores, iou_threshold, score_threshold, max_boxes: int =
     sc = scores.to(torch.float32).contiguous()
     sel = torch.empty((b, max_boxes), dtype=torch.int32, device=boxes.device)
     nv = torch.empty((b,), dtype=torch.int32, device=boxes.device)
-    fn = build.library("round_sweep").round_sweep_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        build.check(fn(boxes.data_ptr(), sc.data_ptr(), sel.data_ptr(), nv.data_ptr(),
-                       b, n, max_boxes, float(iou_threshold), float(score_threshold),
-                       stream), "round_sweep")
+    build.launch(build.function("round_sweep", "round_sweep_launch"), boxes.device,
+                 "round_sweep", boxes.data_ptr(), sc.data_ptr(), sel.data_ptr(), nv.data_ptr(),
+                 b, n, max_boxes, float(iou_threshold), float(score_threshold))
     round_sweep.launches += 1
     return sel, nv
 
