@@ -8,8 +8,10 @@ Phases (any failure exits non-zero):
      (no TF32 in cuDNN convolutions, matmul precision "highest");
   2. build the hand-written CUDA kernels from the checkout's sources;
   3. K1 (NMS suppression sweep) against its plain PyTorch version on the
-     card, B=16 at K=512 (the serving bucket) and K=4096 (the matrix-sweep
-     bound): identical keep masks, times, bound;
+     card, K=512 (the serving bucket) at B=16, 1 and 4, and B=16 at K=4096
+     (the matrix-sweep bound): identical keep masks, the plan (packed
+     matrix in shared memory: one launch; in a scratch matrix: two, counted
+     by the profiler), times, device µs of a call, bound;
   4. K2 (full round sweep) against its plain version, B=16 at N=10,647
      (416²) and N=22,743 (608²), max_boxes 100, score threshold 0.004:
      identical indices and counts, times, bound;
@@ -24,9 +26,12 @@ Phases (any failure exits non-zero):
      CPU (decoded heads, NMS on the same inputs, served detections; an
      image that differs must show the near-tie that makes it differ);
   7. K3 (fused int8 1×1 conv) against its plain version, bit-equal, int8
-     and f32 outputs, leaky on and off, at the largest and smallest
-     YOLOv3-416 B=16 shapes and one ragged M; times, bound, and
-     torch._int_mm + a torch epilogue as the library yardstick;
+     and f32 outputs, leaky on and off, at every quantized 1×1 shape of
+     YOLOv3-416 at B=16, the 13² head conv at B=1 and 4, and one ragged M;
+     for each the plan and the path the launch took (persistent, wgmma or
+     mma.sync, read off the profiled kernel's name), times, device µs of one
+     launch, TOP/s, bound, and torch._int_mm + a torch epilogue as the
+     library yardstick;
   8. K6 (int8 k×k conv) against its plain version, bit-equal, at ten
      YOLOv3-416 shapes: 3×3 stride 1 and 2 at 26², both convs of the
      space-to-depth stem, one 3×3 stride-1 conv per stage at B=16 and the
@@ -37,8 +42,10 @@ Phases (any failure exits non-zero):
   9. the int8 tiers at full width: YOLOv3-416 calibrated on the smoke
      images, ``int8`` and ``int8_chain``: the card against the CPU on the
      same quantized params (every quantized layer bit-equal, heads 1e-3),
-     device forward ms at B=16, K3/K6 launches per forward, and K6's launches
-     of one forward grouped by shape (count, ms, bound) from the profiler;
+     device forward ms at B=16, K3/K6 launches per forward, and K3's and
+     K6's launches of one forward grouped by shape (count, ms, bound, path)
+     from the profiler: no 1×1 conv with Cin % 16 == 0 may run K3's
+     mma.sync kernel;
  10. K4 (fused int8 residual block): every residual stage of that
      chain-quantized model through K4 chained in halo layout against the
      unfused chain K3 → K6 → add_requant on the same int8 input (bit-equal),
@@ -156,14 +163,16 @@ def seeded_boxes(rng, b, n, min_wh=0.02, max_wh=0.3):
     return np.concatenate([xy, xy + wh], -1).astype(np.float32)
 
 
-def phase_k1(nms, nms_kernel):
-    """K1 at the serving bucket and at the matrix-sweep bound."""
+def phase_k1(nms_kernel):
+    """K1 at the serving bucket K=512 for B = 16 (the main path's shape), 1
+    and 4, and at the matrix-sweep bound K=4096 at B = 16
+    (``kernel_times.K1_CASES``): identical keep masks, the plan, the event-loop
+    ms, the device µs of one call (all its launches, profiler), the bound."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import K1_CASES, sweep_case
+
     results = []
-    for k in (512, 4096):
-        rng = np.random.RandomState(k)
-        boxes = torch.from_numpy(seeded_boxes(rng, 16, k, 0.01, 0.12)).cuda()
-        mat = nms._pairwise_iou(boxes) > IOU_THR
-        valid = torch.from_numpy(rng.rand(16, k) < 0.6).cuda()
+    for b, k in K1_CASES:
+        mat, valid = sweep_case(b, k)
         if float(valid.float().mean()) < 0.5:
             raise AssertionError("K1 smoke input needs at least half the candidates valid")
         keep = nms_kernel.suppression_sweep(mat, valid)
@@ -174,18 +183,26 @@ def phase_k1(nms, nms_kernel):
         kept = keep.sum(dim=1)
         ms = cuda_ms(lambda: nms_kernel.suppression_sweep(mat, valid), 50)
         plain_ms = cuda_ms(lambda: nms_kernel.suppression_sweep_ref(mat, valid), 2)
+        plan = nms_kernel.plan(b, k)
+        profiled = device_time_by_kernel(lambda: nms_kernel.suppression_sweep(mat, valid))
+        names = [n for n, _ in profiled[5]] if profiled else []
+        if profiled is None or len(names) != plan["launches"]:
+            raise AssertionError(f"K1 at B={b} K={k}: expected {plan['launches']} device "
+                                 f"launches, the profiler saw {names}")
         # bytes this run needs: of each kept box's row only the entries
         # j > i (the rest are never read), the valid mask in, the keep mask out
         later = (k - 1 - torch.arange(k, device=keep.device))[None, :]
-        need = int((later * keep).sum()) + 2 * 16 * k
+        need = int((later * keep).sum()) + 2 * b * k
         bound_ms = need / HBM_BYTES_PER_S * 1e3
-        row = dict(B=16, K=k, equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bytes=need, dependent_steps=k,
+        row = dict(B=b, K=k, plan=plan["path"], launches_per_call=plan["launches"],
+                   equal=equal, max_abs_err=err, ms=ms, device_us=profiled[0] * 1e3,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bytes=need, word_steps=-(-k // 32),
                    kept_max=int(kept.max()), kept_mean=float(kept.float().mean()))
         log(f"K1 nms_sweep {json.dumps(row)}")
         if not equal:
-            raise AssertionError(f"K1 differs from its plain version at K={k}")
+            raise AssertionError(f"K1 differs from its plain version at B={b} K={k}")
         results.append(row)
+        del mat, valid
     return results
 
 
@@ -520,19 +537,20 @@ def conv_bound(in_bytes, weight_bytes, out_bytes, cout, macs):
 
 
 def phase_k3(conv1x1):
-    """K3 at the largest and smallest 1×1 convs of YOLOv3-416 at B=16 and at
-    one ragged M. The library yardstick is torch._int_mm (s8·s8 → s32 in
-    device memory) followed by the epilogue as element-wise torch ops."""
+    """K3 at every quantized 1×1 conv of YOLOv3-416 at B=16 (the main-path
+    shape first), the 13² head conv at the serving buckets 1 and 4
+    (``kernel_times.K3_SHAPES``) and one ragged M: bit-equal in int8 and f32
+    output, leaky on and off; the plan and the path the launch took (read off
+    the profiled kernel's name), ms (event loop, int8 and f32 output), device
+    µs of one launch, bound, TOP/s. The library yardstick is torch._int_mm
+    (s8·s8 → s32 in device memory) followed by the epilogue as element-wise
+    torch ops."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import K3_SHAPES, conv1x1_case
     from yolov3_tpu_torch.ops.cuda.requant import conv_epilogue
 
     results = []
-    for m, k, n in ((692224, 64, 32), (2704, 1024, 512), (43227, 256, 128)):
-        rng = np.random.RandomState(n)
-        x = tensor(rng.randint(-127, 128, (m, k)).astype(np.int8))
-        w = tensor(rng.randint(-127, 128, (n, k)).astype(np.int8))
-        scale = tensor((rng.rand(n) * 2e-4 + 1e-5).astype(np.float32))
-        bias = tensor(rng.randn(n).astype(np.float32))
-        inv = tensor(np.float32([1 / 0.0529]))
+    for name, m, k, n, per_forward in K3_SHAPES + (("ragged M 256->128", 43227, 256, 128, 0),):
+        x, w, scale, bias, inv = conv1x1_case(m, k, n)
         equal, err = True, 0.0
         for leaky in (True, False):
             for out_dtype in (torch.int8, torch.float32):
@@ -543,8 +561,11 @@ def phase_k3(conv1x1):
                                                           out_dtype=out_dtype)
                 equal &= torch.equal(got, want)
                 err = max(err, max_abs(got.float(), want.float()))
+                del got, want
         ms = cuda_ms(lambda: conv1x1.conv1x1_int8_requant(x, w, scale, bias, inv, leaky=True),
                      50)
+        ms_f32 = cuda_ms(lambda: conv1x1.conv1x1_int8_requant(
+            x, w, scale, bias, inv, leaky=True, out_dtype=torch.float32), 50)
         plain_ms = cuda_ms(lambda: conv1x1.conv1x1_int8_requant_plain(
             x, w, scale, bias, inv, leaky=True), 3)
         wt = w.t().contiguous()
@@ -557,14 +578,38 @@ def phase_k3(conv1x1):
             x, w, scale, bias, inv, leaky=True))
         library_ms = cuda_ms(library, 20)
         bound_ms, bound_by, need, ops = conv_bound(m * k, n * k, m * n, n, m * k * n)
-        row = dict(M=m, Cin=k, Cout=n, equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_f32 = conv_bound(m * k, n * k, 4 * m * n, n, m * k * n)[0]
+        plan = conv1x1.plan(m, k, n)
+        profiled = device_time_by_kernel(lambda: conv1x1.conv1x1_int8_requant(
+            x, w, scale, bias, inv, leaky=True))
+        if profiled is None or len(profiled[5]) != 1:
+            raise AssertionError(f"K3 at {name}: expected one device launch, profiler saw "
+                                 f"{profiled and profiled[5]}")
+        kernel_name, device_ms = profiled[5][0]
+        row = dict(shape=name, M=m, Cin=k, Cout=n, per_b16_forward=per_forward,
+                   path=k3_path(kernel_name), plan=plan, equal=equal, max_abs_err=err, ms=ms,
+                   device_us=device_ms * 1e3, ms_f32=ms_f32, plain_ms=plain_ms,
                    library_ms=library_ms, library_equal=lib_equal, bound_ms=bound_ms,
-                   bound_by=bound_by, bytes=need, ops=ops, tops=ops / ms / 1e9)
+                   bound_by=bound_by, bound_f32_ms=bound_f32, bytes=need, ops=ops,
+                   tops=ops / ms / 1e9)
         log(f"K3 conv1x1_int8 {json.dumps(row)}")
         if not equal:
-            raise AssertionError(f"K3 differs from its plain version at {(m, k, n)}")
+            raise AssertionError(f"K3 differs from its plain version at {name}")
+        if row["path"] != plan["path"]:
+            raise AssertionError(f"K3 took the wrong path at {name}: launched {kernel_name}, "
+                                 f"plan {plan}")
         results.append(row)
+        del x, w, wt
+        torch.cuda.empty_cache()
     return results
+
+
+def k3_path(kernel_name):
+    """The K3 path a profiled kernel name stands for (see ``conv1x1.plan``)."""
+    for path in ("persistent", "wgmma"):
+        if f"conv1x1_int8_{path}_kernel" in kernel_name:
+            return path
+    return "mma.sync"
 
 
 def phase_k6(conv_int8):
@@ -679,37 +724,75 @@ def kernel_share(profiled):
     total, by_name, count, host_ms, ops, _ = profiled
     pick = lambda key: sum(ms for name, ms in by_name.items() if key in name)  # noqa: E731
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(device_busy_ms=total, conv1x1_int8_ms=pick("conv1x1_int8_kernel"),
+    return dict(device_busy_ms=total, conv1x1_int8_ms=pick("conv1x1_int8_"),
                 conv_int8_ms=pick("conv_int8_"), device_launches=count,
                 host_enqueue_ms=host_ms, top=[[n[:60], ms] for n, ms in top],
                 torch_ops=dict(sorted(ops.items(), key=lambda kv: -kv[1][1])[:10]))
 
 
-def profile_recording_k6(conv_int8, forward):
+def profile_recording(conv1x1, conv_int8, forward):
     """``device_time_by_kernel(forward)`` with every K6 call of the profiled
-    run recorded as (B, H, W, Cin, Cout, k, stride, Ho, Wo), in call order."""
+    run recorded as (B, H, W, Cin, Cout, k, stride, Ho, Wo) and every K3 call
+    as (M, Cin, Cout, output bytes an element), in call order."""
     from yolov3_tpu_torch.models import layers
 
-    runs, real = [], layers.conv_int8
+    runs, real_k6, real_k3 = [], layers.conv_int8, layers.conv1x1_int8_requant
 
-    def recording(xq, kq, *args, **kw):
+    def recording_k6(xq, kq, *args, **kw):
         b, h, w, cin = xq.shape
         cout, k = kq.shape[0], kq.shape[1]
-        runs[-1].append((b, h, w, cin, cout, k, kw["stride"],
-                         conv_int8.out_size(h, k, kw["stride"], kw["padding"][0]),
-                         conv_int8.out_size(w, k, kw["stride"], kw["padding"][1])))
-        return real(xq, kq, *args, **kw)
+        runs[-1][0].append((b, h, w, cin, cout, k, kw["stride"],
+                            conv_int8.out_size(h, k, kw["stride"], kw["padding"][0]),
+                            conv_int8.out_size(w, k, kw["stride"], kw["padding"][1])))
+        return real_k6(xq, kq, *args, **kw)
+
+    def recording_k3(xq, wq, *args, **kw):
+        out_dtype = kw.get("out_dtype", torch.int8)
+        runs[-1][1].append((xq.shape[0], xq.shape[1], wq.shape[0],
+                            4 if out_dtype == torch.float32 else 1))
+        return real_k3(xq, wq, *args, **kw)
 
     def recorded_forward():
-        runs.append([])
+        runs.append(([], []))
         return forward()
 
-    layers.conv_int8 = recording
+    layers.conv_int8, layers.conv1x1_int8_requant = recording_k6, recording_k3
     try:
         profiled = device_time_by_kernel(recorded_forward)
     finally:
-        layers.conv_int8 = real
-    return profiled, runs[-1]  # the last run is the one the profile shows
+        layers.conv_int8, layers.conv1x1_int8_requant = real_k6, real_k3
+    return (profiled, *runs[-1])  # the last run is the one the profile shows
+
+
+def k3_launches_by_shape(profiled, calls, batch):
+    """K3's launches of one forward grouped by shape as ``k6_launches_by_shape``
+    does for K6, with the path each launch took. Raises if a conv with
+    Cin % 16 == 0 ran the mma.sync kernel."""
+    if profiled is None:
+        return "not measured (the profiler showed no device time)"
+    kernels = [(n, ms) for n, ms in profiled[5] if "conv1x1_int8_" in n]
+    if len(kernels) != len(calls):
+        raise AssertionError(f"{len(calls)} K3 calls but {len(kernels)} K3 kernels profiled")
+    groups = {}
+    for (m, cin, cout, esize), (name, ms) in zip(calls, kernels):
+        path = k3_path(name)
+        if cin % 16 == 0 and path == "mma.sync":
+            raise AssertionError(f"K3 ran {name} for a 1×1 conv with Cin = {cin}")
+        key = f"{round((m / batch) ** 0.5)}^2 {cin}->{cout}"
+        bound_ms, bound_by, _, ops = conv_bound(m * cin, cout * cin, esize * m * cout, cout,
+                                                m * cin * cout)
+        g = groups.setdefault(key, dict(shape=key, out_bytes=esize, count=0, ms_sum=0.0,
+                                        bound_ms=bound_ms, bound_by=bound_by, ops=ops, paths=[]))
+        g["count"] += 1
+        g["ms_sum"] += ms
+        if path not in g["paths"]:
+            g["paths"].append(path)
+    rows = []
+    for g in groups.values():
+        ms = g.pop("ms_sum") / g["count"]
+        rows.append(dict(g, ms=ms, tops=g["ops"] / ms / 1e9,
+                         launches_x_gap_ms=g["count"] * (ms - g["bound_ms"])))
+    return sorted(rows, key=lambda r: -r["launches_x_gap_ms"])
 
 
 def k6_launches_by_shape(profiled, calls):
@@ -799,10 +882,11 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
             launches = dict(conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
                             conv_int8=conv_int8.conv_int8.launches)
             fwd = cuda_ms(lambda: models.apply_model(spec, q, {}, batch), 5)
-            raw, k6_calls = profile_recording_k6(
-                conv_int8, lambda: models.apply_model(spec, q, {}, batch))
+            raw, k6_calls, k3_calls = profile_recording(
+                conv1x1, conv_int8, lambda: models.apply_model(spec, q, {}, batch))
             profiled = kernel_share(raw)
             k6_by_shape = k6_launches_by_shape(raw, k6_calls)
+            k3_by_shape = k3_launches_by_shape(raw, k3_calls, 16)
         predictor = inference_app.make_predictor(
             spec0, params, state, anchors, len(names), 100, 0.5, 0.1, quantize=mode,
             calibration_batches=calibration, image_size=416)
@@ -816,7 +900,8 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
                    first_unequal=[list(t) for t in unequal[:3]], head_max_abs_err=head_err,
                    forward_ms_b16=fwd, predictor_ms_b16=predictor_ms,
                    detections_b16=int(num_valid.sum()), launches_per_forward=launches,
-                   profile=profiled, conv_int8_by_shape=k6_by_shape)
+                   profile=profiled, conv_int8_by_shape=k6_by_shape,
+                   conv1x1_int8_by_shape=k3_by_shape)
         log(f"int8 forward YOLOv3-416 card vs CPU {json.dumps(row)}")
         if unequal or not finite or head_err > 1e-3:
             raise AssertionError(f"{mode}: the card disagrees with the CPU: {row}")
@@ -1409,7 +1494,7 @@ def main() -> int:
     build.build_all()
     log(f"kernels built in {build.build_seconds:.1f}s into {build.BUILD_DIR}")
 
-    k1 = timed("K1", phase_k1, nms_mod, nms_kernel)
+    k1 = timed("K1", phase_k1, nms_kernel)
     k2 = timed("K2", phase_k2, round_sweep)
     serve_rows, launches = timed("serve fp32 + bf16", phase_serve, inference_app, serve_app,
                                  models, decode, nms_mod, nms_kernel, round_sweep)

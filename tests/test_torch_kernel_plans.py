@@ -8,10 +8,16 @@ Python that mirrors what the CUDA launch functions do with a shape.
   * K6 (``ops/cuda/conv_int8.py::plan``): path, tile and grid cover M and N
     of the implicit GEMM, the contraction's split covers every k-tile once,
     and the byte path takes Cin = 3 and every ``Cin % 16 != 0``.
+  * K3 (``ops/cuda/conv1x1.py::plan``): tiles cover M and N for the 1×1
+    conv's three paths, the persistent grid's walk visits every M-tile once
+    and its blocks fit an SM.
+  * K1 (``ops/cuda/csrc/nms_sweep.cu``): the pack into bit words and the
+    warp's word sweep replayed in numpy, lane by lane, against the plain
+    sweep and the JAX package's Pallas kernel in interpret mode.
 
-The shapes are the real ones: every BatchNorm input and every non-1×1 conv
-of YOLOv3-416 and YOLOv3-tiny, recorded from one forward of the port's
-network on the CPU. No tolerance: integers only."""
+The shapes are the real ones: every BatchNorm input and every conv of
+YOLOv3-416 and YOLOv3-tiny, recorded from one forward of the port's network
+on the CPU. No tolerance: integers and booleans only."""
 
 import functools
 import os
@@ -20,9 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from yolov3_tpu.ops.pallas.nms_kernel import pallas_suppression_sweep
 from yolov3_tpu_torch import models
 from yolov3_tpu_torch.models import layers
-from yolov3_tpu_torch.ops.cuda import bn_stats, conv_int8
+from yolov3_tpu_torch.ops.cuda import bn_stats, conv1x1, conv_int8, nms_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ODD_BN_SHAPES = [(32, 5, 7), (3, 8, 8), (40, 9, 11), (1024, 4, 4), (7, 1, 1), (130, 33, 65)]
@@ -207,3 +214,270 @@ def test_k6_plan_splits_the_contraction_for_small_batches():
     assert check_k6_plan(1, *head)["grid"] == (2, 8, 8)
     assert check_k6_plan(4, *head)["grid"] == (6, 8, 4)
     assert check_k6_plan(16, *head)["grid"] == (22, 8, 1)
+
+
+# ---------------------------------------------------------------------- K3
+
+
+def k3_shapes(model):
+    """(H, Cin, Cout) of the model's 1×1 stride-1 convs."""
+    return sorted({(h, cin, cout) for h, cin, cout, k, s in recorded_shapes(model)[1]
+                   if k == 1 and s == 1})
+
+
+def check_k3_plan(m, cin, cout, out_dtype=torch.int8):
+    plan = conv1x1.plan(m, cin, cout, out_dtype)
+    assert plan == conv1x1.plan(m, cin, cout, out_dtype)
+    (bm, bn), (gx, gy, gz) = plan["tile"], plan["grid"]
+    mt = -(-m // bm)
+    assert bm == 128 and (mt - 1) * bm < m <= mt * bm
+    assert plan["path"] in ("wgmma", "persistent") if cin % 16 == 0 else plan["path"] == "mma.sync"
+    if plan["path"] == "persistent":
+        assert cin <= 128 and cout <= bn and bn == (128 if cout > 64 else 64 if cout > 32 else 32)
+        assert gy == gz == 1 and gx == min(mt, plan["per_sm"] * 132)
+        # the grid-stride walk of the M-tiles: each tile once
+        walked = sorted(t for x in range(gx) for t in range(x, mt, gx))
+        assert walked == list(range(mt))
+        # its shared memory: the weight tile, the ring, the output stage; as
+        # many blocks an SM as the registers allow (4, 3, 2 by BN) and fit
+        smem = (bn * 128 + plan["stages"] * 128 * 128
+                + 128 * (bn + 16) * (4 if out_dtype == torch.float32 else 1) + 1024)
+        per_sm, most = plan["per_sm"], {32: 4, 64: 3, 128: 2}[bn]
+        assert plan["stages"] in (2, 3, 4) and 1 <= per_sm <= most
+        assert per_sm * (smem + 2048) <= 233472 if per_sm > 1 else smem <= 232448
+        if per_sm < most:  # one more block would not fit, even at two stages
+            smem2 = smem - (plan["stages"] - 2) * 128 * 128
+            assert (per_sm + 1) * (smem2 + 2048) > 233472
+        # the k32 products cover the contraction, the copies stop inside the last one
+        kmma = -(-cin // 32)
+        assert 1 <= kmma <= 4 and 32 * (kmma - 1) < cin <= 32 * kmma
+    else:  # a block a tile, the whole contraction in its k-loop
+        assert (gy - 1) * bn < cout <= gy * bn and gx == mt and gz == 1
+    if plan["path"] == "wgmma":
+        # 128 × 64 where those tiles fill the card's block slots, else 128 × 32
+        assert bn == (64 if mt * -(-cout // 64) >= 264 else 32) and (cin > 128 or cout > 128)
+    if plan["path"] == "mma.sync":
+        assert bn == (128 if cout > 64 else 64 if cout > 32 else 32)
+    return plan
+
+
+@pytest.mark.parametrize("model", ["yolov3", "yolov3_tiny"])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_k3_plan_covers_every_1x1_conv(model, b):
+    shapes = k3_shapes(model)
+    paths = set()
+    for h, cin, cout in shapes:
+        for out_dtype in (torch.int8, torch.float32):
+            paths.add(check_k3_plan(b * h * h, cin, cout, out_dtype)["path"])
+    # every 1×1 conv of both families has Cin % 16 == 0: none on mma.sync
+    assert all(cin % 16 == 0 for _, cin, _ in shapes) and "mma.sync" not in paths
+    if model == "yolov3":
+        assert paths == {"wgmma", "persistent"}
+        assert check_k3_plan(b * 208 * 208, 64, 32)["tile"] == (128, 32)
+
+
+@pytest.mark.parametrize("m,cin,cout", [(1000, 27, 16), (300, 8, 40), (129, 100, 130),
+                                        (77, 1000, 3), (5, 3, 255)])
+def test_k3_plan_sends_unaligned_channels_to_mma_sync(m, cin, cout):
+    assert check_k3_plan(m, cin, cout)["path"] == "mma.sync"
+
+
+@pytest.mark.parametrize("m,cin,cout,path", [
+    (300, 64, 32, "persistent"), (129, 80, 65, "persistent"), (1, 16, 1, "persistent"),
+    (257, 48, 255, "wgmma"), (169, 256, 128, "wgmma"), (43227, 256, 128, "wgmma"),
+    (5, 144, 200, "wgmma"), (130, 2048, 7, "wgmma"), (692224, 64, 32, "persistent")])
+def test_k3_plan_ragged_shapes(m, cin, cout, path):
+    for out_dtype in (torch.int8, torch.float32):
+        assert check_k3_plan(m, cin, cout, out_dtype)["path"] == path
+
+
+def test_k3_plan_main_path_shapes():
+    """The squeeze convs walk persistently, as many blocks an SM as fit (208²
+    64→32: four of two stages with int8 output, three with f32); 52² and 26²
+    512→256 take 128 × 64 tiles, 13² 128 × 32 tiles."""
+    p = conv1x1.plan(16 * 208 * 208, 64, 32)
+    assert (p["grid"], p["stages"], p["per_sm"]) == ((528, 1, 1), 2, 4)
+    assert conv1x1.plan(16 * 208 * 208, 64, 32, torch.float32)["per_sm"] == 3
+    p = conv1x1.plan(16 * 104 * 104, 128, 64)
+    assert (p["grid"], p["stages"], p["per_sm"]) == ((396, 1, 1), 3, 3)
+    assert conv1x1.plan(16 * 104 * 104, 128, 64, torch.float32)["per_sm"] == 2
+    assert conv1x1.plan(16 * 52 * 52, 256, 128)["grid"] == (338, 2, 1)
+    assert conv1x1.plan(16 * 26 * 26, 512, 256)["grid"] == (85, 4, 1)
+    assert conv1x1.plan(16 * 169, 1024, 512)["grid"] == (22, 16, 1)
+
+
+# ---------------------------------------------------------------------- K1
+
+M32 = 0xFFFFFFFF
+
+
+def k1_pack_replay(mat, valid, rng, r0s, step, r1_of, vec):
+    """The kernel's pack of one image, replayed: every (row, word) that
+    ``pack_rows`` writes, in its cursor order (warps starting at ``r0s``,
+    ``step`` rows apart, stopping at ``r1_of(r0)``; a warp step makes 16 words
+    from 16-byte loads or 4 from byte loads, four steps loaded before any is
+    used), over a matrix of random words that stand for what the kernel never
+    writes. Returns the words, the written mask, the valid words."""
+    k = mat.shape[0]
+    nw = -(-k // 32)
+    padded = np.zeros((k, 32 * nw), bool)
+    padded[:, :k] = mat & (np.arange(k)[None, :] > np.arange(k)[:, None])
+    truth = np.packbits(padded, axis=1, bitorder="little").view("<u4").astype(np.int64)
+    vpad = np.zeros(32 * nw, bool)
+    vpad[:k] = valid
+    vwords = [int(v) for v in np.packbits(vpad, bitorder="little").view("<u4")]
+    words = rng.randint(0, 2 ** 32, size=(k, nw), dtype=np.int64)
+    written = np.zeros((k, nw), np.int32)
+    span = 16 if vec else 4
+    for r0 in r0s:
+        r1 = r1_of(r0)
+
+        def next_row(i, r1=r1):
+            i += step
+            while i < r1 and not valid[i]:
+                i += step
+            return i
+
+        i = next_row(r0 - step)
+        w0 = i >> 5
+        while i < r1:
+            batch = []
+            for _ in range(4):
+                batch.append((i, w0))
+                if i < r1:
+                    w0 += span
+                    if w0 >= nw:
+                        i = next_row(i)
+                        w0 = i >> 5
+            for row, w_first in batch:
+                if row >= r1:
+                    break
+                for w in range(w_first, min(w_first + span, nw)):
+                    words[row, w] = truth[row, w]
+                    written[row, w] += 1
+    return words, written, vwords
+
+
+def k1_sweep_replay(words, written, vwords, k):
+    """The warp's sweep, lane by lane: lane l holds dead words l, l + 32, ...
+    Asserts that every packed word it uses was written by the pack."""
+    nw = -(-k // 32)
+    wpl = -(-nw // 32)
+    dead = [[(~vwords[lane + 32 * r]) & M32 if lane + 32 * r < nw else M32
+             for r in range(wpl)] for lane in range(32)]
+    for r in range(wpl):
+        for wl in range(32):
+            w = 32 * r + wl
+            if w >= nw:
+                break
+            d = [int(words[32 * w + lane, w]) if 32 * w + lane < k else 0 for lane in range(32)]
+            dw = dead[wl][r]
+            todo = sum(1 << lane for lane in range(32) if d[lane]) & ~dw
+            while todo:  # the lowest live row that suppresses something here
+                b = (todo & -todo).bit_length() - 1
+                todo &= todo - 1
+                assert written[32 * w + b, w] == 1  # a live candidate: its row was packed
+                dw |= d[b]
+                todo &= ~dw
+            dead[wl][r] = dw
+            kept = ~dw & M32
+            while kept:
+                b = (kept & -kept).bit_length() - 1
+                kept &= kept - 1
+                for lane in range(32):
+                    for r2 in range(wpl):
+                        w2 = lane + 32 * r2
+                        if w < w2 < nw:
+                            assert written[32 * w + b, w2] == 1
+                            dead[lane][r2] |= int(words[32 * w + b, w2])
+    keep = np.zeros(k, bool)
+    for w in range(nw):
+        dw = dead[w % 32][w // 32]
+        for lane in range(32):
+            if 32 * w + lane < k:
+                keep[32 * w + lane] = not (dw >> lane) & 1
+    return keep
+
+
+def k1_case(kind, k, seed):
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        iou = rng.rand(k, k)
+        mat, valid = (iou + iou.T) / 2 > 0.8, rng.rand(k) < 0.6
+    elif kind == "chain":  # each box suppresses the next: every other one kept
+        mat, valid = np.eye(k, k, 1, dtype=bool), np.ones(k, bool)
+    elif kind == "all_valid":
+        mat, valid = rng.rand(k, k) > 0.97, np.ones(k, bool)
+    elif kind == "none_valid":
+        mat, valid = rng.rand(k, k) > 0.5, np.zeros(k, bool)
+    else:  # dense: the first valid box suppresses all later ones
+        mat, valid = np.ones((k, k), bool), rng.rand(k) < 0.5
+    return mat, valid
+
+
+def k1_replay(mat, valid, seed):
+    """Both launch plans of the kernel, both packers: the one-launch kernel
+    (32 warps striding over all rows) and the pack launch (a block per 32
+    rows, eight warps striding 8), 16-byte and byte packs."""
+    k = mat.shape[0]
+    nw = -(-k // 32)
+    keeps = []
+    for vec in ([True, False] if k % 16 == 0 else [False]):
+        for r0s, step, r1_of in ((range(32), 32, lambda r0: k),
+                                 ([32 * x + wp for x in range(nw) for wp in range(8)], 8,
+                                  lambda r0: min(32 * (r0 // 32) + 32, k))):
+            words, written, vwords = k1_pack_replay(mat, valid, np.random.RandomState(seed),
+                                                    r0s, step, r1_of, vec)
+            # exactly the valid rows' words from their own on were written, once each
+            own = np.arange(nw)[None, :] >= (np.arange(k) // 32)[:, None]
+            assert (written == (own & valid[:, None])).all()
+            keeps.append(k1_sweep_replay(words, written, vwords, k))
+    return keeps
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 100, 512])
+def test_k1_word_sweep_replay_equals_plain_and_pallas(k):
+    """Random masks at each K: the replayed kernel equals the plain sweep
+    and the Pallas TPU kernel in interpret mode. Tolerance: none."""
+    mat, valid = k1_case("random", k, k)
+    want = nms_kernel.suppression_sweep_ref(torch.from_numpy(mat)[None],
+                                            torch.from_numpy(valid)[None])[0].numpy()
+    pallas = np.asarray(pallas_suppression_sweep(mat[None].astype(np.float32),
+                                                 valid[None].astype(np.float32),
+                                                 interpret=True))[0] > 0.5
+    np.testing.assert_array_equal(pallas, want)
+    for keep in k1_replay(mat, valid, k):
+        np.testing.assert_array_equal(keep, want)
+
+
+@pytest.mark.parametrize("kind", ["chain", "all_valid", "none_valid", "dense"])
+@pytest.mark.parametrize("k", [33, 100])
+def test_k1_word_sweep_replay_edge_cases(kind, k):
+    """A suppression chain, all valid, none valid, a dense mask. Tolerance: none."""
+    mat, valid = k1_case(kind, k, k + 1)
+    want = nms_kernel.suppression_sweep_ref(torch.from_numpy(mat)[None],
+                                            torch.from_numpy(valid)[None])[0].numpy()
+    if kind == "chain":
+        np.testing.assert_array_equal(want, np.arange(k) % 2 == 0)
+    elif kind == "none_valid":
+        assert not want.any()
+    elif kind == "dense":
+        assert want.sum() == 1 and want[np.argmax(valid)]
+    pallas = np.asarray(pallas_suppression_sweep(mat[None].astype(np.float32),
+                                                 valid[None].astype(np.float32),
+                                                 interpret=True))[0] > 0.5
+    np.testing.assert_array_equal(pallas, want)
+    for keep in k1_replay(mat, valid, k):
+        np.testing.assert_array_equal(keep, want)
+
+
+def test_k1_plan_places_the_packed_matrix():
+    assert nms_kernel.plan(16, 512) == dict(path="smem", launches=1, words=16, scratch=None)
+    assert nms_kernel.plan(3, 1300)["path"] == "smem"
+    assert nms_kernel.plan(3, 1301) == dict(path="scratch", launches=2, words=41,
+                                            scratch=(3, 1301, 44))
+    assert nms_kernel.plan(2, 4096)["scratch"] == (2, 4096, 128)
+    # the one-launch kernel's shared memory at its largest K: valid words + K rows of
+    # an odd pitch, inside the 227 KB a block may have
+    nw = -(-1300 // 32)
+    assert 4 * (-(-nw // 4) * 4 + 1300 * (nw | 1)) <= 232448

@@ -17,11 +17,11 @@ from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel,
                                        round_sweep)
 
 
-def _sweep_case(seed, b, k, valid_frac=0.6):
+def _sweep_case(seed, b, k, valid_frac=0.6, thr=0.7):
     rng = np.random.RandomState(seed)
     iou = rng.rand(b, k, k).astype(np.float32)
     iou = (iou + iou.transpose(0, 2, 1)) / 2
-    mat = iou > 0.7
+    mat = iou > thr
     valid = rng.rand(b, k) < valid_frac
     return mat, valid
 
@@ -45,18 +45,40 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(4, 100), (16, 512), (2, 4096)])
+@pytest.mark.parametrize("b,k", [(4, 100), (1, 512), (4, 512), (16, 512), (3, 1299), (3, 1301),
+                                 (2, 4096), (4, 33)])
 def test_cuda_sweep_equals_plain(cuda_device, b, k):
-    """Tolerance: none — keep masks bit-equal to the plain version."""
-    mat, valid = _sweep_case(k, b, k)
-    mat_t = torch.from_numpy(mat).to(cuda_device)
-    valid_t = torch.from_numpy(valid).to(cuda_device)
-    before = nms_kernel.suppression_sweep.launches
-    got = nms_kernel.suppression_sweep(mat_t, valid_t)
+    """K1 on both of its plans (the packed matrix in shared memory up to
+    K = 1300, in a scratch matrix above), ragged K, a dense and a sparse
+    mask. Tolerance: none — keep masks bit-equal to the plain version."""
+    for thr in (0.7, 0.97):
+        mat, valid = _sweep_case(k, b, k, thr=thr)
+        mat_t = torch.from_numpy(mat).to(cuda_device)
+        valid_t = torch.from_numpy(valid).to(cuda_device)
+        before = nms_kernel.suppression_sweep.launches
+        got = nms_kernel.suppression_sweep(mat_t, valid_t)
+        torch.cuda.synchronize()
+        assert nms_kernel.suppression_sweep.launches == before + 1
+        want = nms_kernel.suppression_sweep_ref(mat_t, valid_t)
+        assert torch.equal(got, want) and bool(want.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [512, 1301])
+def test_cuda_sweep_chain_dense_and_empty(cuda_device, k):
+    """Each box suppressing the next (every other one kept), one box
+    suppressing all, nothing valid. Tolerance: none."""
+    chain = torch.from_numpy(np.eye(k, k, 1, dtype=bool)[None].repeat(2, 0)).to(cuda_device)
+    dense = torch.ones((2, k, k), dtype=torch.bool, device=cuda_device)
+    every = torch.ones((2, k), dtype=torch.bool, device=cuda_device)
+    none = torch.zeros((2, k), dtype=torch.bool, device=cuda_device)
+    alternate = (torch.arange(k, device=cuda_device) % 2 == 0).expand(2, k)
+    got = nms_kernel.suppression_sweep(chain, every)
     torch.cuda.synchronize()
-    assert nms_kernel.suppression_sweep.launches == before + 1
-    want = nms_kernel.suppression_sweep_ref(mat_t, valid_t)
-    assert torch.equal(got, want)
+    assert torch.equal(got, alternate)
+    got = nms_kernel.suppression_sweep(dense, every)
+    assert int(got.sum()) == 2 and bool(got[:, 0].all())
+    assert not bool(nms_kernel.suppression_sweep(dense, none).any())
 
 
 @pytest.mark.cuda
@@ -103,6 +125,48 @@ def test_cuda_conv1x1_int8_equals_plain(cuda_device, m, k, n, leaky, out_dtype):
     want = conv1x1.conv1x1_int8_requant_plain(x, w, scale, bias, inv, leaky=leaky,
                                               out_dtype=out_dtype)
     assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+# (M, Cin, Cout): each path and plan branch of K3 at the main path's sizes
+# and on ragged edges
+K3_CASES = [
+    (692224, 64, 32),    # 208² 64→32 at B=16: persistent, m64n32k32, four blocks an SM
+    (173056, 128, 64),   # 104² 128→64 at B=16: persistent, three blocks an SM
+    (2704, 1024, 512),   # 13² at B=16: 128×32 tiles, eight k-tiles
+    (169, 1024, 512),    # 13² at B=1: 32 blocks
+    (43227, 256, 128),   # ragged M, 128×64 tiles, two k-tiles
+    (77, 16, 100),       # persistent BN=128, one k32 product half zero-filled, ragged N
+    (131, 112, 40),      # persistent, K = 3.5 k32 products
+    (5, 144, 200),       # tiled, ragged K (a k-tile of 16), ragged N
+    (300, 2048, 24),     # tiled 128×32 with N % 16 = 8 (byte stores of int8)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", K3_CASES)
+def test_cuda_conv1x1_int8_paths_equal_plain(cuda_device, m, k, n):
+    """K3 on its persistent and tiled wgmma paths, int8 and f32 output,
+    leaky on and off, one launch a call, and the kernel the plan names
+    (read off the profiled kernel's name). Tolerance: none."""
+    rng = np.random.RandomState(m + k + n)
+    x, w = _int8(rng, (m, k), cuda_device), _int8(rng, (n, k), cuda_device)
+    scale, bias, inv = _epilogue(rng, n, cuda_device, 2e-4)
+    for out_dtype in (torch.int8, torch.float32):
+        plan = conv1x1.plan(m, k, n, out_dtype)
+        for leaky in (True, False):
+            before = conv1x1.conv1x1_int8_requant.launches
+            got = conv1x1.conv1x1_int8_requant(x, w, scale, bias, inv, leaky=leaky,
+                                               out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert conv1x1.conv1x1_int8_requant.launches == before + 1
+            want = conv1x1.conv1x1_int8_requant_plain(x, w, scale, bias, inv, leaky=leaky,
+                                                      out_dtype=out_dtype)
+            assert got.dtype == out_dtype and torch.equal(got, want), (plan, leaky)
+        names = _device_kernels(lambda: conv1x1.conv1x1_int8_requant(
+            x, w, scale, bias, inv, leaky=True, out_dtype=out_dtype))
+        if names:  # the profiler may show no device activity on some machines
+            assert len(names) == 1 and f"conv1x1_int8_{plan['path']}_kernel" in names[0], names
+    assert len(torch.unique(got)) > 50
 
 
 @pytest.mark.cuda

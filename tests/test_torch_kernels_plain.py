@@ -60,8 +60,10 @@ def test_wrappers_raise_on_unsupported_device():
 
 
 def test_build_names_a_library_by_its_source_and_the_headers_it_includes(tmp_path, monkeypatch):
-    """An edit to a shared header (``requant.cuh``) must rebuild every kernel
-    that includes it, directly or through another header, and no other."""
+    """An edit to a shared header must rebuild every kernel that includes it,
+    directly or through another header, and no other: ``requant.cuh`` (K3,
+    K4, K6), ``int8_wgmma.cuh`` (K3 and K6, which share its main loop,
+    cluster reduction and epilogue)."""
     import shutil
 
     from yolov3_tpu_torch.ops.cuda import build
@@ -69,12 +71,15 @@ def test_build_names_a_library_by_its_source_and_the_headers_it_includes(tmp_pat
     assert set(build._with_headers("resblock_int8.cu", {})) == {
         "resblock_int8.cu", "int8_mma.cuh", "requant.cuh"}
     assert set(build._with_headers("nms_sweep.cu", {})) == {"nms_sweep.cu"}
+    assert set(build._with_headers("conv1x1_int8.cu", {})) == {
+        "conv1x1_int8.cu", "int8_mma.cuh", "int8_wgmma.cuh", "requant.cuh"}
     copy = tmp_path / "csrc"
     shutil.copytree(build.CSRC, copy)
     monkeypatch.setattr(build, "CSRC", str(copy))
-    before = {name: build._target(name) for name in build.SOURCES}
-    with open(copy / "requant.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {name: build._target(name) for name in build.SOURCES}
-    changed = {name for name in build.SOURCES if before[name] != after[name]}
-    assert changed == {"conv1x1_int8", "conv_int8", "resblock_int8"}
+    for header, rebuilt in (("requant.cuh", {"conv1x1_int8", "conv_int8", "resblock_int8"}),
+                            ("int8_wgmma.cuh", {"conv1x1_int8", "conv_int8"})):
+        before = {name: build._target(name) for name in build.SOURCES}
+        with open(copy / header, "a") as f:
+            f.write("// edited\n")
+        after = {name: build._target(name) for name in build.SOURCES}
+        assert {name for name in build.SOURCES if before[name] != after[name]} == rebuilt

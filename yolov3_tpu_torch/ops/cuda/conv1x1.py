@@ -14,6 +14,21 @@ contraction contiguous (the JAX kernel takes the transpose, (Cin, Cout)).
 The TPU kernel's row-tile picking and channel gates were VMEM and lane
 facts; here every int8 1×1 stride-1 conv takes this kernel, any M, Cin and
 Cout (ragged edges are masked in the kernel).
+
+Three paths, chosen from the shape alone (``plan`` mirrors the choice that
+``conv1x1_int8_launch`` makes; ``csrc/conv1x1_int8.cu`` says what bounds
+each):
+
+* ``Cin % 16 == 0``, ``Cin ≤ 128`` and ``Cout ≤ 128`` — "persistent": up to
+  four blocks an SM walk the 128-row M-tiles with the weight tile resident
+  in shared memory and the next tiles' activations in flight, on ``wgmma``
+  (m64n{32,64,128}k32 by Cout);
+* ``Cin % 16 == 0`` otherwise — "wgmma": 128 × 64 tiles (128 × 32 where
+  those would not fill the card's 264 block slots) on the three-stage
+  ``cp.async`` ring of ``csrc/int8_wgmma.cuh``;
+* otherwise — "mma.sync": one shared-memory stage and ``mma.sync``.
+
+All three are bit-equal to ``conv1x1_int8_requant_plain``.
 """
 
 from __future__ import annotations
@@ -22,6 +37,38 @@ import torch
 
 from . import build
 from .requant import conv_epilogue
+
+
+_BM, _BK, _SMS = 128, 128, 132
+_SMEM_PER_SM, _BLOCK_RESERVE = 233472, 2048  # an SM's shared memory; 1 KB a block + 1 KB spare
+_MAX_BLOCKS = {32: 4, 64: 3, 128: 2}          # persistent blocks an SM by registers, by BN
+
+
+def _persistent_smem(bn: int, stages: int, out_f32: bool) -> int:
+    return bn * _BK + stages * _BM * _BK + _BM * (bn + 16) * (4 if out_f32 else 1) + 1024
+
+
+def plan(m: int, cin: int, cout: int, out_dtype=torch.int8):
+    """What ``conv1x1_int8_launch`` picks for an (M × Cin) · (Cin × Cout)
+    product: ``dict(path, tile=(BM, BN), grid=(x, y, z))``. For "wgmma" and
+    "mma.sync" the grid is (m_tiles, n_tiles, 1), a block a tile; for
+    "persistent" it is (blocks, 1, 1), each block walking the M-tiles
+    ``blockIdx.x + i·blocks``, with ``per_sm`` (blocks an SM) and ``stages``
+    (the activation ring's depth) beside it."""
+    mt = -(-m // _BM)
+    if cin % 16:
+        bn = 128 if cout > 64 else 64 if cout > 32 else 32
+        return dict(path="mma.sync", tile=(_BM, bn), grid=(mt, -(-cout // bn), 1))
+    if cin <= _BK and cout <= 128:
+        bn = 128 if cout > 64 else 64 if cout > 32 else 32
+        f32 = out_dtype == torch.float32
+        stages, per_sm = next(((s, p) for p in range(_MAX_BLOCKS[bn], 1, -1) for s in (4, 3, 2)
+                               if p * (_persistent_smem(bn, s, f32) + _BLOCK_RESERVE)
+                               <= _SMEM_PER_SM), (4, 1))
+        return dict(path="persistent", tile=(_BM, bn), grid=(min(mt, per_sm * _SMS), 1, 1),
+                    stages=stages, per_sm=per_sm)
+    bn = 64 if mt * -(-cout // 64) >= 2 * _SMS else 32
+    return dict(path="wgmma", tile=(_BM, bn), grid=(mt, -(-cout // bn), 1))
 
 
 def conv1x1_int8_requant_plain(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
@@ -57,8 +104,8 @@ def conv1x1_int8_requant(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
     """xq (M, Cin) int8, wq (Cout, Cin) int8, scale/bias (Cout,) f32,
     inv_out_scale a one-element f32 tensor (unused, may be None, when
     ``out_dtype`` is float32) → (M, Cout) ``out_dtype``. CPU tensors take
-    the plain version; CUDA tensors launch ``conv1x1_int8_kernel`` (counted
-    in ``conv1x1_int8_requant.launches``) or raise."""
+    the plain version; CUDA tensors launch one kernel (the path of ``plan``;
+    counted in ``conv1x1_int8_requant.launches``) or raise."""
     if xq.device.type == "cpu":
         return conv1x1_int8_requant_plain(xq, wq, scale, bias, inv_out_scale, leaky=leaky,
                                           out_dtype=out_dtype)
@@ -73,8 +120,13 @@ def conv1x1_int8_requant(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
         raise ValueError("conv1x1_int8_requant: needs contiguous xq and wq")
     m, cin = xq.shape
     cout = wq.shape[0]
+    if m >= 2 ** 31 or xq.numel() >= 2 ** 31:
+        raise ValueError(f"conv1x1_int8_requant: M={m} × Cin={cin} out of range")
     inv_ptr = check_epilogue_args("conv1x1_int8_requant", xq, cout, scale, bias,
                                   inv_out_scale, out_dtype)
+    if cin % 16 == 0 and (xq.data_ptr() % 16 or wq.data_ptr() % 16):
+        raise ValueError("conv1x1_int8_requant: xq and wq must be 16-byte aligned when "
+                         "Cin % 16 == 0")
     out = torch.empty((m, cout), dtype=out_dtype, device=xq.device)
     build.launch(build.function("conv1x1_int8", "conv1x1_int8_launch"), xq.device,
                  "conv1x1_int8", xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),

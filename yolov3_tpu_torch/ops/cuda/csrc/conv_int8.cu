@@ -37,7 +37,8 @@
 //     sums its share of the k-tiles, the others hand their s32 sums to the
 //     first through distributed shared memory, and that one runs the
 //     epilogue once on the full sum. s32 sums are exact in any order, so the
-//     output does not depend on the split.
+//     output does not depend on the split. The staged epilogue is
+//     int8_wgmma.cuh's, shared with K3.
 //   * otherwise (Cin = 3, the image): the gather goes byte by byte and the
 //     contraction is padded to the tile with zeros in shared memory, never
 //     in the activations; the product is the mma.sync loop shared with K3
@@ -62,8 +63,7 @@ struct Geom {
 
 // ---------------------------------------------------------------- wgmma path
 
-constexpr int kMaxSplit = 8;      // portable cluster size
-constexpr int kBlockSlots = 264;  // two blocks of this kernel on each of 132 SMs
+constexpr int kMaxSplit = 8;  // portable cluster size
 
 template <int BN>
 __global__ void __launch_bounds__(wg::kThreads, 2)
@@ -162,42 +162,9 @@ conv_int8_wgmma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
     if (rank != 0) return;
   }
 
-  // epilogue into shared memory (row stride padded against bank conflicts),
-  // then 16-byte stores along N
-  constexpr int kLdOut = BN + 16;   // elements: 16 bytes (s8) or 64 bytes (f32) of padding
   const float inv = out_f32 ? 0.0f : *inv_ptr;
-  {
-    const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = 8 * j + 2 * t, col = n0 + c;
-      if (col < n) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = 16 * warp + gq + 8 * hh;
-          conv_epilogue_pair(ring_ptr, (size_t)r * kLdOut + c, col + 1 < n, true,
-                             acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1], scale + col,
-                             bias + col, leaky_on, out_f32, inv);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  const int esize = out_f32 ? 4 : 1, per_chunk = 16 / esize;
-  const int chunks_per_row = BN / per_chunk;
-  for (int c = tid; c < wg::kBM * chunks_per_row; c += wg::kThreads) {
-    const int r = c / chunks_per_row, col0 = (c - r * chunks_per_row) * per_chunk;
-    const int row = m0 + r, col = n0 + col0;
-    if (row >= m || col >= n) continue;
-    const uint8_t* src = ring_ptr + ((size_t)r * kLdOut + col0) * esize;
-    uint8_t* dst = reinterpret_cast<uint8_t*>(out) + ((size_t)row * n + col) * esize;
-    if (vec_out && col + per_chunk <= n) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      const int bytes = (n - col < per_chunk ? n - col : per_chunk) * esize;
-      for (int i = 0; i < bytes; ++i) dst[i] = src[i];
-    }
-  }
+  wg::store_tile<BN>(ring_ptr, acc, m0, n0, m, n, scale, bias, leaky_on, out_f32, inv, vec_out,
+                     out);
 }
 
 // Blocks of the contraction's split for a grid of `tiles` output tiles and
@@ -206,7 +173,7 @@ conv_int8_wgmma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ 
 // mirrors this.
 int pick_split(int tiles, int kt) {
   int split = 1;
-  while (split < kMaxSplit && tiles * split * 2 <= kBlockSlots && kt >= split * 4) split *= 2;
+  while (split < kMaxSplit && tiles * split * 2 <= wg::kBlockSlots && kt >= split * 4) split *= 2;
   return split;
 }
 
@@ -222,7 +189,7 @@ int launch_wgmma(const void* x, const void* w, const void* scale, const void* bi
   const int mt = (m + wg::kBM - 1) / wg::kBM, nt = (n + BN - 1) / BN;
   const int split = pick_split(mt * nt, (k + wg::kBK - 1) / wg::kBK);
   const int out_f32 = (flags >> 1) & 1;
-  const int vec_out = (n % (out_f32 ? 4 : 16)) == 0 && ((uintptr_t)out % 16) == 0;
+  const int vec_out = wg::vec_out_ok(out, n, out_f32);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(mt, nt, split);
   cfg.blockDim = dim3(wg::kThreads);

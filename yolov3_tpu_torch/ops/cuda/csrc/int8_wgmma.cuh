@@ -1,12 +1,14 @@
-// The Hopper main loop of the int8 matrix-product kernels: a ring of tiles in
-// shared memory filled by 16-byte cp.async copies (zero-filled where a copy is
-// masked), multiplied by wgmma.mma_async (s8 x s8 -> s32, m64nNk32) with both
-// operands read from shared memory through descriptors. K6 (conv_int8.cu) uses
-// it; a caller supplies the functor that issues one stage's copies, so the
-// 1x1 kernel can take the same loop with a plain row loader.
+// The Hopper machinery of the int8 matrix-product kernels K3 (conv1x1_int8.cu)
+// and K6 (conv_int8.cu): a main loop over a ring of tiles in shared memory
+// filled by 16-byte cp.async copies (zero-filled where a copy is masked),
+// multiplied by wgmma.mma_async (s8 x s8 -> s32, m64nNk32) with both operands
+// read from shared memory through descriptors; the caller supplies the functor
+// that issues one stage's copies (K6 gathers taps, K3 copies plain rows). Then
+// the requant epilogue (requant.cuh) staged through shared memory and stored
+// 16 bytes a thread.
 //
 // A block has 256 threads = two warpgroups; warpgroup g owns rows [64g, 64g+64)
-// of a (kBM x BN) output tile, BN = 64 or 128, as BN/2 s32 sums a thread. A
+// of a (kBM x BN) output tile, BN = 32, 64 or 128, as BN/2 s32 sums a thread. A
 // stage holds kBK = 128 contraction bytes of the kBM rows of A and then of the
 // BN rows of B (one row per output channel), both "K-major": a row is 128
 // contiguous bytes, rows follow each other, and 8 rows form a 1024-byte atom
@@ -22,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "requant.cuh"
+
 namespace yolo_int8 {
 namespace wg {
 
@@ -29,6 +33,8 @@ constexpr int kThreads = 256;
 constexpr int kBM = 128;
 constexpr int kBK = 128;
 constexpr int kStages = 3;
+constexpr int kSms = 132;         // H100 SXM
+constexpr int kBlockSlots = 2 * kSms;  // two blocks of a kernel on each SM
 
 template <int BN>
 __host__ __device__ constexpr uint32_t stage_bytes() { return (kBM + BN) * kBK; }
@@ -95,6 +101,23 @@ __device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
 // Accumulator layout (PTX ISA, wgmma D fragment): with w = warp in the
 // warpgroup, g = lane / 4, t = lane % 4, d[4j + 2h + e] is row 16w + g + 8h,
 // column 8j + 2t + e.
+__device__ __forceinline__ void mma_m64n32k32(int (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void mma_m64n64k32(int (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -155,8 +178,9 @@ __device__ __forceinline__ void mma_m64n128k32(int (&d)[64], uint64_t desc_a, ui
 
 template <int BN>
 __device__ __forceinline__ void mma_k32(int (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
-  static_assert(BN == 64 || BN == 128, "tile widths of the int8 kernels");
-  if constexpr (BN == 64) mma_m64n64k32(d, desc_a, desc_b);
+  static_assert(BN == 32 || BN == 64 || BN == 128, "tile widths of the int8 kernels");
+  if constexpr (BN == 32) mma_m64n32k32(d, desc_a, desc_b);
+  else if constexpr (BN == 64) mma_m64n64k32(d, desc_a, desc_b);
   else mma_m64n128k32(d, desc_a, desc_b);
 }
 
@@ -210,6 +234,59 @@ __device__ __forceinline__ void mainloop(uint32_t ring, int kt0, int kt1, Load l
   // the sums are defined from here on: no read of them may move above the wait
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+}
+
+// The epilogue of one (kBM x BN) tile at (m0, n0): every thread turns its
+// sums into outputs (requant.cuh: scale, bias, leaky, then s8 or f32) in
+// `stage` (kBM rows of BN + 16 elements: the padding keeps the writes off
+// each other's banks), a barrier, then the block stores the tile 16 bytes a
+// thread along N (`vec_out`: N and `out` allow it; else byte by byte),
+// masked at M and N. `stage` must be free when it is called; it is read
+// until the last store.
+template <int BN>
+__device__ __forceinline__ void store_tile(uint8_t* stage, const int (&acc)[BN / 2], int m0,
+                                           int n0, int m, int n, const float* scale,
+                                           const float* bias, int leaky_on, int out_f32,
+                                           float inv, int vec_out, void* out) {
+  constexpr int kLdOut = BN + 16;   // elements
+  const int tid = threadIdx.x;
+  {
+    const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * t, col = n0 + c;
+      if (col < n) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 16 * warp + gq + 8 * hh;
+          conv_epilogue_pair(stage, (size_t)r * kLdOut + c, col + 1 < n, true,
+                             acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1], scale + col,
+                             bias + col, leaky_on, out_f32, inv);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int esize = out_f32 ? 4 : 1, per_chunk = 16 / esize;
+  const int chunks_per_row = BN / per_chunk;
+  for (int c = tid; c < kBM * chunks_per_row; c += kThreads) {
+    const int r = c / chunks_per_row, col0 = (c - r * chunks_per_row) * per_chunk;
+    const int row = m0 + r, col = n0 + col0;
+    if (row >= m || col >= n) continue;
+    const uint8_t* src = stage + ((size_t)r * kLdOut + col0) * esize;
+    uint8_t* dst = reinterpret_cast<uint8_t*>(out) + ((size_t)row * n + col) * esize;
+    if (vec_out && col + per_chunk <= n) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const int bytes = (n - col < per_chunk ? n - col : per_chunk) * esize;
+      for (int i = 0; i < bytes; ++i) dst[i] = src[i];
+    }
+  }
+}
+
+// 16-byte stores of the output: N a whole number of chunks and `out` aligned.
+inline int vec_out_ok(const void* out, int n, int out_f32) {
+  return (n % (out_f32 ? 4 : 16)) == 0 && ((uintptr_t)out % 16) == 0;
 }
 
 }  // namespace wg
