@@ -8,19 +8,21 @@ Phases (any failure exits non-zero):
      (no TF32 in cuDNN convolutions, matmul precision "highest");
   2. build the hand-written CUDA kernels from the checkout's sources;
   3. K1 (NMS suppression sweep) against its plain PyTorch version on the
-     card, K=512 (the serving bucket) at B=16, 1 and 4, and B=16 at K=4096
-     (the matrix-sweep bound): identical keep masks, the plan (packed
-     matrix in shared memory: one launch; in a scratch matrix: two, counted
-     by the profiler), times, device µs of a call, bound;
-  4. K2 (full round sweep) against its plain version, B=16 at N=10,647
-     (416²) and N=22,743 (608²), max_boxes 100, score threshold 0.004:
-     identical indices and counts, times, bound;
+     card, K=512 (the serving bucket) at B=16, 1 and 4: identical keep
+     masks, one device launch a call (profiler), times, device µs of a
+     call, bound;
+  4. K2 (full round sweep, a thread-block cluster an image) against its
+     plain version at N=10,647 (416²) and N=22,743 (608²), B = 16, 1 and 4,
+     max_boxes 100, score threshold 0.004: identical indices and counts, the
+     cluster plan, times, device µs of a call, bound, and the latency floor
+     (100 rounds of the design's cross-block exchange alone);
   5. serve YOLOv3-416 (Darknet-53, 3 heads, 80 COCO classes, seeded
      weights) through build_serving_predictor + DetectionApp, buckets
      [1, 4, 16], fp32 and bf16, encoded images from 48 closed-loop client
      threads (3 s warm-up, then a 10 s measured window per tier), then
      yolo_nms_exact at threshold 0.004 on one served batch's heads;
-     both kernels' launch counters must rise over this run;
+     both kernels' launch counters must rise over this run; then the same
+     exact NMS escalating by jumping to K = N against doubling, in turns;
   6. YOLOv3-tiny with the in-repo trained checkpoint on the 32 shapes_toy
      images: the port on the card (fp32, no TF32) against the port on the
      CPU (decoded heads, NMS on the same inputs, served detections; an
@@ -45,11 +47,18 @@ Phases (any failure exits non-zero):
      device forward ms at B=16, K3/K6 launches per forward, and K3's and
      K6's launches of one forward grouped by shape (count, ms, bound, path)
      from the profiler: no 1×1 conv with Cin % 16 == 0 may run K3's
-     mma.sync kernel;
+     mma.sync kernel; K4's launches a forward (one a block of the residual
+     stages ``int8_chain`` routes through it: all 23 of Darknet-53; none in
+     ``int8``); for ``int8_chain`` the forward with no residual stage and
+     with all five through K4 (device and event-loop ms in turns), the
+     routed forward's heads bit-equal to the unrouted one's on the card and
+     within 1e-3 of the CPU;
  10. K4 (fused int8 residual block): every residual stage of that
      chain-quantized model through K4 chained in halo layout against the
      unfused chain K3 → K6 → add_requant on the same int8 input (bit-equal),
-     K4 against its plain version (bit-equal), both times;
+     K4 against its plain version (bit-equal), at B=16, 1 and 4; at B=16
+     each stage both ways in turns (event-loop ms and device ms), one K4
+     block's device µs, the plan;
  11. serve the ``int8`` tier for a 10 s window as in 5; K3 and K6 must
      launch while serving;
  12. trained YOLOv3-tiny, ``int8_chain``: detections on the card against
@@ -110,8 +119,6 @@ SERVE_WINDOW_S = {"fp32": 10.0, "bf16": 10.0, "int8": 10.0}
 # an image may differ end to end between card and CPU only where a
 # decision of greedy NMS sits within this margin of flipping
 NEAR_TIE = 1e-5
-# launches of torch.cuda._sleep that open every profiler window (see device_time_by_kernel)
-PROFILER_LEAD_LAUNCHES = 1000
 
 
 def log(msg):
@@ -157,17 +164,10 @@ def max_abs(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def seeded_boxes(rng, b, n, min_wh=0.02, max_wh=0.3):
-    xy = rng.rand(b, n, 2) * 0.8
-    wh = rng.rand(b, n, 2) * (max_wh - min_wh) + min_wh
-    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
-
-
 def phase_k1(nms_kernel):
     """K1 at the serving bucket K=512 for B = 16 (the main path's shape), 1
-    and 4, and at the matrix-sweep bound K=4096 at B = 16
-    (``kernel_times.K1_CASES``): identical keep masks, the plan, the event-loop
-    ms, the device µs of one call (all its launches, profiler), the bound."""
+    and 4 (``kernel_times.K1_CASES``): identical keep masks, the event-loop
+    ms, the device µs of one call (its one launch, profiler), the bound."""
     from yolov3_tpu_torch.ops.cuda.kernel_times import K1_CASES, sweep_case
 
     results = []
@@ -183,19 +183,17 @@ def phase_k1(nms_kernel):
         kept = keep.sum(dim=1)
         ms = cuda_ms(lambda: nms_kernel.suppression_sweep(mat, valid), 50)
         plain_ms = cuda_ms(lambda: nms_kernel.suppression_sweep_ref(mat, valid), 2)
-        plan = nms_kernel.plan(b, k)
         profiled = device_time_by_kernel(lambda: nms_kernel.suppression_sweep(mat, valid))
         names = [n for n, _ in profiled[5]] if profiled else []
-        if profiled is None or len(names) != plan["launches"]:
-            raise AssertionError(f"K1 at B={b} K={k}: expected {plan['launches']} device "
-                                 f"launches, the profiler saw {names}")
+        if profiled is None or len(names) != 1:
+            raise AssertionError(f"K1 at B={b} K={k}: expected one device launch, the "
+                                 f"profiler saw {names}")
         # bytes this run needs: of each kept box's row only the entries
         # j > i (the rest are never read), the valid mask in, the keep mask out
         later = (k - 1 - torch.arange(k, device=keep.device))[None, :]
         need = int((later * keep).sum()) + 2 * b * k
         bound_ms = need / HBM_BYTES_PER_S * 1e3
-        row = dict(B=b, K=k, plan=plan["path"], launches_per_call=plan["launches"],
-                   equal=equal, max_abs_err=err, ms=ms, device_us=profiled[0] * 1e3,
+        row = dict(B=b, K=k, equal=equal, max_abs_err=err, ms=ms, device_us=profiled[0] * 1e3,
                    plain_ms=plain_ms, bound_ms=bound_ms, bytes=need, word_steps=-(-k // 32),
                    kept_max=int(kept.max()), kept_mean=float(kept.float().mean()))
         log(f"K1 nms_sweep {json.dumps(row)}")
@@ -224,31 +222,53 @@ def k2_live_visits(round_sweep, boxes, scores, sel, nv, score_thr):
 
 
 def phase_k2(round_sweep):
+    """K2 at N = 10,647 (416²) and 22,743 (608²), 100 rounds, score threshold
+    0.004, for B = 16 (the main path; ``kernel_times.K2_CASES``) and the
+    serving buckets 1 and 4: identical indices and counts, the cluster plan,
+    ms (event loop), device µs of one call (one launch, profiler), the plain
+    version's ms, the bound, and the design's latency floor: the device time
+    of 100 rounds of its exchange alone (``kernel_times.round_floor``, a
+    probe built apart from the kernels: a slot written, one cluster barrier,
+    the slots read over distributed shared memory and folded) at the same
+    cluster shape."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import (K2_CASES, K2_SCORE_THR, k2_case,
+                                                        round_floor)
+
     results = []
-    for n in (10647, 22743):
-        rng = np.random.RandomState(n)
-        boxes = torch.from_numpy(seeded_boxes(rng, 16, n)).cuda()
-        scores = torch.from_numpy(rng.rand(16, n).astype(np.float32)).cuda()
-        sel, nv = round_sweep.round_sweep(boxes, scores, IOU_THR, 0.004, 100)
+    for b, n in K2_CASES:
+        boxes, scores = k2_case(b, n)
+
+        def call():
+            return round_sweep.round_sweep(boxes, scores, IOU_THR, K2_SCORE_THR, 100)
+
+        sel, nv = call()
         torch.cuda.synchronize()
-        rsel, rnv = round_sweep.round_sweep_ref(boxes, scores, IOU_THR, 0.004, 100)
+        rsel, rnv = round_sweep.round_sweep_ref(boxes, scores, IOU_THR, K2_SCORE_THR, 100)
         equal = torch.equal(sel, rsel) and torch.equal(nv, rnv)
         err = int(max((sel - rsel).abs().max(), (nv - rnv).abs().max()))
-        ms = cuda_ms(lambda: round_sweep.round_sweep(boxes, scores, IOU_THR, 0.004, 100), 20)
+        ms = cuda_ms(call, 20)
         plain_ms = cuda_ms(lambda: round_sweep.round_sweep_ref(boxes, scores, IOU_THR,
-                                                               0.004, 100), 2)
-        need = 16 * n * (16 + 4) + 16 * 100 * 4 + 16 * 4
+                                                               K2_SCORE_THR, 100), 2)
+        profiled = device_time_by_kernel(call)
+        if profiled is None or len(profiled[5]) != 1:
+            raise AssertionError(f"K2 at B={b} N={n}: expected one device launch, profiler saw "
+                                 f"{profiled and profiled[5]}")
+        floor = device_time_by_kernel(lambda: round_floor(b, n, 100))
+        floor_ms = floor[0] if floor else "not measured (the profiler showed no device time)"
+        need = b * n * (16 + 4) + b * 100 * 4 + b * 4
         # per box still live in a round that found one: 1 argmax compare +
         # 17 IoU ops (dead and below-threshold boxes need neither)
-        ops = k2_live_visits(round_sweep, boxes, scores, sel, nv, 0.004) * 18
+        ops = k2_live_visits(round_sweep, boxes, scores, sel, nv, K2_SCORE_THR) * 18
         bound_ms = max(need / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
         bound_by = "bytes" if need / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S else "operations"
-        row = dict(B=16, N=n, max_boxes=100, equal=equal, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=need,
-                   ops=ops, rounds=int(nv.max()), nv_min=int(nv.min()))
+        row = dict(B=b, N=n, max_boxes=100, plan=round_sweep.plan(b, n), equal=equal,
+                   max_abs_err=err, ms=ms, device_us=profiled[0] * 1e3, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, floor_ms=floor_ms,
+                   floor_event_ms=cuda_ms(lambda: round_floor(b, n, 100), 20),
+                   bytes=need, ops=ops, rounds=int(nv.max()), nv_min=int(nv.min()))
         log(f"K2 round_sweep {json.dumps(row)}")
         if not equal:
-            raise AssertionError(f"K2 differs from its plain version at N={n}")
+            raise AssertionError(f"K2 differs from its plain version at B={b} N={n}")
         if int(nv.min()) != 100:
             raise AssertionError("K2 smoke input should fill all 100 rounds")
         results.append(row)
@@ -375,6 +395,17 @@ def phase_serve(inference_app, serve_app, models, decode, nms_mod, nms_kernel, r
     log(f"main path launches {json.dumps(launches)} (K1 while serving: {k1_serving})")
     if k1_serving == 0 or launches["round_sweep"] == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+
+    # the same exact NMS escalating by jumping to K = N (the default) against
+    # doubling, in turns, on these heads (kernel_times.escalation_times)
+    from yolov3_tpu_torch.ops.cuda.kernel_times import escalation_times
+
+    with torch.inference_mode():
+        escalation, same = escalation_times(nms_mod, boxes, conf, probs)
+    row = dict(B=16, N=int(boxes.shape[1]), same_answer=same, **escalation)
+    log(f"yolo_nms_exact escalation {json.dumps(row)}")
+    if not same:
+        raise AssertionError("yolo_nms_exact answers differ between its escalation policies")
 
     # the served forward against the port on the CPU, full width, one image
     with torch.inference_mode():
@@ -682,32 +713,18 @@ def device_time_by_kernel(fn):
     launches on the device, host ms of the call, {torch op: [calls, device ms]},
     [(kernel name, ms), ...] in the order the device started them).
     ``None`` when the profiler shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from yolov3_tpu_torch.ops.cuda.kernel_times import profile_window
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # lead-in: the profiler drops the first device records of a window, one
-        # or two of them some twenty seconds after a process's first window
-        # and more later (its device clock drifts against the host's), so the
-        # window opens with launches nobody reads and fn's come well inside it
-        for _ in range(PROFILER_LEAD_LAUNCHES):
-            torch.cuda._sleep(64)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-    by_name, count, started = {}, 0, []
-    for e in prof.events():
-        if (getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and "spin_kernel" not in e.name):
-            us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0) or 0
-            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
-            count += 1
-            started.append((e.time_range.start, e.name, us / 1e3))
+    # fn's records sit between two pads the profiler may cut into, and a
+    # window that lost any of them at an edge is opened again (profile_window)
+    prof, host_ms, records = profile_window(fn)
+    by_name, count = {}, len(records)
+    for _, name, us in records:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
     total = sum(by_name.values())
-    in_order = [(name, ms) for _, name, ms in sorted(started)]
+    in_order = [(name, us / 1e3) for _, name, us in records]
     ops = {}
     for e in prof.key_averages():  # the torch ops that launched them, by device time
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
@@ -842,7 +859,9 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
     calibrates for itself. Returns the chain-mode spec and params for the K4
     stage runs."""
     from yolov3_tpu_torch.config import get_anchors, read_class_names
+    from yolov3_tpu_torch.models import network
     from yolov3_tpu_torch.models.network import to_device
+    from yolov3_tpu_torch.ops.cuda import resblock
     from yolov3_tpu_torch.ops.quantize import calibrate_scales, quantize_params
     from yolov3_tpu_torch.ops.s2d import s2d_stem
 
@@ -877,10 +896,12 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
         head_err = max(max_abs(g.cpu(), c) for g, c in zip(heads["cuda"], heads["cpu"]))
         finite = all(bool(torch.isfinite(h).all()) for h in heads["cuda"])
         conv1x1.conv1x1_int8_requant.launches = conv_int8.conv_int8.launches = 0
+        resblock.fused_resblock.launches = 0
         with torch.inference_mode():
             models.apply_model(spec, q, {}, batch)
             launches = dict(conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
-                            conv_int8=conv_int8.conv_int8.launches)
+                            conv_int8=conv_int8.conv_int8.launches,
+                            resblock_int8=resblock.fused_resblock.launches)
             fwd = cuda_ms(lambda: models.apply_model(spec, q, {}, batch), 5)
             raw, k6_calls, k3_calls = profile_recording(
                 conv1x1, conv_int8, lambda: models.apply_model(spec, q, {}, batch))
@@ -907,9 +928,53 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
             raise AssertionError(f"{mode}: the card disagrees with the CPU: {row}")
         if launches["conv1x1_int8"] == 0 or launches["conv_int8"] == 0:
             raise AssertionError(f"{mode}: a forward did not go through K3 and K6: {launches}")
+        # int8_chain runs every residual stage through K4, one launch a
+        # block (Darknet-53: 23); the int8 tier (fp shortcuts) none
+        sm = spec.sub_models[0]
+        routed = sum(len(st) for st in network._fusable_stages(sm, q[sm.name]).values())
+        if launches["resblock_int8"] != routed or routed != (23 if mode == "int8_chain" else 0):
+            raise AssertionError(f"{mode}: {launches['resblock_int8']} K4 launches a forward, "
+                                 f"expected {routed}")
+        if mode == "int8_chain":
+            row["k4_routing"] = k4_routing(models, spec, q, pair, batch, heads["cuda"])
+            log(f"int8_chain forward through K4 {json.dumps(row['k4_routing'])}")
         rows.append(row)
         chain = (spec, q)
     return rows, chain, batch
+
+
+def k4_routing(models, spec, q, pair, batch, unrouted_heads):
+    """``int8_chain`` with its residual stages through K4 against none: the
+    B=16 forward's device-busy ms (profiler) and event-loop ms both ways, in
+    turns (none, routed, routed, none; "none" runs with no stage admitted to
+    K4); the routed forward's heads must be bit-equal to the unrouted
+    forward's on the card (``unrouted_heads``, the same two images) and
+    within 1e-3 of the same routed forward on the CPU (there K4's plain
+    version)."""
+    from yolov3_tpu_torch.models import network
+    from yolov3_tpu_torch.models.network import to_device
+
+    admitted = network._fusable_stages
+    out = {name: dict(ms=[], device_ms=[]) for name in ("none", "routed")}
+    try:
+        for name in ("none", "routed", "routed", "none"):
+            network._fusable_stages = admitted if name == "routed" else lambda sm, p: {}
+            with torch.inference_mode():
+                out[name]["ms"].append(cuda_ms(lambda: models.apply_model(spec, q, {}, batch), 5))
+                profiled = device_time_by_kernel(lambda: models.apply_model(spec, q, {}, batch))
+            out[name]["device_ms"].append(profiled[0] if profiled else None)
+    finally:
+        network._fusable_stages = admitted
+    with torch.inference_mode():
+        routed = models.apply_model(spec, q, {}, pair.cuda())
+        torch.cuda.synchronize()
+        cpu = models.apply_model(spec, to_device(q, "cpu"), {}, pair)
+    equal = all(torch.equal(r, u) for r, u in zip(routed, unrouted_heads))
+    err = max(max_abs(r.cpu(), c) for r, c in zip(routed, cpu))
+    row = dict(out, heads_equal_to_unrouted=equal, heads_max_abs_err_vs_cpu=err)
+    if not equal or err > 1e-3:
+        raise AssertionError(f"int8_chain routed through K4 disagrees: {row}")
+    return row
 
 
 def phase_k4(models, resblock, chain, batch):
@@ -917,7 +982,11 @@ def phase_k4(models, resblock, chain, batch):
     stage's blocks through K4 chained in halo layout against the unfused
     chain K3 → K6 → add_requant on the same int8 input (the backbone's own
     activation there). Held: stage outputs bit-equal, and one K4 block per
-    stage bit-equal to its plain version."""
+    stage bit-equal to its plain version, at B=16 and at the serving
+    buckets B=1 and 4 (the first images). Timed at B=16, in turns (fused,
+    unfused, unfused, fused): each stage both ways, by event loop and by the
+    device time of one run (profiler, every kernel it launches), and one K4
+    block alone (device µs of its one launch)."""
     from yolov3_tpu_torch.models import layers as L
     from yolov3_tpu_torch.models import network
     from yolov3_tpu_torch.models.spec import SubModelSpec
@@ -943,6 +1012,10 @@ def phase_k4(models, resblock, chain, batch):
                 x = L.add_requant(x, a, sm_q[f"layer{i + 2}"]["out_scale"])
             return x
 
+        def device_ms(fn):
+            profiled = device_time_by_kernel(fn)
+            return profiled[0] if profiled else None
+
         # K4's path, driven once with the count at 0: all five stages
         resblock.fused_resblock.launches = 0
         fused_out = [resblock.fused_stage((x.q, x.scale), sm_q, st)
@@ -964,24 +1037,52 @@ def phase_k4(models, resblock, chain, batch):
             plain = resblock.fused_resblock_plain(xp, **kwargs, b=b, h=h, w=w)
             block_equal = torch.equal(got, plain)
             err = int((got.int() - plain.int()).abs().max())
+            # the serving buckets: the stage and one block on the first images
+            small_equal = {}
+            for bs in (1, 4):
+                xs = L.QAct(x.q[:bs].contiguous(), x.scale)
+                sq, sscale = resblock.fused_stage((xs.q, xs.scale), sm_q, st)
+                swant = unfused(xs, st)
+                sxp = resblock.to_halo(xs.q)
+                small_equal[bs] = (torch.equal(sq, swant.q) and float(sscale) == float(swant.scale)
+                                   and torch.equal(
+                                       resblock.fused_resblock(sxp, **kwargs, b=bs, h=h, w=w),
+                                       resblock.fused_resblock_plain(sxp, **kwargs, b=bs, h=h,
+                                                                     w=w)))
             ms = cuda_ms(lambda: resblock.fused_resblock(xp, **kwargs, b=b, h=h, w=w), 10)
+            block = device_time_by_kernel(
+                lambda: resblock.fused_resblock(xp, **kwargs, b=b, h=h, w=w))
+            if block is None or len(block[5]) != 1:
+                raise AssertionError(f"K4 at {h}^2: expected one device launch, profiler saw "
+                                     f"{block and block[5]}")
             plain_ms = cuda_ms(lambda: resblock.fused_resblock_plain(xp, **kwargs, b=b, h=h,
                                                                       w=w), 2)
-            fused_ms = cuda_ms(lambda: resblock.fused_stage((x.q, x.scale), sm_q, st), 5)
-            unfused_ms = cuda_ms(lambda: unfused(x, st), 5)
+
+            def fused_run():
+                return resblock.fused_stage((x.q, x.scale), sm_q, st)
+
+            def unfused_run():
+                return unfused(x, st)
+
+            turns = {"fused": dict(ms=[], device_ms=[]), "unfused": dict(ms=[], device_ms=[])}
+            for name, fn in (("fused", fused_run), ("unfused", unfused_run),
+                             ("unfused", unfused_run), ("fused", fused_run)):
+                turns[name]["ms"].append(cuda_ms(fn, 5))
+                turns[name]["device_ms"].append(device_ms(fn))
             cm = c // 2
             bound_ms, bound_by, need, ops = conv_bound(
                 xp.numel(), 10 * c * cm + 8 * cm, xp.numel(), c, b * h * w * 10 * c * cm)
             row = dict(stage=f"{h}^2 C={c}", B=b, blocks=len(st), plan=resblock.plan(
                 b, h, w, c, cm), stage_equal_to_unfused=stage_equal, equal=block_equal,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=need, ops=ops, tops=ops / ms / 1e9,
-                stage_fused_ms=fused_ms, stage_unfused_ms=unfused_ms,
-                distinct_values=int(torch.unique(fq).numel()))
+                equal_b1_b4=small_equal, max_abs_err=err, ms=ms, device_us=block[0] * 1e3,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=need, ops=ops,
+                tops=ops / (block[0] * 1e-3) / 1e12, stage_fused=turns["fused"],
+                stage_unfused=turns["unfused"], distinct_values=int(torch.unique(fq).numel()))
             log(f"K4 resblock_int8 {json.dumps(row)}")
-            if not (stage_equal and block_equal):
+            if not (stage_equal and block_equal and all(small_equal.values())):
                 raise AssertionError(f"K4 disagrees at stage {row['stage']}")
             rows.append(row)
+            del xp, got, plain
     if path_launches != sum(len(st) for st in stages):
         raise AssertionError(f"K4 launched {path_launches} times over the stage runs")
     return rows, path_launches
@@ -1490,8 +1591,15 @@ def main() -> int:
         f"{torch.backends.cudnn.allow_tf32} matmul precision="
         f"{torch.get_float32_matmul_precision()}")
 
-    # phase 2 — build
+    # phase 2 — build: the kernels, and beside them K2's latency-floor probe
+    # (kernel_times.round_floor, a library of its own), all nvcc at once
+    from yolov3_tpu_torch.ops.cuda import kernel_times
+
+    probe = threading.Thread(target=kernel_times.build_probes, args=(
+        {"round_floor": (os.path.join(kernel_times.PROBES, "round_floor.cu"), {})},))
+    probe.start()
     build.build_all()
+    probe.join()
     log(f"kernels built in {build.build_seconds:.1f}s into {build.BUILD_DIR}")
 
     k1 = timed("K1", phase_k1, nms_kernel)
@@ -1513,8 +1621,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv1x1.conv1x1_int8_requant.launches = conv_int8.conv_int8.launches = 0
     _, int8_serve = timed("serve int8", serve_tier, "int8", inference_app, serve_app, bodies)
+    # K4's count: the int8_chain forward of phase 9 (reset just before it);
+    # phase 10's stage runs (k4_launches) drive the stages one by one
+    chain_row = next(r for r in int8_rows if r["mode"] == "int8_chain")
     launches.update(conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
-                    conv_int8=conv_int8.conv_int8.launches, resblock_int8=k4_launches)
+                    conv_int8=conv_int8.conv_int8.launches,
+                    resblock_int8=chain_row["launches_per_forward"]["resblock_int8"])
     log(f"int8 serving launches {json.dumps(launches)}")
     if launches["conv1x1_int8"] == 0 or launches["conv_int8"] == 0:
         raise AssertionError(f"the int8 tier served without K3 or K6: {launches}")
@@ -1549,12 +1661,15 @@ def main() -> int:
     kernels = [
         kernel_row("nms_sweep", "nms_sweep.cu", "yolov3_tpu/ops/pallas/nms_kernel.py:76", k1,
                    k1[0], library=False),
-        kernel_row("round_sweep", "round_sweep.cu", "yolov3_tpu/ops/pallas/round_sweep.py:110",
-                   k2, k2[0], library=False),
+        # K2 at B=16, N=10,647 with its latency floor (100 rounds of its exchange)
+        dict(kernel_row("round_sweep", "round_sweep.cu",
+                        "yolov3_tpu/ops/pallas/round_sweep.py:110", k2, k2[0], library=False),
+             device_us=k2[0]["device_us"], floor_ms=k2[0]["floor_ms"]),
         kernel_row("conv1x1_int8", "conv1x1_int8.cu", "yolov3_tpu/ops/pallas/conv1x1.py:111",
                    k3, k3[0]),
-        kernel_row("resblock_int8", "resblock_int8.cu", "yolov3_tpu/ops/pallas/resblock.py:189",
-                   k4, k4[2], library=False),
+        dict(kernel_row("resblock_int8", "resblock_int8.cu",
+                        "yolov3_tpu/ops/pallas/resblock.py:189", k4, k4[2], library=False),
+             device_us=k4[2]["device_us"], stage_run_launches=k4_launches),
         kernel_row("conv_int8", "conv_int8.cu", "yolov3_tpu/models/layers.py:256", k6, k6[0]),
         # K5 at the largest BN input (C=32, 416², f32) in the memory format the
         # main path showed; its backward kernel's numbers ride along

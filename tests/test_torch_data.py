@@ -5,21 +5,69 @@ The data modules are framework-neutral numpy code: the port keeps its own
 copies (it imports nothing of the JAX package), each with one paragraph added
 to its docstring. The sources must otherwise be identical, and both
 pipelines must give identical batches from the in-repo toy dataset.
-Tolerance: none."""
+Tolerance: none.
 
+Both packages decode through ``data/native.py``: the C++ core
+(``native/libyolodata.so``, built from ``native/yolodata.cc``) where it
+loads, else the Python path. The two tiers scale pixels in ways that differ by
+one ulp (``·(1/255)`` against ``/255``), so the parity test pins both packages
+to one tier at a time. The library is gitignored and each package builds it
+lazily with ``make`` in place, which races when several test processes start
+at once: one process can open the file while another writes it and then
+stays on the Python tier. This module therefore builds it once at import
+(collection runs in every test process before any test starts) under a lock,
+into a temporary name that is renamed over the real one."""
+
+import fcntl
 import os
+import subprocess
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from yolov3_tpu.data import native as jnative
 from yolov3_tpu.data import pipeline as jpipe
 from yolov3_tpu.models import transfer as jtransfer
+from yolov3_tpu_torch.data import native as tnative
 from yolov3_tpu_torch.data import pipeline as tpipe
 from yolov3_tpu_torch.models import transfer as ttransfer
 
 from .conftest import REPO
+
+NATIVE_DIR = os.path.join(REPO, "native")
+NATIVE_LIB = os.path.join(NATIVE_DIR, "libyolodata.so")
+
+
+def build_native_library():
+    """Build ``native/libyolodata.so`` if it is missing, with no process ever
+    seeing it half written: an exclusive ``flock`` on the source serialises
+    the processes that build it, ``make`` writes a name of this process's
+    own, and ``os.replace`` puts it in place in one step. A failed build leaves
+    nothing behind (the native tests then skip, as without a compiler)."""
+    if os.path.exists(NATIVE_LIB):
+        return
+    with open(os.path.join(NATIVE_DIR, "yolodata.cc"), "rb") as source:
+        fcntl.flock(source, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(NATIVE_LIB):
+                return
+            tmp = f".libyolodata-{os.getpid()}.so"
+            try:
+                done = subprocess.run(["make", "-C", NATIVE_DIR, f"TARGET={tmp}"],
+                                      capture_output=True, timeout=300).returncode == 0
+            except (OSError, subprocess.TimeoutExpired):
+                done = False
+            if done:
+                os.replace(os.path.join(NATIVE_DIR, tmp), NATIVE_LIB)
+            elif os.path.exists(os.path.join(NATIVE_DIR, tmp)):
+                os.remove(os.path.join(NATIVE_DIR, tmp))
+        finally:
+            fcntl.flock(source, fcntl.LOCK_UN)
+
+
+build_native_library()
 
 NOTE = ("\n\nFramework-neutral copy of ``yolov3_tpu/data/{name}`` (host code in numpy; the port\n"
         "imports nothing of the JAX package). tests/test_torch_data.py pins it to its original.\n")
@@ -62,9 +110,24 @@ def _toy_config():
                 for split in ("train", "valid")}}
 
 
+@pytest.fixture(params=["python", "native"])
+def decode_tier(request, monkeypatch):
+    """Both packages' ``native`` modules on one decode tier: ``python`` marks
+    the library as failed to load, ``native`` resets both modules and loads
+    the one library built above."""
+    for mod in (jnative, tnative):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_load_failed", request.param == "python")
+    if request.param == "native" and not (jnative.available() and tnative.available()):
+        pytest.skip("native core not built (no compiler?)")
+    return request.param
+
+
 @pytest.mark.parametrize("source,shuffle", [("tfrecords", None), ("tfrecords", 8),
                                             ("data_files", None), ("data_files", 8)])
-def test_batches_equal_the_jax_pipelines(source, shuffle):
+def test_batches_equal_the_jax_pipelines(source, shuffle, decode_tier):
+    for mod in (jnative, tnative):
+        assert mod.available() == (decode_tier == "native")
     cfg = dict(_toy_config(), input_data_source=source)
     names = os.path.join(REPO, "datasets/shapes_toy/class.names")
     (jtrain, _), jsizes = jpipe.create_dataset(cfg, 64, 20, names)

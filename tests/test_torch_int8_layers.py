@@ -230,6 +230,30 @@ def test_fused_resblock_plain_equals_unfused_chain_through_block_args():
     np.testing.assert_array_equal(got.numpy(), want.q.numpy())
 
 
+def test_packed_block_args_are_reused_per_model_and_released_with_it():
+    """``packed_block_args`` returns the same packed arguments while the
+    block's tensors are the same objects, packs anew for another input scale,
+    and drops its entry with the params."""
+    import gc
+
+    rng = np.random.RandomState(9)
+    squeeze = qparams_from_jax(_qparams(rng, 1, 64, 32, chain=True))
+    expand = qparams_from_jax(_qparams(rng, 3, 32, 64, chain=True))
+    shortcut = {"out_scale": torch.tensor(0.0611)}
+    s_x = torch.tensor(0.0413)
+    first, scale = TR.packed_block_args(squeeze, expand, shortcut, s_x)
+    again, _ = TR.packed_block_args(squeeze, expand, shortcut, s_x)
+    assert again is first and scale is shortcut["out_scale"]
+    want, _ = TR.block_args(squeeze, expand, shortcut, s_x)
+    assert set(first) == set(want) and all(torch.equal(first[k], want[k]) for k in want)
+    other, _ = TR.packed_block_args(squeeze, expand, shortcut, torch.tensor(0.0413))
+    assert other is not first
+    entries = len(TR._packed)
+    del squeeze, first, again, other, want
+    gc.collect()
+    assert len(TR._packed) == entries - 1
+
+
 def test_halo_round_trip_matches_jax():
     rng = np.random.RandomState(0)
     x = rng.randint(-127, 128, (3, 5, 6, 32)).astype(np.int8)
@@ -242,7 +266,12 @@ def test_halo_round_trip_matches_jax():
 
 def test_resblock_plan_fits_shared_memory_at_the_darknet_stages():
     for hw, c in ((208, 64), (104, 128), (52, 256), (26, 512), (13, 1024)):
-        rows, slice_cols, q_rows, tile = TR.plan(16, hw, hw, c, c // 2)
-        assert 1 <= rows <= hw and c % slice_cols == 0 and slice_cols % tile == 0
-        assert q_rows >= -(-rows * (hw + 2) // 128) * 128 + 2 * (hw + 2) + 2
-        assert q_rows * (c // 2 + 16) + (128 + tile) * 80 <= 232448
+        p = TR.plan(16, hw, hw, c, c // 2)
+        rows, slice_cols = p["band_rows"], p["slice_cols"]
+        assert 1 <= rows <= hw and c % slice_cols == 0 and slice_cols % p["bn2"] == 0
+        # the ring of the larger of the squeeze's and the expand's slots, the
+        # output stage, then the q1 band: (rows + 2) image rows of W + 2
+        # pixels and two more
+        ring = max(4 * (128 + p["bn1"]) * 128, 6 * p["bn2"] * 128) + 1024
+        stage = 128 * (p["bn2"] + 16)
+        assert p["smem"] == ring + stage + ((rows + 2) * (hw + 2) + 2) * (c // 2 + 16) <= 232448

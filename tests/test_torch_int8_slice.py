@@ -128,6 +128,43 @@ def test_fused_stage_equals_the_interpreters_unfused_chain(synthetic):
     np.testing.assert_array_equal(q.numpy(), want.q.numpy())
 
 
+def test_routed_int8_chain_forward_equals_the_unrouted_one(synthetic, monkeypatch):
+    """K4 in the int8_chain forward. The synthetic backbone's residual stage
+    (C = 16, layers 3-5) is narrower than any tile pair the kernel is built
+    for, so the port leaves it unfused; taken as supported it runs through
+    ``resblock.fused_stage`` (on the CPU the kernel's plain version), and
+    the heads are bit-equal to the unrouted forward's. A forward with an
+    observer runs the stage unfused, so calibration sees every layer."""
+    from yolov3_tpu_torch.ops.cuda import resblock
+
+    jspec, tspec, jp, js, calib = synthetic
+    jf = jnet.fold_batch_norm(jp, js)
+    in_absmax, out_absmax = jquant.calibrate_scales(jspec, jf, calib)
+    tq = qparams_from_jax(jax.tree.map(np.asarray, jquant.quantize_params(
+        jspec, jf, in_absmax, out_absmax=out_absmax)))
+    tspec, tq = s2d_stem(tspec, tq, image_size=SIZE)
+    images = torch.from_numpy(np.random.RandomState(6).rand(2, SIZE, SIZE, 3)
+                              .astype(np.float32))
+    calls, real = [], resblock.fused_stage
+    monkeypatch.setattr(resblock, "fused_stage",
+                        lambda x, p, starts: (calls.append(starts), real(x, p, starts))[1])
+    assert not resblock.supports(16, 8)
+    assert tnet._fusable_stages(tspec.sub_models[0], tq["backbone"]) == {}
+    unrouted = tnet.apply_model(tspec, tq, {}, images)
+    assert calls == []
+    monkeypatch.setattr(resblock, "supports", lambda c, cm: True)
+    assert tnet._fusable_stages(tspec.sub_models[0], tq["backbone"]) == {3: [3]}
+    routed = tnet.apply_model(tspec, tq, {}, images)
+    assert calls == [[3]]
+    assert len(routed) == len(unrouted) == 2
+    for r, u in zip(routed, unrouted):
+        assert torch.equal(r, u)
+    observed = tnet.apply_model(tspec, tq, {}, images, out_observer=lambda *a: None)
+    assert calls == [[3]]
+    for o, u in zip(observed, unrouted):
+        assert torch.equal(o, u)
+
+
 def _compare_predictions(jax_out, torch_out):
     jb, jc, js_, jsel, jnv = map(np.asarray, jax_out)
     tb, tc, ts, tsel, tnv = (t.numpy() for t in torch_out)

@@ -13,7 +13,17 @@ Python that mirrors what the CUDA launch functions do with a shape.
     and its blocks fit an SM.
   * K1 (``ops/cuda/csrc/nms_sweep.cu``): the pack into bit words and the
     warp's word sweep replayed in numpy, lane by lane, against the plain
-    sweep and the JAX package's Pallas kernel in interpret mode.
+    sweep and the JAX package's Pallas kernel in interpret mode; the packed
+    matrix fits shared memory at the largest K the wrapper takes.
+  * K4 (``ops/cuda/resblock.py::plan``): at every residual block of
+    Darknet-53 (YOLOv3-tiny has none) the items cover every output row and
+    channel once and the persistent grid walks each once, the band buffer
+    fits shared memory and holds every row the expand's shifted loads read,
+    and the tap-major k-steps cover the 9·Cm contraction once, A and B alike.
+  * K2 (``ops/cuda/csrc/round_sweep.cu``): the cluster's rounds replayed in
+    numpy — block-local warp maxima kept from round to round and rescanned
+    only where a warp lost a box, the cross-block fold to the lower index —
+    against the plain version and the JAX package's Pallas kernel.
 
 The shapes are the real ones: every BatchNorm input and every conv of
 YOLOv3-416 and YOLOv3-tiny, recorded from one forward of the port's network
@@ -27,9 +37,12 @@ import pytest
 import torch
 
 from yolov3_tpu.ops.pallas.nms_kernel import pallas_suppression_sweep
+from yolov3_tpu.ops.pallas.round_sweep import pallas_round_sweep
 from yolov3_tpu_torch import models
 from yolov3_tpu_torch.models import layers
-from yolov3_tpu_torch.ops.cuda import bn_stats, conv1x1, conv_int8, nms_kernel
+from yolov3_tpu_torch.models import network
+from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel, requant,
+                                       resblock, round_sweep)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ODD_BN_SHAPES = [(32, 5, 7), (3, 8, 8), (40, 9, 11), (1024, 4, 4), (7, 1, 1), (130, 33, 65)]
@@ -416,22 +429,18 @@ def k1_case(kind, k, seed):
 
 
 def k1_replay(mat, valid, seed):
-    """Both launch plans of the kernel, both packers: the one-launch kernel
-    (32 warps striding over all rows) and the pack launch (a block per 32
-    rows, eight warps striding 8), 16-byte and byte packs."""
+    """The kernel's one launch, both packers: 32 warps striding over all
+    rows, with 16-byte and with byte packs."""
     k = mat.shape[0]
     nw = -(-k // 32)
     keeps = []
     for vec in ([True, False] if k % 16 == 0 else [False]):
-        for r0s, step, r1_of in ((range(32), 32, lambda r0: k),
-                                 ([32 * x + wp for x in range(nw) for wp in range(8)], 8,
-                                  lambda r0: min(32 * (r0 // 32) + 32, k))):
-            words, written, vwords = k1_pack_replay(mat, valid, np.random.RandomState(seed),
-                                                    r0s, step, r1_of, vec)
-            # exactly the valid rows' words from their own on were written, once each
-            own = np.arange(nw)[None, :] >= (np.arange(k) // 32)[:, None]
-            assert (written == (own & valid[:, None])).all()
-            keeps.append(k1_sweep_replay(words, written, vwords, k))
+        words, written, vwords = k1_pack_replay(mat, valid, np.random.RandomState(seed),
+                                                range(32), 32, lambda r0: k, vec)
+        # exactly the valid rows' words from their own on were written, once each
+        own = np.arange(nw)[None, :] >= (np.arange(k) // 32)[:, None]
+        assert (written == (own & valid[:, None])).all()
+        keeps.append(k1_sweep_replay(words, written, vwords, k))
     return keeps
 
 
@@ -472,12 +481,353 @@ def test_k1_word_sweep_replay_edge_cases(kind, k):
 
 
 def test_k1_plan_places_the_packed_matrix():
-    assert nms_kernel.plan(16, 512) == dict(path="smem", launches=1, words=16, scratch=None)
-    assert nms_kernel.plan(3, 1300)["path"] == "smem"
-    assert nms_kernel.plan(3, 1301) == dict(path="scratch", launches=2, words=41,
-                                            scratch=(3, 1301, 44))
-    assert nms_kernel.plan(2, 4096)["scratch"] == (2, 4096, 128)
-    # the one-launch kernel's shared memory at its largest K: valid words + K rows of
-    # an odd pitch, inside the 227 KB a block may have
-    nw = -(-1300 // 32)
-    assert 4 * (-(-nw // 4) * 4 + 1300 * (nw | 1)) <= 232448
+    """One launch takes every K the wrapper takes: at ``MAX_SWEEP_K`` the
+    packed matrix (valid words + K rows of an odd pitch) fits the 227 KB of
+    shared memory a block may have, and a lane holds at most two words of a
+    row (the kernel is built for one and two); the matrix branch of
+    ``yolo_nms`` stays below it."""
+    from yolov3_tpu_torch.ops import nms
+
+    k = nms_kernel.MAX_SWEEP_K
+    nw = -(-k // 32)
+    assert 4 * (-(-nw // 4) * 4 + k * (nw | 1)) <= 232448
+    assert -(-nw // 32) <= 2
+    assert nms._MATRIX_SWEEP_MAX_K <= k
+
+
+# ---------------------------------------------------------------------- K4
+
+@functools.lru_cache(maxsize=None)
+def k4_blocks(model: str):
+    """(H, C, Cm) of every residual block of ``model``'s backbone at 416²,
+    from ``resblock.residual_blocks`` and the recorded conv shapes."""
+    spec = models.parse_model_config(os.path.join(ROOT, f"config/models/{model}/model.yaml"), 80)
+    _, convs = recorded_shapes(model)
+    sm = spec.sub_models[0]
+    ordinal = {i: n for n, i in enumerate(i for i, layer in enumerate(sm.layers)
+                                          if layer.kind == "convolutional")}
+    blocks = []
+    for starts in resblock.residual_blocks(sm):
+        for i in starts:
+            h, c, cm, k, stride = convs[ordinal[i]]
+            h2, cm2, c2, k2, stride2 = convs[ordinal[i + 1]]
+            assert (k, stride, k2, stride2, h2, cm2, c2) == (1, 1, 3, 1, h, cm, c)
+            blocks.append((h, c, cm))
+    return tuple(blocks)
+
+
+def test_k4_blocks_are_darknet53s():
+    blocks = k4_blocks("yolov3")
+    assert len(blocks) == 23
+    assert sorted(set(blocks)) == [(13, 1024, 512), (26, 512, 256), (52, 256, 128),
+                                   (104, 128, 64), (208, 64, 32)]
+    assert k4_blocks("yolov3_tiny") == ()
+
+
+def check_k4_plan(b, h, w, c, cm):
+    pl = resblock.plan(b, h, w, c, cm)
+    rows, cols, bn1, bn2 = pl["band_rows"], pl["slice_cols"], pl["bn1"], pl["bn2"]
+    assert pl == resblock.plan(b, h, w, c, cm)
+    assert pl["smem"] == resblock.smem_bytes(w, cm, rows, bn1, bn2) <= 232448
+    assert bn2 == (128 if c > 64 else 64 if c > 32 else 32)
+    assert bn1 in ((128, 64) if cm >= 128 else (64,) if cm > 32 else (32,))
+    assert (bn1, bn2) in resblock.TILES == ((32, 64), (64, 128), (128, 128))
+    assert resblock.supports(c, cm)
+    assert pl["slices"] * cols == c and (cols == c or cols % bn2 == 0)
+    assert pl["bands"] == -(-h // rows) and pl["items"] == b * pl["bands"] * pl["slices"]
+    assert pl["grid"] == min(pl["items"], 132)
+    # the persistent walk visits every item once
+    walked = sorted(it for blk in range(pl["grid"]) for it in range(blk, pl["items"], pl["grid"]))
+    assert walked == list(range(pl["items"]))
+    # every row of the halo image, zero rows included, is written once a slice
+    wp = w + 2
+    written = np.zeros(h + 2, np.int32)
+    for band in range(pl["bands"]):
+        r0 = 1 + band * rows
+        rb = min(rows, h + 1 - r0)
+        assert rb >= 1
+        written[r0:r0 + rb] += 1
+        written[0] += band == 0
+        written[h + 1] += band == pl["bands"] - 1
+        # the expand's shifted loads: every pixel of every 128-row tile (those
+        # past the band read pixel 0's rows) stays inside the buffer of
+        # (rows + 2)·wp + 2 rows; an interior pixel reads only rows 1 … m1,
+        # which the squeeze wrote
+        m1, m2 = (rb + 2) * wp, rb * wp
+        pix = np.arange(-(-m2 // 128) * 128)
+        a_row = 1 + wp + np.where(pix < m2, pix, 0)
+        off = np.array([(t // 3 - 1) * wp + (t % 3 - 1) for t in range(9)])
+        read = a_row[:, None] + off[None, :]
+        assert read.min() >= 0 and read.max() < (rows + 2) * wp + 2
+        col = pix % wp
+        interior = (pix < m2) & (col >= 1) & (col <= w)
+        assert read[interior].min() >= 1 and read[interior].max() <= m1
+    assert (written == 1).all()
+    return pl
+
+
+@pytest.mark.parametrize("model", ["yolov3", "yolov3_tiny"])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_k4_plan_covers_every_residual_block(model, b):
+    for h, c, cm in set(k4_blocks(model)):
+        check_k4_plan(b, h, h, c, cm)
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", [(2, 13, 13, 128, 64), (1, 7, 9, 256, 128),
+                                        (3, 5, 6, 64, 32), (2, 30, 17, 96, 48),
+                                        (2, 9, 11, 160, 80), (1, 6, 50, 512, 256)])
+def test_k4_plan_odd_shapes(b, h, w, c, cm):
+    check_k4_plan(b, h, w, c, cm)
+
+
+@pytest.mark.parametrize("c,cm", [(32, 16), (64, 64), (64, 128), (32, 128), (32, 64), (128, 32),
+                                  (96, 40), (100, 48)])
+def test_k4_plan_raises_outside_its_tiles(c, cm):
+    """A block whose tile widths are no pair the kernel is built for (C ≤ 32,
+    C = 64 with Cm > 32, C > 64 with Cm ≤ 32) or whose C, Cm are not whole
+    16-byte chunks is not taken: ``supports`` says no, and ``plan`` raises
+    where the widths are the reason."""
+    assert not resblock.supports(c, cm)
+    if c % 32 == 0 and cm % 16 == 0:
+        with pytest.raises(ValueError, match="no tile pair"):
+            resblock.plan(2, 13, 13, c, cm)
+
+
+@pytest.mark.parametrize("cm", [16, 32, 48, 64, 128, 256, 512])
+def test_k4_expand_steps_cover_the_tap_major_contraction_once(cm):
+    """A k-step is 128 contraction bytes of the 9·Cm tap-major contraction,
+    at most four k32 products (fewer in the last step); the A fragments'
+    16-byte halves and the weight loader's 16-byte chunks name the same
+    (tap, channel) pairs, each once, and a chunk never straddles two taps."""
+    kall = 9 * cm
+    steps = -(-kall // 128)
+    a_chunks, b_chunks = [], []
+    for s in range(steps):
+        kmma = min(4, -(-(kall - s * 128) // 32))
+        for kk in range(kmma):
+            for khalf in (0, 16):
+                q = s * 128 + kk * 32 + khalf
+                if q < kall:
+                    a_chunks.append((q // cm, q % cm))
+        for chunk in range(8):
+            q = s * 128 + chunk * 16
+            if q < kall:
+                b_chunks.append((q // cm, q % cm))
+                assert (q + 15) // cm == q // cm
+    want = [(tap, k) for tap in range(9) for k in range(0, cm, 16)]
+    assert sorted(a_chunks) == sorted(b_chunks) == want
+
+
+def _requant_int_replay(y, inv):
+    """``requant.cuh::requant_int`` in numpy float32: clamp y·inv to
+    [-128, 128] (fmax/fmin: NaN gives the other operand), add 1.5·2^23,
+    read the integer off the low bits, clip to ±127."""
+    f = np.float32
+    t = np.fmin(np.fmax(y * inv, f(-128)), f(128))
+    r = (t + f(12582912.0)).view(np.int32).astype(np.int64) - 0x4B400000
+    return np.clip(r, -127, 127)
+
+
+def test_k0_integer_requant_is_bit_identical():
+    """K4's conversion-free requant equals ``requant_clip`` for every kind of
+    f32 input: exact halves (ties to even), ±127.5 and ±128.5 at the clip,
+    -0, huge values, ±inf, NaN (as the device's fmaxf treats it) and a
+    million random values over 80 orders of magnitude; and the magic-number
+    f32 of a small integer is exact. Tolerance: none."""
+    rng = np.random.RandomState(0)
+    f = np.float32
+    special = np.array([0.5, 1.5, 2.5, -0.5, -1.5, 126.5, 127.5, -127.5, 128.5, -128.5, 127.49998,
+                        -0.0, 0.0, 1e-40, 3e38, -3e38, np.inf, -np.inf, np.nan], f)
+    y = np.concatenate([special, (rng.randn(10 ** 6) * 10.0 ** rng.uniform(-40, 40, 10 ** 6))
+                        .astype(f), (rng.randint(-600, 600, 10 ** 5) / 2).astype(f)])
+    for inv in (f(1.0), f(1 / 0.0529), f(0.37), f(3e5)):
+        with np.errstate(over="ignore", invalid="ignore"):
+            want = np.fmin(np.fmax(np.rint(y * inv), f(-127)), f(127))
+            got = _requant_int_replay(y, inv)
+        np.testing.assert_array_equal(got, want.astype(np.int64))
+        finite = np.isfinite(y * inv)
+        plain = requant.requant_clip(torch.from_numpy(y[finite]), torch.tensor(inv)).numpy()
+        np.testing.assert_array_equal(got[finite], plain.astype(np.int64))
+    v = np.concatenate([np.arange(-300, 300), rng.randint(-2 ** 22, 2 ** 22 + 1, 10 ** 5)])
+    magic = ((v + 0x4B400000).astype(np.int32).view(f) - f(12582912.0))
+    np.testing.assert_array_equal(magic, v.astype(f))
+
+
+def test_k4_plan_main_path_shapes():
+    """The plans at 416², B = 16, as the kernel's note and PERF.md give them."""
+    assert [(p["band_rows"], p["slices"], p["bn1"], p["bn2"], p["items"]) for p in (
+        resblock.plan(16, hw, hw, c, c // 2) for hw, c in (
+            (208, 64), (104, 128), (52, 256), (26, 512), (13, 1024)))] == [
+        (9, 1, 32, 64, 384), (7, 1, 64, 128, 240), (7, 1, 128, 128, 128),
+        (4, 1, 128, 128, 112), (7, 4, 128, 128, 128)]
+
+
+def test_k4_routing_finds_every_darknet53_stage():
+    """``network._fusable_stages`` on Darknet-53 with chain-mode quantized
+    entries: all five residual stages, none on YOLOv3-tiny; a stage with an
+    fp shortcut or a shape outside the kernel's tiles stays unfused."""
+    for model, want in (("yolov3", [1, 2, 8, 8, 4]), ("yolov3_tiny", [])):
+        spec = models.parse_model_config(
+            os.path.join(ROOT, f"config/models/{model}/model.yaml"), 80)
+        sm = spec.sub_models[0]
+
+        def entry(i, layer):
+            if layer.kind != "convolutional":
+                return {"out_scale": 1}
+            # (Cout, 1, 1, Cin) with Cin = the next layer's Cout: the squeeze's
+            # true shape in a Darknet block, which is all the routing reads
+            nxt = sm.layers[i + 1] if i + 1 < len(sm.layers) else layer
+            return {"kernel_q": torch.empty((layer["filters"], 1, 1, nxt.get("filters", 1)),
+                                            dtype=torch.int8), "out_scale": 1}
+
+        params = {f"layer{i}": entry(i, layer) for i, layer in enumerate(sm.layers)}
+        stages = network._fusable_stages(sm, params)
+        assert [len(st) for st in stages.values()] == want
+        assert all(first == st[0] for first, st in stages.items())
+        if stages:
+            first = next(iter(stages))
+            assert params[f"layer{first}"]["kernel_q"].shape == (32, 1, 1, 64)
+            params[f"layer{first}"]["kernel_q"] = torch.empty((32, 1, 1, 32), dtype=torch.int8)
+            assert first not in network._fusable_stages(sm, params)
+            params[f"layer{first}"] = entry(first, sm.layers[first])
+            assert first in network._fusable_stages(sm, params)
+            del params[f"layer{first + 2}"]["out_scale"]   # an fp shortcut
+            assert first not in network._fusable_stages(sm, params)
+
+
+# ---------------------------------------------------------------------- K2
+
+NONE = 0x7FFFFFFF
+
+
+def _best(v, i):
+    """(score, index) of the best entry under (score desc, index asc);
+    (-inf, NONE) when none is live."""
+    live = np.isfinite(v) | (v == np.inf)
+    if not live.any():
+        return -np.inf, NONE
+    top = v[live].max()
+    return float(top), int(i[live][v[live] == top].min())
+
+
+def _iou_f32(a, boxes):
+    """The kernel's IoU in float32, one rounding an operation, its order."""
+    f = np.float32
+    iw = np.maximum(np.minimum(a[2], boxes[:, 2]) - np.maximum(a[0], boxes[:, 0]), f(0))
+    ih = np.maximum(np.minimum(a[3], boxes[:, 3]) - np.maximum(a[1], boxes[:, 1]), f(0))
+    inter = iw * ih
+    area_q = (np.maximum(boxes[:, 2] - boxes[:, 0], f(0))
+              * np.maximum(boxes[:, 3] - boxes[:, 1], f(0)))
+    area_a = np.maximum(a[2] - a[0], f(0)) * np.maximum(a[3] - a[1], f(0))
+    uni = (area_a + area_q) - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(uni > 0, inter / np.where(uni > 0, uni, f(1)), f(0)).astype(np.float32)
+
+
+def k2_cluster_replay(boxes, scores, iou_thr, score_thr, max_boxes, pl):
+    """The kernel's rounds for each image: ``pl["cluster"]`` blocks of
+    ``pl["share"]`` boxes and ``pl["threads"]`` threads; block k owns boxes
+    [k·share, k·share + share), thread t of it the boxes t, t + T, …, warp w
+    the boxes of its 32 threads. Each warp's best is cached and recomputed
+    only in a round where the warp lost a box (asserted equal to a full
+    rescan every round); a block's winner is the best of its warps', the
+    cluster's the best of the blocks'. Returns (sel, nv)."""
+    b, n = scores.shape
+    cs, share, threads = pl["cluster"], pl["share"], pl["threads"]
+    idx = np.arange(n)
+    rank, local = idx // share, idx % share
+    warp = rank * 32 + (local % threads) // 32      # a global id of the owning warp
+    sel = np.zeros((b, max_boxes), np.int32)
+    nv = np.zeros(b, np.int32)
+    thr = np.float32(iou_thr)
+    for img in range(b):
+        live = np.where(scores[img] > np.float32(score_thr), scores[img],
+                        np.float32(-np.inf)).astype(np.float32)
+        cache = {w: _best(live[warp == w], idx[warp == w]) for w in np.unique(warp)}
+        count = 0
+        for r in range(max_boxes):
+            assert cache == {w: _best(live[warp == w], idx[warp == w]) for w in cache}
+            slots = []
+            for k in range(cs):
+                ws = [cache[w] for w in cache if w // 32 == k]
+                slots.append(_best(np.array([v for v, _ in ws], np.float32),
+                                   np.array([i for _, i in ws])) if ws else (-np.inf, NONE))
+            v, j = _best(np.array([v for v, _ in slots], np.float32),
+                         np.array([i for _, i in slots]))
+            if v == -np.inf:
+                break
+            assert slots[j // share] == (v, j)      # the owner block publishes the box
+            sel[img, r] = j
+            count += 1
+            kill = np.isfinite(live) & ((_iou_f32(boxes[img, j], boxes[img]) > thr)
+                                        | (idx == j))
+            live[kill] = -np.inf
+            for w in np.unique(warp[kill]):
+                cache[w] = _best(live[warp == w], idx[warp == w])
+        nv[img] = count
+    return sel, nv
+
+
+def k2_case(seed, b, n, tie_levels=40):
+    """Boxes as the card tests make them (exact duplicates), scores on a
+    coarse lattice (many exact ties), some boxes planted as copies of a box
+    with its score, so ties cross warp and block borders."""
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(b, n, 2) * 0.8
+    wh = rng.rand(b, n, 2) * 0.3 + 0.02
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    scores = (np.round(rng.rand(b, n) * tie_levels) / tie_levels).astype(np.float32)
+    for src, dst in ((n // 16, n // 8), (1, n - 1), (n // 3, n // 2)):
+        boxes[:, dst] = boxes[:, src]
+        scores[:, dst] = scores[:, src]
+    return boxes, scores
+
+
+@pytest.mark.parametrize("b,n,score_t,max_boxes", [
+    (1, 300, 0.0, 100), (4, 700, 0.3, 100), (16, 500, 0.004, 100), (64, 333, 0.5, 60),
+    (2, 40, 0.9, 100), (3, 129, 1.0, 20)])
+def test_k2_cluster_replay_equals_plain(b, n, score_t, max_boxes):
+    """The replayed cluster rounds at the plan's shape for B = 1, 4, 16, 64
+    (clusters of 16, 16, 8, 2) against the plain version: identical indices
+    and counts. The last three cases run out of live boxes before their
+    last round (all-dead rounds), the last has none live at all. Tolerance:
+    none."""
+    boxes, scores = k2_case(n + b, b, n)
+    pl = round_sweep.plan(b, n)
+    assert pl["cluster"] == {1: 16, 4: 16, 16: 8, 64: 2, 2: 16, 3: 16}[b]
+    assert pl["cluster"] * pl["share"] >= n and pl["threads"] % 32 == 0
+    sel, nv = k2_cluster_replay(boxes, scores, 0.5, score_t, max_boxes, pl)
+    want_sel, want_nv = round_sweep.round_sweep_ref(torch.from_numpy(boxes),
+                                                    torch.from_numpy(scores), 0.5, score_t,
+                                                    max_boxes)
+    np.testing.assert_array_equal(sel, want_sel.numpy())
+    np.testing.assert_array_equal(nv, want_nv.numpy())
+    if score_t >= 0.9:
+        assert (nv < max_boxes).all()
+
+
+def test_k2_cluster_replay_equals_pallas():
+    """One case against the JAX package's Pallas kernel in interpret mode."""
+    boxes, scores = k2_case(7, 2, 257)
+    sel, nv = k2_cluster_replay(boxes, scores, 0.5, 0.2, 30, round_sweep.plan(2, 257))
+    want_sel, want_nv = pallas_round_sweep(boxes, scores, 0.5, 0.2, max_boxes=30,
+                                           interpret=True)
+    np.testing.assert_array_equal(sel, np.asarray(want_sel))
+    np.testing.assert_array_equal(nv, np.asarray(want_nv))
+
+
+def test_k2_plan_fills_the_card_and_bounds_n():
+    assert [round_sweep.plan(b, 10647)["cluster"] for b in (1, 2, 4, 8, 16, 32, 64, 128)] == [
+        16, 16, 16, 16, 8, 4, 2, 2]   # B = 128: 10,647 boxes need two blocks' memory
+    p = round_sweep.plan(16, 10647)
+    assert (p["share"], p["threads"], p["grid"], p["smem"]) == (1331, 448, 128, 1331 * 24)
+    assert round_sweep.plan(16, 22743)["threads"] == 512
+    assert round_sweep.plan(1, 10647)["threads"] == 224
+    # a block's boxes fit its shared memory; above what 8 blocks hold the
+    # cluster grows to 16 whatever B is
+    assert round_sweep.plan(64, 22743)["cluster"] == 4
+    assert round_sweep.plan(128, 100000)["cluster"] == 16
+    for b, n in ((1, 1), (16, 10647), (128, round_sweep.MAX_N)):
+        assert round_sweep.plan(b, n)["smem"] <= 232448 - 1024
+    with pytest.raises(ValueError):
+        round_sweep.plan(1, round_sweep.MAX_N + 1)

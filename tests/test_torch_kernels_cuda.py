@@ -45,12 +45,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(4, 100), (1, 512), (4, 512), (16, 512), (3, 1299), (3, 1301),
-                                 (2, 4096), (4, 33)])
+@pytest.mark.parametrize("b,k", [(4, 100), (1, 512), (4, 512), (16, 512), (3, 1299), (3, 1300),
+                                 (4, 33)])
 def test_cuda_sweep_equals_plain(cuda_device, b, k):
-    """K1 on both of its plans (the packed matrix in shared memory up to
-    K = 1300, in a scratch matrix above), ragged K, a dense and a sparse
-    mask. Tolerance: none — keep masks bit-equal to the plain version."""
+    """K1 up to its largest K (1300, the packed matrix in shared memory),
+    ragged K, a dense and a sparse mask. Tolerance: none — keep masks
+    bit-equal to the plain version."""
     for thr in (0.7, 0.97):
         mat, valid = _sweep_case(k, b, k, thr=thr)
         mat_t = torch.from_numpy(mat).to(cuda_device)
@@ -64,7 +64,7 @@ def test_cuda_sweep_equals_plain(cuda_device, b, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [512, 1301])
+@pytest.mark.parametrize("k", [512, 1300])
 def test_cuda_sweep_chain_dense_and_empty(cuda_device, k):
     """Each box suppressing the next (every other one kept), one box
     suppressing all, nothing valid. Tolerance: none."""
@@ -82,6 +82,18 @@ def test_cuda_sweep_chain_dense_and_empty(cuda_device, k):
 
 
 @pytest.mark.cuda
+def test_cuda_sweep_raises_above_its_bound(cuda_device):
+    """K1 takes K up to ``MAX_SWEEP_K`` (its packed matrix in one block's
+    shared memory) and raises above it, launching nothing."""
+    k = nms_kernel.MAX_SWEEP_K + 1
+    before = nms_kernel.suppression_sweep.launches
+    with pytest.raises(ValueError, match="exceeds"):
+        nms_kernel.suppression_sweep(torch.zeros((1, k, k), dtype=torch.bool, device=cuda_device),
+                                     torch.zeros((1, k), dtype=torch.bool, device=cuda_device))
+    assert nms_kernel.suppression_sweep.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,max_boxes,score_t", [(10647, 100, 0.004), (22743, 100, 0.3),
                                                  (777, 50, 0.0)])
 def test_cuda_round_sweep_equals_plain(cuda_device, n, max_boxes, score_t):
@@ -94,6 +106,41 @@ def test_cuda_round_sweep_equals_plain(cuda_device, n, max_boxes, score_t):
     torch.cuda.synchronize()
     want_sel, want_nv = round_sweep.round_sweep_ref(bt, st, 0.5, score_t, max_boxes)
     assert torch.equal(sel, want_sel) and torch.equal(nv, want_nv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,score_t,cluster", [
+    (16, 10647, 0.004, 8), (16, 22743, 0.004, 8), (4, 10647, 0.004, 16), (4, 22743, 0.004, 16),
+    (1, 10647, 0.004, 16), (1, 22743, 0.004, 16), (64, 10647, 0.004, 2), (2, 100000, 0.3, 16),
+    (3, 300, 0.0, 16), (5, 40, 0.97, 16)])
+def test_cuda_round_sweep_clusters_equal_plain(cuda_device, b, n, score_t, cluster):
+    """K2 at every cluster size its plan takes (B = 16: 8 blocks an image;
+    B = 1, 4: 16; B = 64: 2; 100,000 boxes: 16 blocks of 150 KB), with exact
+    duplicate boxes and score ties, and images that run out of live boxes
+    before 100 rounds. Tolerance: none — identical indices and counts."""
+    assert round_sweep.plan(b, n)["cluster"] == cluster
+    boxes, scores = _boxes_case(n + b, b, n)
+    bt = torch.from_numpy(boxes).to(cuda_device)
+    st = torch.from_numpy(scores).to(cuda_device)
+    before = round_sweep.round_sweep.launches
+    sel, nv = round_sweep.round_sweep(bt, st, 0.5, score_t, max_boxes=100)
+    torch.cuda.synchronize()
+    assert round_sweep.round_sweep.launches == before + 1
+    want_sel, want_nv = round_sweep.round_sweep_ref(bt, st, 0.5, score_t, 100)
+    assert torch.equal(sel, want_sel) and torch.equal(nv, want_nv)
+
+
+@pytest.mark.cuda
+def test_cuda_round_floor_probe_runs(cuda_device):
+    """The latency floor's probe (``kernel_times.round_floor``, built apart
+    from the kernels) launches at the B = 16 and B = 1 shapes and leaves its
+    checksum: every block folded the same winner each round."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import round_floor
+
+    for b in (16, 1):
+        sink = round_floor(b, 10647, 100)
+        torch.cuda.synchronize()
+        assert int(sink.min()) == int(sink.max())
 
 
 def _epilogue(rng, n, device, scale_max):
@@ -251,26 +298,51 @@ def test_cuda_conv_int8_wgmma_ragged_equals_plain(cuda_device, b, h, w, cin, cou
         assert tuple(got.shape) == tuple(want.shape) and torch.equal(got, want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c,cm", [(2, 13, 13, 128, 64), (1, 7, 9, 256, 128),
-                                        (3, 5, 6, 64, 32), (2, 30, 17, 96, 48)])
-def test_cuda_fused_resblock_equals_plain(cuda_device, b, h, w, c, cm):
-    """K4 over several bands and channel slices. Tolerance: none — the whole
-    halo matrix, zero ring included."""
-    rng = np.random.RandomState(c + h)
-    xp = resblock.to_halo(_int8(rng, (b, h, w, c), cuda_device))
-    w1, w2 = _int8(rng, (cm, c), cuda_device), _int8(rng, (9, c, cm), cuda_device, 20)
-    scale1, bias1, _ = _epilogue(rng, cm, cuda_device, 1e-3)
-    scale2, bias2, _ = _epilogue(rng, c, cuda_device, 1e-4)
-    s = [torch.tensor(v, dtype=torch.float32, device=cuda_device)
+def _resblock_args(rng, b, h, w, c, cm, device):
+    xp = resblock.to_halo(_int8(rng, (b, h, w, c), device))
+    w1, w2 = _int8(rng, (cm, c), device), _int8(rng, (9, c, cm), device, 20)
+    scale1, bias1, _ = _epilogue(rng, cm, device, 1e-3)
+    scale2, bias2, _ = _epilogue(rng, c, device, 1e-4)
+    s = [torch.tensor(v, dtype=torch.float32, device=device)
          for v in (1 / 0.05177, 1 / 0.07273, 0.07273, 0.04131, 1 / 0.06113)]
-    args = (xp, w1, w2, scale1, bias1, s[0], scale2, bias2, s[1], s[2], s[3], s[4])
+    return (xp, w1, w2, scale1, bias1, s[0], scale2, bias2, s[1], s[2], s[3], s[4])
+
+
+def _check_resblock(args, b, h, w):
     before = resblock.fused_resblock.launches
     got = resblock.fused_resblock(*args, b=b, h=h, w=w)
     torch.cuda.synchronize()
     assert resblock.fused_resblock.launches == before + 1
     want = resblock.fused_resblock_plain(*args, b=b, h=h, w=w)
     assert torch.equal(got, want) and len(torch.unique(got)) > 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,cm,tiles", [
+    (2, 13, 13, 128, 64, (64, 128)), (1, 7, 9, 256, 128, (128, 128)),
+    (3, 5, 6, 64, 32, (32, 64)), (2, 30, 17, 96, 48, (64, 128)), (3, 40, 21, 64, 32, (32, 64)),
+    (1, 6, 50, 512, 256, (128, 128)), (2, 9, 11, 160, 80, (64, 128)),
+    (2, 11, 13, 128, 128, (128, 128))])
+def test_cuda_fused_resblock_equals_plain(cuda_device, b, h, w, c, cm, tiles):
+    """K4 on each of the three pairs of tile widths (squeeze over Cm, expand
+    over C) it is built for, over several bands and channel slices, ragged
+    Cm (48, 80: a 16-byte chunk of the tap-major contraction is the last of
+    its tap).
+    Tolerance: none — the whole halo matrix, zero ring included."""
+    pl = resblock.plan(b, h, w, c, cm)
+    assert (pl["bn1"], pl["bn2"]) == tiles
+    _check_resblock(_resblock_args(np.random.RandomState(c + h), b, h, w, c, cm, cuda_device),
+                    b, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c", [(208, 64), (104, 128), (52, 256), (26, 512), (13, 1024)])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_cuda_fused_resblock_darknet_stages_equal_plain(cuda_device, hw, c, b):
+    """K4 at the five residual stages of Darknet-53 at 416² (C = 64 … 1024,
+    Cm = C/2) for the serving buckets B = 1, 4 and 16. Tolerance: none."""
+    _check_resblock(_resblock_args(np.random.RandomState(c + b), b, hw, hw, c, c // 2,
+                                   cuda_device), b, hw, hw)
 
 
 def _activation(seed, shape, dtype, channels_last, device):

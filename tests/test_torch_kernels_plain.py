@@ -62,14 +62,14 @@ def test_wrappers_raise_on_unsupported_device():
 def test_build_names_a_library_by_its_source_and_the_headers_it_includes(tmp_path, monkeypatch):
     """An edit to a shared header must rebuild every kernel that includes it,
     directly or through another header, and no other: ``requant.cuh`` (K3,
-    K4, K6), ``int8_wgmma.cuh`` (K3 and K6, which share its main loop,
-    cluster reduction and epilogue)."""
+    K4, K6), ``int8_wgmma.cuh`` (K3, K4 and K6, which share its main loop;
+    K3 and K6 also its staged epilogue)."""
     import shutil
 
     from yolov3_tpu_torch.ops.cuda import build
 
     assert set(build._with_headers("resblock_int8.cu", {})) == {
-        "resblock_int8.cu", "int8_mma.cuh", "requant.cuh"}
+        "resblock_int8.cu", "int8_wgmma.cuh", "requant.cuh"}
     assert set(build._with_headers("nms_sweep.cu", {})) == {"nms_sweep.cu"}
     assert set(build._with_headers("conv1x1_int8.cu", {})) == {
         "conv1x1_int8.cu", "int8_mma.cuh", "int8_wgmma.cuh", "requant.cuh"}
@@ -77,7 +77,7 @@ def test_build_names_a_library_by_its_source_and_the_headers_it_includes(tmp_pat
     shutil.copytree(build.CSRC, copy)
     monkeypatch.setattr(build, "CSRC", str(copy))
     for header, rebuilt in (("requant.cuh", {"conv1x1_int8", "conv_int8", "resblock_int8"}),
-                            ("int8_wgmma.cuh", {"conv1x1_int8", "conv_int8"})):
+                            ("int8_wgmma.cuh", {"conv1x1_int8", "conv_int8", "resblock_int8"})):
         before = {name: build._target(name) for name in build.SOURCES}
         with open(copy / header, "a") as f:
             f.write("// edited\n")

@@ -41,11 +41,12 @@ CASES = [
     # (n, num_candidates, max_boxes, score_thr, per_class)  branch
     (600, 512, 100, 0.1, False),    # matrix sweep, top-K truncation
     (600, 512, 100, 0.1, True),     # matrix sweep, per-class offsets
-    (300, 512, 30, 0.0, False),     # matrix sweep, K = N (≤ 4096)
+    (300, 512, 30, 0.0, False),     # matrix sweep, K = N (≤ 512)
     (300, 128, 200, 0.5, False),    # matrix sweep, fewer keeps than max_boxes
     (4200, 4200, 40, 0.2, False),   # round sweep at K = N > 4096
     (4200, 4200, 40, 0.2, True),    # … per-class
     (4300, 4160, 40, 0.05, False),  # round sweep over sorted candidates
+    (3000, 2048, 100, 0.1, False),  # the port's round sweep against JAX's matrix sweep
 ]
 
 
@@ -81,7 +82,7 @@ def test_yolo_nms_exact_escalates_like_jax():
 
 @pytest.mark.parametrize("k,n,device,want", [
     (512, 10647, "cpu", 1024), (512, 10647, "cuda", 10647),
-    (1024, 2535, "cuda", 2048), (2048, 2535, "cpu", 2535),
+    (1024, 2535, "cuda", 2535), (128, 500, "cuda", 256), (2048, 2535, "cpu", 2535),
 ])
 def test_next_escalation_k(k, n, device, want):
     assert tnms.next_escalation_k(k, n, device) == want

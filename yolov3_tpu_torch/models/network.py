@@ -20,6 +20,13 @@ innermost. Quantized activations travel as ``layers.QAct`` with a contiguous
 NHWC ``q``; fp tensors stay logical NCHW but, coming from the NHWC image or
 from an int8 conv, are channels-last in memory, so the NHWC view a quantized
 conv asks for is free and nothing bounces between layouts per layer.
+
+In the ``int8_chain`` tier a Darknet residual stage (1×1 squeeze, 3×3
+expand, shortcut; repeated) whose shape the fused residual-block kernel
+takes runs through it (``ops/cuda/resblock.py::fused_stage``, K4) with one
+layout change in and one out, instead of K3 → K6 → ``add_requant`` a block.
+It computes the same bits. A forward with an observer runs every layer
+unfused, so the observer sees them all.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from ..ops.cuda import resblock
 from . import layers as L
 from .spec import LayerSpec, ModelSpec, SubModelSpec
 
@@ -65,6 +73,36 @@ def _pool_int8(q, size_xy, stride_xy, padding):
     return y.permute(0, 2, 3, 1).to(torch.int8).contiguous()
 
 
+def _fusable_stages(sm: SubModelSpec, sm_params):
+    """{first layer: block starts} of the residual stages
+    (``resblock.residual_blocks``) that may run fused: every block's two
+    convs quantized with an output scale and its shortcut with one, a shape
+    the kernel takes (``resblock.supports``), and no layer or output outside
+    the stage's own shortcuts reading a layer the fused stage does not
+    materialize (all but its last)."""
+    n = len(sm.layers)
+    reads = [(n, j % n) for j in sm.outputs_layers]
+    for i, layer in enumerate(sm.layers):
+        if layer.kind == "shortcut":
+            reads.append((i, i + int(layer["from"])))
+        elif layer.kind == "route":
+            reads.extend((i, i + int(j) if int(j) < 0 else int(j))
+                         for j in dict(layer["source"]).get("layers", ()))
+    fusable = {}
+    for starts in resblock.residual_blocks(sm):
+        first, last = starts[0], starts[-1] + 2
+        own = {i + 2 for i in starts}
+        quantized = all("out_scale" in sm_params.get(f"layer{i + d}", {})
+                        and (d == 2 or "kernel_q" in sm_params[f"layer{i + d}"])
+                        for i in starts for d in range(3))
+        if not quantized or any(first <= j < last and r not in own for r, j in reads):
+            continue
+        squeeze = sm_params[f"layer{first}"]["kernel_q"]   # (Cm, 1, 1, C)
+        if resblock.supports(squeeze.shape[3], squeeze.shape[0]):
+            fusable[first] = starts
+    return fusable
+
+
 def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                      nclasses: int, fp_dtype, conv_observer=None, out_observer=None,
                      bn_train: bool = False, new_state=None):
@@ -85,9 +123,18 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
     lattice); routes, fp convs and ``yolo`` dequantize.
     """
     x = inputs_entry if not isinstance(inputs_entry, (list, tuple)) else inputs_entry[0]
+    fusable = ({} if conv_observer is not None or out_observer is not None
+               else _fusable_stages(sm, sm_params))
     layer_outs = []
     for i, layer in enumerate(sm.layers):
+        if i < len(layer_outs):
+            continue  # inside a stage that ran fused
         key = f"layer{i}"
+        starts = fusable.get(i)
+        if starts and isinstance(x, L.QAct):
+            x = L.QAct(*resblock.fused_stage((x.q, x.scale), sm_params, starts))
+            layer_outs.extend([None] * (starts[-1] + 2 - i) + [x])
+            continue
         if layer.kind == "convolutional":
             p = sm_params[key]
             if conv_observer is not None:

@@ -6,7 +6,8 @@
     ``yolov3_tpu/ops/pallas/round_sweep.py::pallas_round_sweep``;
   * ``conv1x1.conv1x1_int8_requant`` (K3, ``csrc/conv1x1_int8.cu``) replaces
     ``yolov3_tpu/ops/pallas/conv1x1.py::conv1x1_int8_requant``;
-  * ``resblock.fused_resblock`` (K4, ``csrc/resblock_int8.cu``) replaces
+  * ``resblock.fused_resblock`` (K4, ``csrc/resblock_int8.cu`` on the
+    ``wgmma`` machinery of ``csrc/int8_wgmma.cuh``) replaces
     ``yolov3_tpu/ops/pallas/resblock.py::fused_resblock``;
   * ``bn_stats.bn_moments`` (K5, ``csrc/bn_stats.cu``: ``bn_sums`` /
     ``bn_moments`` forward in one launch, ``bn_moments_dx`` backward in one)
@@ -19,7 +20,7 @@
     plain version.
 
 ``build.py`` compiles and loads the sources and sets every launch function's
-ctypes signature once; ``kernel_times.py`` times K5 and K6 alone on a card.
+ctypes signature once; ``kernel_times.py`` times K1–K6 alone on a card.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in

@@ -46,11 +46,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (always the last argument) are c_void_p, or ctypes would cut them to 32 bits.
 # Every launch function returns the cudaError_t of its launch as an int.
 SIGNATURES = {
-    "nms_sweep": {"nms_sweep_launch": [_P] * 4 + [_I] * 2 + [_P]},
-    "round_sweep": {"round_sweep_launch": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P]},
+    "nms_sweep": {"nms_sweep_launch": [_P] * 3 + [_I] * 2 + [_P]},
+    "round_sweep": {"round_sweep_launch": [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P]},
     "conv1x1_int8": {"conv1x1_int8_launch": [_P] * 6 + [_I] * 5 + [_P]},
     "conv_int8": {"conv_int8_launch": [_P] * 6 + [_I] * 13 + [_P]},
-    "resblock_int8": {"resblock_int8_launch": [_P] * 9 + [_I] * 9 + [_P]},
+    "resblock_int8": {"resblock_int8_launch": [_P] * 13 + [_I] * 9 + [_P]},
     "bn_stats": {"bn_moments_launch": [_P] * 3 + [_I] * 9 + [_F] + [_P],
                  "bn_moments_dx_launch": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P]},
 }

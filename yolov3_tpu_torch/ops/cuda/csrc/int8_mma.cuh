@@ -1,6 +1,7 @@
-// Shared machinery of the int8 matrix-product kernels (K3, K4, K6): block
-// tiles staged through shared memory and multiplied on the tensor cores with
-// mma.sync.m16n8k32 (s8 x s8 -> s32).
+// Shared machinery of the int8 matrix-product kernels K3 and K6 for rows that
+// are not a whole number of 16-byte chunks: block tiles staged through shared
+// memory and multiplied on the tensor cores with mma.sync.m16n8k32
+// (s8 x s8 -> s32).
 //
 // A block has 256 threads = 8 warps, 4 along the rows (M) and 2 along the
 // columns (N) of a (kBM x BN) output tile, BN = 16 * NF; each warp owns a

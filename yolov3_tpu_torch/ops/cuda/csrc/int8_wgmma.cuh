@@ -1,8 +1,10 @@
-// The Hopper machinery of the int8 matrix-product kernels K3 (conv1x1_int8.cu)
-// and K6 (conv_int8.cu): a main loop over a ring of tiles in shared memory
-// filled by 16-byte cp.async copies (zero-filled where a copy is masked),
-// multiplied by wgmma.mma_async (s8 x s8 -> s32, m64nNk32) with both operands
-// read from shared memory through descriptors; the caller supplies the functor
+// The Hopper machinery of the int8 matrix-product kernels K3 (conv1x1_int8.cu),
+// K6 (conv_int8.cu) and K4 (resblock_int8.cu, which takes the copies, the
+// descriptors and the products and runs loops of its own): a main loop over a
+// ring of tiles in shared memory filled by 16-byte cp.async copies
+// (zero-filled where a copy is masked), multiplied by wgmma.mma_async
+// (s8 x s8 -> s32, m64nNk32) with both operands read from shared memory
+// through descriptors; the caller supplies the functor
 // that issues one stage's copies (K6 gathers taps, K3 copies plain rows). Then
 // the requant epilogue (requant.cuh) staged through shared memory and stored
 // 16 bytes a thread.

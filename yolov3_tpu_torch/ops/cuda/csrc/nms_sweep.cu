@@ -15,25 +15,21 @@
 //     in bit b, for j > i only (the rest are zero or never read), from
 //     16-byte loads turned into bits (K % 16 == 0) or from a warp's ballots of
 //     byte loads. Rows of invalid candidates are never kept and not packed.
-//     Up to kSmemMaxK the packed image (K x ceil(K/32) words, 213 KB at
-//     K = 1300) lives in shared memory and the sweeping block packs it with
-//     all its warps: one launch. Above, it goes to a scratch bit matrix in
-//     device memory (2 MB an image at K = 4096) that a first launch packs
-//     over the whole card (a block per 32 rows of an image), because one SM
-//     per image would read its 8 MB of rows j > i alone.
+//     The packed image (K x ceil(K/32) words, 213 KB at K = 1300) lives in
+//     shared memory and the sweeping block packs it with all its warps: one
+//     launch.
 //   * Sweep. One warp per image, with no block barrier. "Dead" (invalid or
 //     suppressed) is a bit mask, lane l holding words l, l + 32, ... For each
 //     word w of 32 candidates, all lanes resolve its candidates in order from
 //     the 32 x 32 diagonal bit block (row 32w+b's word w, one word a lane,
 //     handed round by shuffles; only live rows that suppress something in
 //     the word take a step); then each lane ORs the kept rows into its own
-//     later words. Rows come from shared memory: the resident image,
-//     or at large K a ring of 32-row blocks copied from the scratch matrix by
-//     cp.async, three blocks ahead of the sweep. Only __syncwarp and shuffles
+//     later words, read from the resident image. Only __syncwarp and shuffles
 //     order the steps.
 //
-// The TPU kernel's K % 128 and K <= 1024 limits were VMEM limits and are
-// gone; ops/cuda/nms_kernel.py holds K <= 4096 (the matrix branch's bound).
+// The TPU kernel's K % 128 limit was a VMEM layout limit and is gone; its
+// K <= 1024 becomes K <= kSmemMaxK = 1300, what one block's shared memory
+// holds (ops/nms.py sends K above 512 to the round sweep).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,15 +38,9 @@ namespace {
 
 constexpr int kSmemMaxK = 1300;    // largest K whose packed image stays in shared memory
 constexpr int kBlockThreads = 1024;  // the one-launch kernel: all warps pack, one sweeps
-constexpr int kPackThreads = 256;    // the pack launch: eight warps, 32 rows a block
-constexpr int kRingBlocks = 4;       // 32-row blocks in the sweep's ring (large K)
 constexpr unsigned kAll = 0xffffffffu;
 
 __host__ __device__ constexpr int words_of(int k) { return (k + 31) >> 5; }
-// words of a scratch row: a whole number of 16-byte chunks
-__host__ __device__ constexpr int scratch_pitch(int k) { return (words_of(k) + 3) & ~3; }
-// words of a row in the sweep's ring: 16-byte aligned, off the bank of the row above
-__host__ __device__ constexpr int ring_pitch(int k) { return scratch_pitch(k) + 4; }
 
 // bit c (c < 4) set where byte c of x is nonzero
 __device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
@@ -226,77 +216,6 @@ nms_sweep_smem_kernel(const uint8_t* __restrict__ mat, const uint8_t* __restrict
              [&](int w) { return rows + (size_t)32 * w * pitch; });
 }
 
-// K > kSmemMaxK, first launch: block (x, b) packs rows [32x, 32x + 32) of image b.
-template <bool VEC>
-__global__ void __launch_bounds__(kPackThreads)
-nms_pack_kernel(const uint8_t* __restrict__ mat, const uint8_t* __restrict__ valid,
-                uint32_t* __restrict__ scratch, int k) {
-  __shared__ uint32_t valid_s[1];
-  const size_t b = blockIdx.y;
-  const int r0 = 32 * blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp == 0) {
-    const int c = r0 + lane;
-    const uint32_t word = __ballot_sync(kAll, c < k && valid[b * k + c] != 0);
-    if (lane == 0) valid_s[0] = word;
-  }
-  __syncthreads();
-  const int r1 = r0 + 32 < k ? r0 + 32 : k;
-  const int pitch = scratch_pitch(k);
-  pack_rows<VEC>(mat + b * k * (size_t)k, valid_s, r0, k, r0 + warp, r1, kPackThreads / 32,
-                 scratch + b * k * (size_t)pitch, pitch, lane);
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async_16(uint32_t* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// K > kSmemMaxK, second launch: one warp an image sweeps the scratch matrix
-// through a ring of 32-row blocks in shared memory.
-template <int WPL>
-__global__ void __launch_bounds__(32)
-nms_sweep_ring_kernel(const uint32_t* __restrict__ scratch, const uint8_t* __restrict__ valid,
-                      uint8_t* __restrict__ keep, int k) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int nw = words_of(k), gp = scratch_pitch(k), rp = ring_pitch(k);
-  uint32_t* valid_s = smem;
-  uint32_t* ring = smem + ((nw + 3) & ~3);
-  const size_t b = blockIdx.x;
-  const int lane = threadIdx.x;
-  const uint32_t* img = scratch + b * k * (size_t)gp;
-  pack_valid(valid + b * k, k, valid_s, 0, 1, lane);
-
-  // block q: rows 32q + r, words from q's chunk on (words below q are never read)
-  auto copy_block = [&](int q) {
-    if (q < nw) {
-      uint32_t* dst = ring + (q % kRingBlocks) * 32 * rp;
-      const int c0 = q >> 2, chunks = gp / 4;
-      for (int r = 0; r < 32; ++r) {
-        const int i = 32 * q + r;
-        for (int c = c0 + lane; c < chunks; c += 32) {
-          const bool ok = i < k;
-          cp_async_16(dst + r * rp + 4 * c, ok ? img + (size_t)i * gp + 4 * c : img, ok);
-        }
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-  for (int q = 0; q < kRingBlocks - 1; ++q) copy_block(q);
-  __syncwarp();   // valid_s
-  sweep<WPL>(valid_s, k, rp, keep + b * k, lane, [&](int w) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRingBlocks - 2) : "memory");
-    // block w has landed for every lane, and every lane is done with the
-    // slot that the next copy refills (read in step w - 1)
-    __syncwarp();
-    copy_block(w + kRingBlocks - 1);
-    return static_cast<const uint32_t*>(ring + (w % kRingBlocks) * 32 * rp);
-  });
-}
-
 template <class Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -314,43 +233,19 @@ int launch_smem(const uint8_t* mat, const uint8_t* valid, uint8_t* keep, int bat
   return (int)cudaGetLastError();
 }
 
-template <int WPL>
-int launch_ring(const uint8_t* mat, const uint8_t* valid, uint8_t* keep, uint32_t* scratch,
-                int batch, int k, bool vec, cudaStream_t stream) {
-  dim3 grid(words_of(k), batch);
-  if (vec) nms_pack_kernel<true><<<grid, kPackThreads, 0, stream>>>(mat, valid, scratch, k);
-  else nms_pack_kernel<false><<<grid, kPackThreads, 0, stream>>>(mat, valid, scratch, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = 4 * (size_t)(((words_of(k) + 3) & ~3) + kRingBlocks * 32 * ring_pitch(k));
-  err = set_smem(nms_sweep_ring_kernel<WPL>, smem);
-  if (err != cudaSuccess) return (int)err;
-  nms_sweep_ring_kernel<WPL><<<batch, 32, smem, stream>>>(scratch, valid, keep, k);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// K <= 1300: one launch, `scratch` unused (may be null). K in (1300, 4096]:
-// two launches, `scratch` a (batch, K, scratch_pitch(K)) int32 buffer. Launches
-// on `stream`; returns the cudaError_t of the launches (0 = success).
-extern "C" int nms_sweep_launch(const void* mat, const void* valid, void* keep, void* scratch,
-                                int batch, int k, void* stream) {
+// K <= 1300 (kSmemMaxK), one launch on `stream`; returns the cudaError_t of
+// the launch (0 = success).
+extern "C" int nms_sweep_launch(const void* mat, const void* valid, void* keep, int batch, int k,
+                                void* stream) {
   if (batch == 0 || k == 0) return 0;
-  if (k > 4096) return (int)cudaErrorInvalidValue;
+  if (k > kSmemMaxK) return (int)cudaErrorInvalidValue;
   const uint8_t* m = (const uint8_t*)mat;
   const uint8_t* v = (const uint8_t*)valid;
   uint8_t* out = (uint8_t*)keep;
   cudaStream_t s = (cudaStream_t)stream;
   const bool vec = k % 16 == 0 && (uintptr_t)mat % 16 == 0;
-  if (k <= kSmemMaxK) {
-    if (words_of(k) <= 32) return launch_smem<1>(m, v, out, batch, k, vec, s);
-    return launch_smem<2>(m, v, out, batch, k, vec, s);
-  }
-  uint32_t* sc = (uint32_t*)scratch;
-  switch ((words_of(k) + 31) / 32) {
-    case 2: return launch_ring<2>(m, v, out, sc, batch, k, vec, s);
-    case 3: return launch_ring<3>(m, v, out, sc, batch, k, vec, s);
-    default: return launch_ring<4>(m, v, out, sc, batch, k, vec, s);
-  }
+  if (words_of(k) <= 32) return launch_smem<1>(m, v, out, batch, k, vec, s);
+  return launch_smem<2>(m, v, out, batch, k, vec, s);
 }

@@ -1,5 +1,6 @@
 // K0 — the shared int8 epilogue of the int8 kernels (K3 conv1x1_int8.cu,
-// K4 resblock_int8.cu, K6 conv_int8.cu).
+// K4 resblock_int8.cu, K6 conv_int8.cu). K4 takes the integer forms
+// requant_int and small_int_float, bit-identical to requant_clip and (float).
 //
 // Counterpart of yolov3_tpu/ops/pallas/common.py (leaky, requant_clip): one
 // definition of the requant contract — LeakyReLU slope 0.1, round half to
@@ -31,6 +32,26 @@ __device__ __forceinline__ float leaky(float y) {
 // kept as f32; callers cast to int8 where the value leaves the kernel.
 __device__ __forceinline__ float requant_clip(float y, float inv_scale) {
   return fminf(fmaxf(rintf(__fmul_rn(y, inv_scale)), -127.0f), 127.0f);
+}
+
+// The same requant as an int in [-127, 127], bit-identical to
+// (int)requant_clip(y, inv_scale) for every f32 y, NaN and +-inf included,
+// but with no conversion instruction (those run at a quarter of the f32
+// rate). y * inv_scale is first clamped to [-128, 128], which changes no
+// result: 127.5 still rounds to 128 and clips to 127, and NaN becomes -128
+// and then -127, as requant_clip's fmaxf makes it. The rounding half to even
+// is the f32 addition of 1.5 * 2^23, whose ulp is 1; the sum's low bits are
+// the integer. tests/test_torch_kernel_plans.py replays it in numpy.
+__device__ __forceinline__ int requant_int(float y, float inv_scale) {
+  const float t = fminf(fmaxf(__fmul_rn(y, inv_scale), -128.0f), 128.0f);
+  const int r = __float_as_int(__fadd_rn(t, 12582912.0f)) - 0x4B400000;
+  return max(-127, min(127, r));
+}
+
+// The f32 value of an integer |v| <= 2^22, exactly, without a conversion
+// instruction: the bits of 1.5 * 2^23 + v, less 1.5 * 2^23.
+__device__ __forceinline__ float small_int_float(int v) {
+  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.0f);
 }
 
 // The whole conv epilogue (K3, K6) for one pair of adjacent output channels

@@ -9,9 +9,10 @@ over M (B, K, K) {0,1} (IoU > threshold between score-sorted candidates)
 and valid (B, K). The kernel (``csrc/nms_sweep.cu``) takes M as
 bool/uint8 instead of the TPU's f32 and returns keep as bool. It packs each
 image's rows into bits and sweeps them with one warp, K/32 word steps (its
-note says why); ``plan`` says where the packed matrix lives. The TPU's
-K % 128 and K ≤ 1024 limits were VMEM limits; here any K ≤ ``MAX_SWEEP_K``
-works.
+note says why) in one launch, a block an image holding the packed matrix in
+shared memory. The TPU's K % 128 limit was a VMEM layout limit and is gone;
+its K ≤ 1024 becomes K ≤ ``MAX_SWEEP_K`` = 1300, what that shared memory
+holds (``ops/nms.py`` sends K above 512 to the round sweep).
 """
 
 from __future__ import annotations
@@ -20,22 +21,7 @@ import torch
 
 from . import build
 
-MAX_SWEEP_K = 4096  # = ops/nms.py::_MATRIX_SWEEP_MAX_K
-SMEM_MAX_K = 1300   # largest K whose packed matrix stays in one block's shared memory
-
-
-def plan(b: int, k: int):
-    """What ``nms_sweep_launch`` does for (B, K): ``dict(path, launches,
-    words, scratch)``. "smem": one launch, a block an image packs its rows
-    into shared memory and one warp sweeps them. "scratch": K > SMEM_MAX_K,
-    a pack launch of ``ceil(K/32)`` blocks an image writes the bits to a
-    (B, K, ``scratch[2]``) int32 buffer the wrapper allocates, then a sweep
-    launch of one warp an image reads it through shared memory. ``words``:
-    32-bit words of a packed row."""
-    words = -(-k // 32)
-    if k <= SMEM_MAX_K:
-        return dict(path="smem", launches=1, words=words, scratch=None)
-    return dict(path="scratch", launches=2, words=words, scratch=(b, k, -(-words // 4) * 4))
+MAX_SWEEP_K = 1300  # largest K whose packed matrix fits one block's shared memory
 
 
 def suppression_sweep_ref(suppress_mat, valid):
@@ -57,8 +43,8 @@ def suppression_sweep_ref(suppress_mat, valid):
 def suppression_sweep(suppress_mat, valid):
     """(B, K, K) bool, (B, K) bool → keep (B, K) bool. CPU tensors take the
     plain version; CUDA tensors run the kernel on the masks in place, with no
-    copy (one or two launches, see ``plan``; a call counts once in
-    ``suppression_sweep.launches``), or raise."""
+    copy (one launch, counted in ``suppression_sweep.launches``), or
+    raise."""
     if suppress_mat.device.type == "cpu":
         return suppression_sweep_ref(suppress_mat, valid)
     if suppress_mat.device.type != "cuda":
@@ -78,11 +64,8 @@ def suppression_sweep(suppress_mat, valid):
     mat = suppress_mat.contiguous().view(torch.uint8)
     val = valid.contiguous().view(torch.uint8)
     keep = torch.empty((b, k), dtype=torch.bool, device=mat.device)
-    shape = plan(b, k)["scratch"]
-    scratch = None if shape is None else torch.empty(shape, dtype=torch.int32, device=mat.device)
     build.launch(build.function("nms_sweep", "nms_sweep_launch"), mat.device, "nms_sweep",
-                 mat.data_ptr(), val.data_ptr(), keep.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), b, k)
+                 mat.data_ptr(), val.data_ptr(), keep.data_ptr(), b, k)
     suppression_sweep.launches += 1
     return keep
 

@@ -14,12 +14,17 @@ bit-compatible with the unfused chain ``conv2d_int8`` (K3) → ``conv2d_int8``
 (K6) → ``add_requant``. The weights come packed as the port keeps them, one
 row per output channel: w1 (Cm, C), w2 (9, C, Cm) tap-major (tap = dy·3+dx);
 the JAX kernel takes the transposes. ``block_args`` builds a block's
-arguments from chain-mode quantized params. Like the JAX package, the port
-wires this kernel into no predictor: stage runs (``chip_smoke.py``) time it
-against the unfused chain.
+arguments from chain-mode quantized params (``packed_block_args`` keeps them
+per model). The JAX package wires its kernel into no predictor; the port's
+``int8_chain`` tier runs every residual stage whose shape the kernel takes
+(``supports``) through ``fused_stage`` (``models/network.py``).
 """
 
 from __future__ import annotations
+
+import functools
+import itertools
+import weakref
 
 import numpy as np
 import torch
@@ -28,9 +33,40 @@ import torch.nn.functional as F
 from . import build
 from .requant import leaky, requant_clip
 
-_TILE_ROWS = 128            # rows of a block tile (csrc/int8_mma.cuh: kBM)
-_TILE_LD = 80               # bytes per staged tile row (kLd)
-_MAX_SMEM = 232448          # bytes of shared memory a block may use on sm_90
+_BM, _BK = 128, 128          # rows of a block tile, contraction bytes of a k-step
+_SQUEEZE_SLOTS, _EXPAND_SLOTS = 4, 6   # ring slots: k-steps in flight ahead + 2
+_SMS = 132                   # H100 SXM: the persistent grid's blocks (int8_wgmma.cuh: kSms)
+_MAX_SMEM = 232448           # bytes of shared memory a block may use on sm_90
+_TILE_OVERHEAD = 8           # a tile's epilogue and drained products, in 128×32×128 k-steps
+# (bn1, bn2) tile widths the kernel is built for, those of Darknet-53's blocks:
+# the squeeze's over Cm and the expand's over C at C = 64, 128 and ≥ 256
+TILES = ((32, 64), (64, 128), (128, 128))
+
+
+def _squeeze_tiles(c: int, cm: int):
+    """The squeeze tile widths ``plan`` may pick for (C, Cm): bn2 follows C,
+    bn1 Cm (32 for Cm ≤ 32, 64 below 128, else 128 or 64), kept where the
+    pair is in ``TILES``."""
+    bn2 = 128 if c > 64 else 64 if c > 32 else 32
+    bn1s = (128, 64) if cm >= 128 else (64,) if cm > 32 else (32,)
+    return bn2, tuple(bn1 for bn1 in bn1s if (bn1, bn2) in TILES)
+
+
+def supports(c: int, cm: int) -> bool:
+    """Whether the kernel takes a block of C channels squeezed to Cm:
+    C % 32 == 0, Cm % 16 == 0 and a pair of tile widths it is built for."""
+    return c % 32 == 0 and cm % 16 == 0 and bool(_squeeze_tiles(c, cm)[1])
+
+
+def smem_bytes(w: int, cm: int, band_rows: int, bn1: int, bn2: int) -> int:
+    """Shared memory of a launch (csrc/resblock_int8.cu: ``launch``): the
+    ring (the squeeze's and the expand's slots
+    take turns in it) with 1 KB to align it, the shortcut's output stage, and
+    the q1 band buffer of (R + 2)·(W + 2) + 2 rows at a pitch of
+    round_up(Cm, 32) + 16 bytes."""
+    ring = max(_SQUEEZE_SLOTS * (_BM + bn1) * _BK, _EXPAND_SLOTS * bn2 * _BK) + 1024
+    ldq = -(-cm // 32) * 32 + 16
+    return ring + _BM * (bn2 + 16) + ((band_rows + 2) * (w + 2) + 2) * ldq
 
 
 def halo_mask(h: int, w: int) -> np.ndarray:
@@ -77,6 +113,34 @@ def block_args(squeeze, expand, shortcut, s_x):
         inv_out=torch.reciprocal(shortcut["out_scale"])), shortcut["out_scale"]
 
 
+# a block's packed arguments, kept while its squeeze weight lives: id of the
+# squeeze kernel_q → (weak reference to it, s_x, expand kernel_q, shortcut
+# out_scale, kwargs, output scale); tensors compare element-wise, so the key is
+# the id, and a finalizer drops the entry with the weight
+_packed = {}
+
+
+def packed_block_args(squeeze, expand, shortcut, s_x):
+    """``block_args``, computed once per block of a model and then reused: the
+    arguments are constants of the quantized params (the w2 repack and five
+    scalar ops would otherwise run on every forward). Keyed weakly by the
+    squeeze's weight and checked against the other tensors they come from;
+    nothing cached refers back to the key, so the entry goes with the
+    params."""
+    key = squeeze["kernel_q"]
+    hit = _packed.get(id(key))
+    if (hit is not None and hit[0]() is key and hit[1] is s_x and hit[2] is expand["kernel_q"]
+            and hit[3] is shortcut["out_scale"]):
+        return hit[4], hit[5]
+    kwargs, out_scale = block_args(squeeze, expand, shortcut, s_x)
+    kwargs["w1"] = kwargs["w1"].clone()   # a view would keep the key alive
+    if hit is None or hit[0]() is not key:
+        weakref.finalize(key, _packed.pop, id(key), None)
+    _packed[id(key)] = (weakref.ref(key), s_x, expand["kernel_q"], shortcut["out_scale"], kwargs,
+                        out_scale)
+    return kwargs, out_scale
+
+
 def residual_blocks(sm):
     """The residual stages of a sub-model: a list of stages, each the list of
     layer indices ``i`` at which a block starts (``i``: 1×1 stride-1 conv,
@@ -110,8 +174,8 @@ def fused_stage(x, sm_params, starts):
     b, h, w, _ = q.shape
     xp = to_halo(q)
     for i in starts:
-        kwargs, scale = block_args(sm_params[f"layer{i}"], sm_params[f"layer{i + 1}"],
-                                   sm_params[f"layer{i + 2}"], scale)
+        kwargs, scale = packed_block_args(sm_params[f"layer{i}"], sm_params[f"layer{i + 1}"],
+                                          sm_params[f"layer{i + 2}"], scale)
         xp = fused_resblock(xp, **kwargs, b=b, h=h, w=w)
     return from_halo(xp, b, h, w).contiguous(), scale
 
@@ -138,32 +202,48 @@ def fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s
     return out.reshape(xp.shape)
 
 
-def plan(b: int, h: int, w: int, c: int, cm: int, sms: int = 132):
-    """(band_rows, slice_cols, q_rows, tile_cols) for the kernel's grid of
-    (bands, channel slices, images): the choice that fits the q1 band into
-    shared memory and needs the fewest tile steps on the slowest SM, counting
-    the halo rows and the squeeze that bands and slices recompute."""
-    tile = 128 if c >= 128 else 64
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, c: int, cm: int, sms: int = _SMS):
+    """What ``resblock_int8_launch`` is given and does for one block:
+    ``dict(band_rows, slice_cols, bn1, bn2, bands, slices, items, grid,
+    smem)``. The work is cut into items (image, band of ``band_rows`` output
+    rows, slice of ``slice_cols`` output channels), which a persistent grid of
+    ``grid`` blocks (one an SM, or one an item if fewer) walks in order. The
+    tile widths (``_squeeze_tiles``) are a pair of ``TILES``; a shape with
+    none raises. Of the cuts that fit shared memory, the one with the fewest
+    128×32×128 product steps on the slowest SM wins, counting the
+    zero-padded ends of both contractions, the halo rows a band
+    recomputes, the whole squeeze that every slice recomputes, the rows of
+    the last M-tile that lie past the band, and a fixed cost a tile."""
     wp = w + 2
+    bn2, bn1s = _squeeze_tiles(c, cm)
+    if not bn1s:
+        raise ValueError(f"fused_resblock: no tile pair of {TILES} for C={c}, Cm={cm}")
+    squeeze_k = -(-c // _BK)
+    expand_k = -(-9 * cm // _BK)
     best = None
-    for slices in (1, 2, 4, 8, 16):
-        if slices > 1 and (c % slices or (c // slices) % tile):
+    for bn1, slices in itertools.product(bn1s, (1, 2, 4, 8, 16, 32)):
+        if slices > 1 and (c % slices or (c // slices) % bn2):
             continue
         for rows in range(1, h + 1):
-            q_rows = -(-rows * wp // _TILE_ROWS) * _TILE_ROWS + 2 * wp + 2
-            smem = q_rows * (cm + 16) + (_TILE_ROWS + tile) * _TILE_LD
+            smem = smem_bytes(w, cm, rows, bn1, bn2)
             if smem > _MAX_SMEM:
                 break
-            squeeze = -(-(rows + 2) * wp // _TILE_ROWS) * -(-cm // tile) * -(-c // 64)
-            expand = -(-rows * wp // _TILE_ROWS) * -(-c // slices // tile) * 9 * -(-cm // 64)
-            blocks = -(-h // rows) * slices * b
-            cost = -(-blocks // sms) * (squeeze + expand)
+            bands = -(-h // rows)
+            items = b * bands * slices
+            squeeze = (-(-(rows + 2) * wp // _BM) * -(-cm // bn1)
+                       * (squeeze_k * bn1 // 32 + _TILE_OVERHEAD))
+            expand = (-(-rows * wp // _BM) * -(-(c // slices) // bn2)
+                      * (expand_k * bn2 // 32 + _TILE_OVERHEAD))
+            cost = -(-items // sms) * (squeeze + expand)
             if best is None or cost < best[0]:
-                best = (cost, rows, c // slices, q_rows, tile)
+                best = (cost, dict(band_rows=rows, slice_cols=c // slices, bn1=bn1, bn2=bn2,
+                                   bands=bands, slices=slices, items=items,
+                                   grid=min(items, sms), smem=smem))
     if best is None:
         raise ValueError(f"fused_resblock: no band of a {h}×{w} image at Cm={cm} fits "
                          f"{_MAX_SMEM} bytes of shared memory")
-    return best[1:]
+    return best[1]
 
 
 def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
@@ -172,7 +252,7 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
 
     xp (B·(H+2)·(W+2), C) int8 zero-halo; w1 (Cm, C) int8; w2 (9, C, Cm) int8;
     scale1/bias1 (Cm,) f32 with scale1 = w1_scale·s_x; scale2/bias2 (C,) f32
-    with scale2 = w2_scale·s1; the six scalars 0-d f32 tensors (the f32
+    with scale2 = w2_scale·s1; the five scalars 0-d f32 tensors (the f32
     reciprocals and scales of the unfused chain). Returns the same-shape
     halo matrix at scale 1/inv_out. CPU tensors take the plain version; CUDA
     tensors launch ``resblock_int8_kernel`` (counted in
@@ -189,6 +269,8 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
                          f"{tuple(w2.shape)} for b={b}, h={h}, w={w}")
     if c % 32 or cm % 16:
         raise ValueError(f"fused_resblock: needs C % 32 == 0 and Cm % 16 == 0, got {c}, {cm}")
+    if any(t.data_ptr() % 16 for t in (xp, w1, w2)):
+        raise ValueError("fused_resblock: needs 16-byte aligned xp, w1 and w2")
     tensors = (xp, w1, w2, scale1, bias1, scale2, bias2)
     if any(t.device != xp.device or not t.is_contiguous() for t in tensors):
         raise ValueError("fused_resblock: needs contiguous tensors on one device")
@@ -200,15 +282,17 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
         raise ValueError("fused_resblock: scale/bias shapes do not match (Cm,), (C,)")
     if xp.numel() >= 2 ** 31:
         raise ValueError("fused_resblock: activation too large for 32-bit row indices")
-    sc = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=xp.device).reshape(())
-                      for v in (inv_s1, inv_s2, s2, s_x, inv_out)])
-    rows, slice_cols, q_rows, tile = plan(
-        b, h, w, c, cm, torch.cuda.get_device_properties(xp.device).multi_processor_count)
+    scalars = [torch.as_tensor(v, dtype=torch.float32, device=xp.device)
+               for v in (inv_s1, inv_s2, s2, s_x, inv_out)]
+    if any(t.numel() != 1 for t in scalars):
+        raise ValueError("fused_resblock: inv_s1, inv_s2, s2, s_x and inv_out are scalars")
+    pl = plan(b, h, w, c, cm)
     out = torch.empty_like(xp)
     build.launch(build.function("resblock_int8", "resblock_int8_launch"), xp.device,
                  "resblock_int8", xp.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                  scale1.data_ptr(), bias1.data_ptr(), scale2.data_ptr(), bias2.data_ptr(),
-                 sc.data_ptr(), out.data_ptr(), b, h, w, c, cm, rows, slice_cols, q_rows, tile)
+                 *(t.data_ptr() for t in scalars), out.data_ptr(), b, h, w, c, cm, pl["band_rows"],
+                 pl["slice_cols"], pl["bn1"], pl["bn2"])
     fused_resblock.launches += 1
     return out
 

@@ -8,21 +8,50 @@ emit its index, kill every live box with IoU > threshold; validity is
 ``score > score_threshold``. Output: sel (B, max_boxes) int32 original
 indices in selection order, zero-padded, and num_valid (B,) int32.
 
-The kernel (``csrc/round_sweep.cu``) runs one 1024-thread block per image
-with the live scores in shared memory (raised past 48 KB with
-``cudaFuncAttributeMaxDynamicSharedMemorySize``) and the boxes read from
-global memory through L2. Its note says what bounds it (the dependent
-rounds) and why its IoU rounds exactly as ``round_sweep_ref`` does.
+The kernel (``csrc/round_sweep.cu``) runs a thread-block cluster per image:
+each block holds its share of the boxes, their areas and live scores in its
+own shared memory, a round folds the blocks' winners over distributed shared
+memory behind one cluster barrier, and each block kills from its own memory.
+``plan`` mirrors the launch's shape. Its note says what bounds it (the
+dependent rounds) and why its IoU rounds exactly as ``round_sweep_ref`` does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import build
 
-# live scores in shared memory: N floats within the 227 KB a block may use
-MAX_N = (227 * 1024 - 1024) // 4
+_SMS = 132                 # H100 SXM
+_MAX_SMEM = 232448         # bytes of shared memory a block may use on sm_90
+_MAX_CLUSTER = 16          # blocks a cluster may hold (above 8: non-portable)
+BOX_BYTES = 24             # a box in shared memory: float4, area, live score
+PER_BLOCK = (_MAX_SMEM - 1024) // BOX_BYTES
+# the cluster's shared-memory capacity: beyond it the wrapper raises
+MAX_N = _MAX_CLUSTER * PER_BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, n: int, sms: int = _SMS):
+    """What ``round_sweep_launch`` is given for B images of N boxes:
+    ``dict(cluster, share, threads, smem, grid)``. The cluster is the largest
+    power of two up to 16 that keeps B · cluster within the card's SMs (so
+    B = 1 and 4 fill the card as B = 16 does), and at least what the boxes
+    need in shared memory; a block holds ``share`` boxes, about three a
+    thread (128 to 512 threads: fewer threads make the kill pass longer,
+    more make the block's barrier and warp fold longer)."""
+    if n > MAX_N:
+        raise ValueError(f"round_sweep: N={n} exceeds the cluster's shared-memory bound {MAX_N}")
+    need = -(-n // PER_BLOCK)
+    cluster = 1
+    while cluster < _MAX_CLUSTER and (b * cluster * 2 <= sms or cluster < need):
+        cluster *= 2
+    share = max(1, -(-n // cluster))
+    threads = min(512, max(128, -(-share // 96) * 32))
+    return dict(cluster=cluster, share=share, threads=threads, smem=share * BOX_BYTES,
+                grid=b * cluster)
 
 
 def _iou_one_vs_all(box, boxes):
@@ -75,8 +104,7 @@ def round_sweep(bboxes, scores, iou_threshold, score_threshold, max_boxes: int =
     b, n, four = bboxes.shape
     if four != 4 or tuple(scores.shape) != (b, n) or scores.device != bboxes.device:
         raise ValueError(f"round_sweep: shapes {tuple(bboxes.shape)}, {tuple(scores.shape)}")
-    if n > MAX_N:
-        raise ValueError(f"round_sweep: N={n} exceeds the shared-memory bound {MAX_N}")
+    pl = plan(b, n)
     boxes = bboxes.to(torch.float32).contiguous()
     if boxes.data_ptr() % 16:  # float4 loads
         boxes = boxes.clone()
@@ -85,9 +113,11 @@ def round_sweep(bboxes, scores, iou_threshold, score_threshold, max_boxes: int =
     nv = torch.empty((b,), dtype=torch.int32, device=boxes.device)
     build.launch(build.function("round_sweep", "round_sweep_launch"), boxes.device,
                  "round_sweep", boxes.data_ptr(), sc.data_ptr(), sel.data_ptr(), nv.data_ptr(),
-                 b, n, max_boxes, float(iou_threshold), float(score_threshold))
+                 b, n, max_boxes, pl["cluster"], pl["share"], pl["threads"],
+                 float(iou_threshold), float(score_threshold))
     round_sweep.launches += 1
     return sel, nv
 
 
 round_sweep.launches = 0
+

@@ -26,9 +26,13 @@ from .cuda.nms_kernel import suppression_sweep
 from .cuda.round_sweep import round_sweep
 
 DEFAULT_NUM_CANDIDATES = 512
-# above this K the (B, K, K) suppression matrix is replaced by the O(K)
-# round sweep (a bool matrix at B=128, K=4096 is already ~2.1 GB)
-_MATRIX_SWEEP_MAX_K = 4096
+# above this K the (B, K, K) suppression matrix (pairwise IoU, then K1) gives
+# way to the round sweep (K2) on the top K. Set for the serving bucket B=16
+# on an H100 (700 W, kernel_times.py nms): there the round sweep took less
+# device time from K = 1,024 on (0.44 against 1.06 ms) and about the same at
+# 512 (0.44 against 0.46), and less host time at every K measured. K1 takes
+# K <= 1,300 (ops/cuda/nms_kernel.py); the JAX package's TPU bound was 4,096.
+_MATRIX_SWEEP_MAX_K = 512
 
 
 def _pairwise_iou(boxes):
@@ -127,8 +131,10 @@ def nms_inexact_mask(scores, num_valid, max_boxes: int, score_threshold: float, 
 def next_escalation_k(k: int, n: int, device) -> int:
     """Next top-K bucket when truncation at ``k`` could have diverged. On the
     card, when K = N lands on the round-sweep kernel (n > the matrix bound),
-    jump straight to exactness, as the JAX package does on its TPU; else
-    keep doubling."""
+    jump straight to exactness; else keep doubling. Measured on an H100 (700
+    W) at B=16, N=10,647 from K=64 (kernel_times.py nms, chip_smoke.py phase
+    5): the jump took 1.1–2.4 ms, doubling 1.9–7.6 (two to four rounds of a
+    top-K sort and a sweep before one of them is exact)."""
     if torch.device(device).type == "cuda" and n > _MATRIX_SWEEP_MAX_K:
         return n
     return min(n, k * 2)
