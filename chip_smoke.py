@@ -86,7 +86,30 @@ Phases (any failure exits non-zero):
      way, the three checkpoint files, a resumed eleventh epoch, the serving
      predictor answering from the trained checkpoint; ms per step, img/s,
      peak memory, device launches per step (72 + 72 of them K5's) and K5's
-     share of a step's device time.
+     share of a step's device time;
+ 16. ``evaluate`` of the trained YOLOv3-tiny at 416 over shapes_toy
+     ``tfrecords/val`` (16 images, batch 8), the sweep [0.004, 0.1, 0.2,
+     0.5, 0.9], on the card and on the CPU: counters equal per threshold or
+     a near-tie witness for each image that differs; at 0.004 the escalation
+     reaches K = N = 2,535 in one step (K2); K1 and K2 launch; the matcher
+     alone card vs CPU bit-equal on the card's detections and on corner
+     cases (argmax ties, NaN and inf boxes); mAP@0.5 and img/s;
+ 17. ``evaluate`` at full width on the card: YOLOv3-416 for 3 classes with
+     seeded weights (``save_weights`` under ``build/``), batch 16 over the 32
+     ``tfrecords/train`` images, one run of the sweep: per threshold img/s,
+     largest K, K1 and K2 launches;
+ 18. the int8 accuracy gate (``yolov3_tpu_torch.tools.int8_accuracy_gate``)
+     on the card, trained tiny at 416 over ``tfrecords/val``: mAP@0.5 of
+     bf16 and int8 (and fp32 the gate's way), the verdict (a measurement,
+     not a failure), K3 and K6 launch;
+ 19. batch inference through ``Inference`` on the card (outputs under
+     ``build/smoke_infer/``): the trained tiny over ``tfrecords/test`` at 416
+     in fp32 and over the shapes_toy images with ``letterbox``, phase 17's
+     seeded YOLOv3-416 over ``tfrecords/test`` in ``int8_chain`` (K4
+     launches: the tiny has no residual block);
+     fp32 and letterbox against the CPU under phase 6's near-tie rule;
+     ``ops/detect.detect`` against decode ∘ yolo_nms ∘ gather on the card
+     (K1 launches); ``ops/image`` card vs CPU within 1e-5.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -1567,6 +1590,468 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
     return rows, total_launches
 
 
+# --- the offline entry points: evaluation, the int8 gate, batch inference ---
+
+EVAL_SWEEP = [0.004, 0.1, 0.2, 0.5, 0.9]  # config/evaluate_config.yaml
+TOY_TFRECORDS = os.path.join(ROOT, "datasets/shapes_toy/tfrecords")
+# YOLOv3-416 for the 3 shapes_toy classes with seeded weights, written by
+# phase 17 (the repo has no trained full-width weights)
+SEEDED_YOLOV3 = os.path.join(ROOT, "build", "smoke_eval", "yolov3", "yolov3_seeded.tf")
+
+
+def seeded_yolov3_config(**overrides):
+    """detect_config.yaml keys for the seeded YOLOv3-416 (COCO anchors)."""
+    return tiny_detect_config(
+        model_config_file=os.path.join(ROOT, "config/models/yolov3/model.yaml"),
+        input_weights_path=SEEDED_YOLOV3,
+        anchors_file=os.path.join(ROOT, "datasets/coco2012/anchors.txt"), **overrides)
+
+
+def tiny_detect_config(**overrides):
+    """detect_config.yaml keys for the trained YOLOv3-tiny at 416, absolute
+    paths."""
+    cfg = dict(model_config_file=os.path.join(ROOT, "config/models/yolov3_tiny/model.yaml"),
+               classes_name_file=os.path.join(ROOT, "datasets/shapes_toy/class.names"),
+               anchors_file=os.path.join(ROOT, "datasets/shapes_toy/anchors/anchors_tiny.txt"),
+               input_weights_path=os.path.join(ROOT, "checkpoints/output/yolov3_train_tiny.tf"),
+               image_size=416, batch_size=8, yolo_max_boxes=100, nms_iou_threshold=0.5,
+               nms_score_threshold=0.1, input_data_source="tfrecords",
+               tfrecords_dir=os.path.join(TOY_TFRECORDS, "test"), images_dir=CALIBRATION_DIR,
+               image_file_path=None, bbox_color=[1.0, 1.0, 1.0], font_size=15)
+    cfg.update(overrides)
+    return cfg
+
+
+class _ThresholdMarks:
+    """The standard output of a run, written through to a file. At each
+    "Results Bbox and Classes:" line, which ``evaluate`` prints once a
+    threshold's batches are done, it notes the launch count of each kernel
+    wrapper in ``counted``."""
+
+    def __init__(self, file, counted):
+        self.file, self.counted, self.marks = file, counted, []
+
+    def write(self, text):
+        if text.startswith("Results Bbox and Classes:"):
+            self.marks.append({k: w.launches for k, w in self.counted.items()})
+        return self.file.write(text)
+
+    def flush(self):
+        self.file.flush()
+
+
+def per_threshold(marks):
+    """Launches of each threshold from the cumulative counts at its marks
+    (the counts set to 0 before the run)."""
+    rows, last = [], {}
+    for mark in marks:
+        rows.append({k: v - last.get(k, 0) for k, v in mark.items()})
+        last = mark
+    return rows
+
+
+def quietly(work_dir, fn, *args, counted=None, **kwargs):
+    """Run ``fn`` with ``work_dir`` as the working directory (the evaluation
+    writes its .npy histograms there) and its printing sent to
+    ``work_dir/stdout.txt``; → (result, the INFO log lines it emitted,
+    seconds, the card synchronised; the launch counts of ``counted`` at each
+    threshold, ``_ThresholdMarks``)."""
+    import contextlib
+
+    os.makedirs(work_dir, exist_ok=True)
+    handler = _LogLines()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    t0 = time.monotonic()
+    try:
+        with open("stdout.txt", "w") as f:
+            out = _ThresholdMarks(f, counted or {})
+            with contextlib.redirect_stdout(out):
+                result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        root.removeHandler(handler)
+        root.setLevel(level)
+    return result, handler.lines, time.monotonic() - t0, out.marks
+
+
+def escalations(lines, thr):
+    """The K values the evaluation escalated to at score threshold ``thr``."""
+    import re
+
+    return [int(re.search(r"K=(\d+)", line).group(1)) for line in lines
+            if line.startswith("NMS top-K escalation") and f"score_threshold={thr} (" in line]
+
+
+def tiny_model():
+    """(spec, params, bn_state, anchors) of the trained tiny, on the CPU."""
+    from yolov3_tpu_torch import models
+    from yolov3_tpu_torch.config import get_anchors
+    from yolov3_tpu_torch.io.resolve import load_weights
+
+    cfg = tiny_detect_config()
+    spec = models.parse_model_config(cfg["model_config_file"], 3)
+    params, state = load_weights(spec, *models.init_model(spec, torch.Generator().manual_seed(0)),
+                                 cfg["input_weights_path"])
+    return spec, params, state, get_anchors(cfg["anchors_file"])
+
+
+def tiny_heads(model, images, device):
+    """The BN-folded fp32 heads of ``model`` (``tiny_model()``) on ``device``."""
+    from yolov3_tpu_torch import models
+    from yolov3_tpu_torch.models.network import to_device
+
+    spec, params, state, _ = model
+    folded = to_device(models.fold_batch_norm(params, state), device)
+    with torch.inference_mode():
+        return models.apply_model(spec, folded, {}, torch.from_numpy(images).to(device))
+
+
+def tiny_decoded(images, device):
+    """The trained tiny's decoded (boxes, scores) on ``device``, on the CPU."""
+    from yolov3_tpu_torch.ops.decode import yolo_decode
+
+    model = tiny_model()
+    with torch.inference_mode():
+        boxes, conf, probs = yolo_decode(tiny_heads(model, images, device), model[3], 3)
+        return boxes.cpu(), (conf[..., 0] * probs.amax(-1)).cpu()
+
+
+def differing_images(dir_a, dir_b, thr):
+    """Images whose per-image histograms differ between two evaluation runs."""
+    rows = None
+    for name in ("preds", "gts", "tp", "fp", "fn"):
+        a, b = (np.load(os.path.join(d, f"{name}_{thr}.npy")) for d in (dir_a, dir_b))
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}_{thr}.npy: shapes {a.shape} and {b.shape}")
+        diff = (a != b).any(axis=1)
+        rows = diff if rows is None else rows | diff
+    return np.nonzero(rows)[0].tolist()
+
+
+def corner_case_batch():
+    """Padded predictions and gts holding the matcher's corner cases: two
+    predictions on one gt, a negative gt class, an image with no valid gt, an
+    inf and a NaN box, identical gts of different classes (an argmax tie),
+    a class id out of range."""
+    rng = np.random.default_rng(7)
+    b, p, g = 4, 10, 5
+    xy = rng.uniform(0.0, 0.7, (b, g + p, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0.05, 0.3, (b, g + p, 2))], -1)
+    gt_boxes, pred_boxes = boxes[:, :g].astype(np.float32), boxes[:, g:].astype(np.float32)
+    pred_boxes[:, :g] = gt_boxes + rng.normal(0, 0.02, gt_boxes.shape).astype(np.float32)
+    gt_classes = rng.integers(0, 3, (b, g)).astype(np.int32)
+    pred_classes = rng.integers(0, 3, (b, p)).astype(np.int32)
+    pred_classes[:, :g] = gt_classes
+    gt_valid, pred_valid = np.ones((b, g), bool), np.ones((b, p), bool)
+    pred_boxes[0, 5] = pred_boxes[0, 6] = gt_boxes[0, 0]
+    pred_classes[0, 5] = pred_classes[0, 6] = gt_classes[0, 0]
+    gt_classes[1, 2] = -1
+    gt_valid[2] = False
+    pred_boxes[3, 0] = [0.1, 0.1, np.inf, 0.5]
+    pred_boxes[3, 1] = [np.nan, 0.2, 0.4, 0.4]
+    gt_boxes[3, 1] = gt_boxes[3, 0]
+    gt_classes[3, 0], gt_classes[3, 1] = 1, 2
+    pred_boxes[3, 2] = gt_boxes[3, 0]
+    pred_classes[3, 2], pred_classes[3, 3] = 2, 9
+    return pred_boxes, pred_classes, pred_valid, gt_boxes, gt_classes, gt_valid
+
+
+def phase_eval_tiny(evaluate_app, nms_mod, nms_kernel, round_sweep):
+    """``evaluate`` on the trained YOLOv3-tiny at 416 over shapes_toy
+    ``tfrecords/val`` (16 images, batch 8), the reference sweep, on the card
+    and on the CPU.
+
+    Per threshold the counters of card and CPU must be equal, or each image
+    whose histograms differ must show a near-tie witness within ``NEAR_TIE``:
+    a decision of greedy NMS that flips between the two devices' decoded
+    outputs (``near_tie_witness``), or a detection–gt IoU that close to the
+    evaluation's 0.5. At 0.004 the exact-K policy must escalate to K = N =
+    2,535 on the card, in one step (the round-sweep kernel, K2); the CPU
+    doubles. K1 and K2 must launch in the card's run. Then the matcher
+    alone: on the card's own padded detections of one batch, and on a batch
+    of corner cases (argmax ties, NaN and inf boxes, no valid gt), the
+    card's counters bit-equal to the CPU's."""
+    from yolov3_tpu_torch.data.tfrecord import parse_tfrecords
+    from yolov3_tpu_torch.eval import detections_evaluator as ev
+
+    cfg = tiny_detect_config(tfrecords_dir=os.path.join(TOY_TFRECORDS, "val"))
+    work = os.path.join(ROOT, "build", "smoke_eval", "tiny")
+    counted = {"nms_sweep": nms_kernel.suppression_sweep, "round_sweep": round_sweep.round_sweep}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        runs[dev] = quietly(os.path.join(work, dev), evaluate_app.evaluate,
+                            {"evaluate_nms_score_thresholds": EVAL_SWEEP}, cfg, device=dev,
+                            counted=counted)
+        if dev == "cuda":
+            launches = {k: wrapper.launches for k, wrapper in counted.items()}
+    card_launches = per_threshold(runs["cuda"][3])
+    examples = list(parse_tfrecords(cfg["tfrecords_dir"], 416, 100, cfg["classes_name_file"]))
+    images = np.stack([im for im, _ in examples]).astype(np.float32)
+    labels = np.stack([lb for _, lb in examples])
+
+    decoded, rows, unexplained = None, [], []
+    for i, thr in enumerate(EVAL_SWEEP):
+        card, cpu = runs["cuda"][0][i], runs["cpu"][0][i]
+        witnesses = []
+        for image in differing_images(os.path.join(work, "cuda"), os.path.join(work, "cpu"), thr):
+            if decoded is None:
+                decoded = {dev: tiny_decoded(images, dev) for dev in ("cuda", "cpu")}
+            (gb, gs), (cb, cs) = decoded["cuda"], decoded["cpu"]
+            witness = near_tie_witness(nms_mod, gb[image], gs[image], cb[image], cs[image],
+                                       dict(score_threshold=thr, iou_threshold=IOU_THR))
+            gt = torch.from_numpy(labels[image][labels[image][:, 4] != 0][:, :4])[None]
+            keep = (cs[image] > thr).nonzero()[:, 0]
+            iou = ev._pairwise_iou(cb[image][keep][None], gt)
+            witness["eval_iou_near_0.5"] = iou[(iou - 0.5).abs() <= NEAR_TIE].tolist()
+            witnesses.append(dict(image=image, **witness))
+            if not witness["eval_iou_near_0.5"] and (witness["margin"] is None
+                                                     or witness["margin"] > NEAR_TIE):
+                unexplained.append((thr, image))
+        rows.append(dict(score_threshold=thr, map50_card=card["map50"], map50_cpu=cpu["map50"],
+                         images_per_sec_card=card["images_per_sec"],
+                         images_per_sec_cpu=cpu["images_per_sec"],
+                         k_card=escalations(runs["cuda"][1], thr),
+                         k_cpu=escalations(runs["cpu"][1], thr), launches_card=card_launches[i],
+                         counters_equal=card["counters"] == cpu["counters"]
+                         and card["counters_oneclass"] == cpu["counters_oneclass"],
+                         images_differing=witnesses))
+        log(f"eval tiny 416 {json.dumps(rows[-1])}")
+
+    # the matcher alone, on the card's own padded detections and on corner cases
+    predict = evaluate_app.make_sweepable_predictor(*tiny_model(), 3, 100, device="cuda")
+    out = predict(images[:8], IOU_THR, 0.1, num_candidates=10**6)
+    pb, pc, _, pv = evaluate_app._selected_to_padded(*out, 100)
+    lab = torch.from_numpy(labels[:8]).cuda()
+    batches = [(pb, pc, pv, lab[..., :4], lab[..., 5].int(), lab[..., 4] != 0),
+               tuple(torch.from_numpy(a).cuda() for a in corner_case_batch())]
+    matcher_equal = []
+    for batch in batches:
+        on_card = ev.evaluate_image_counters(*batch, 3, 0.5)
+        on_cpu = ev.evaluate_image_counters(*(t.cpu() for t in batch), 3, 0.5)
+        matcher_equal.append(all(torch.equal(on_card[k].cpu(), on_cpu[k]) for k in on_cpu))
+    k_first = rows[0]["k_card"]
+    summary = dict(launches=launches, matcher_bit_equal=matcher_equal,
+                   seconds_card=runs["cuda"][2], seconds_cpu=runs["cpu"][2])
+    log(f"eval tiny 416 {json.dumps(summary)}")
+    if unexplained or not all(matcher_equal) or k_first != [2535] or min(launches.values()) == 0:
+        raise AssertionError(f"eval tiny: unexplained {unexplained}, matcher {matcher_equal}, "
+                             f"escalation at 0.004 {k_first}, launches {launches}")
+    return rows, launches
+
+
+
+def phase_eval_full(evaluate_app, models, nms_kernel, round_sweep):
+    """``evaluate`` at full width on the card: YOLOv3-416 (Darknet-53, 3
+    heads) for the 3 shapes_toy classes with the COCO anchors, seeded weights
+    written by ``save_weights`` (the repo has no trained full-width weights,
+    so its mAP means nothing), batch 16 over ``tfrecords/train`` (32 images).
+    One evaluation of the sweep: per threshold img/s, the largest K reached
+    and K1's and K2's launches (read at the line the threshold's results
+    start with, ``_ThresholdMarks``)."""
+    from yolov3_tpu_torch.io.resolve import save_weights
+    from yolov3_tpu_torch.ops.nms import DEFAULT_NUM_CANDIDATES
+
+    work = os.path.dirname(SEEDED_YOLOV3)
+    os.makedirs(work, exist_ok=True)
+    cfg = seeded_yolov3_config(batch_size=16, tfrecords_dir=os.path.join(TOY_TFRECORDS, "train"))
+    spec = models.parse_model_config(cfg["model_config_file"], 3)
+    save_weights(spec, *models.init_model(spec, torch.Generator().manual_seed(0)), SEEDED_YOLOV3)
+    counted = {"nms_sweep": nms_kernel.suppression_sweep, "round_sweep": round_sweep.round_sweep}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    results, lines, seconds, marks = quietly(
+        work, evaluate_app.evaluate, {"evaluate_nms_score_thresholds": EVAL_SWEEP}, cfg,
+        device="cuda", counted=counted)
+    total = {k: wrapper.launches for k, wrapper in counted.items()}
+    rows = []
+    for thr, result, launches in zip(EVAL_SWEEP, results, per_threshold(marks)):
+        ks = escalations(lines, thr)
+        row = dict(score_threshold=thr, images=result["counters"]["examples"],
+                   images_per_sec=result["images_per_sec"], wall_seconds=result["wall_seconds"],
+                   escalated=bool(ks), largest_k=max(ks) if ks else DEFAULT_NUM_CANDIDATES,
+                   launches=launches, map50=result["map50"])
+        rows.append(row)
+        log(f"eval yolov3-416 seeded {json.dumps(row)}")
+        if row["images"] != 32 or sum(launches.values()) == 0:
+            raise AssertionError(f"full-width evaluation: {row}")
+    log(f"eval yolov3-416 seeded: {seconds:.1f} s for the sweep, launches {json.dumps(total)}")
+    if not any(r["escalated"] for r in rows):
+        log("eval yolov3-416 seeded: no threshold escalated; the seeded weights keep 100 "
+            "boxes within the top 512 (K2's full-width launch is held by phases 4 and 5)")
+    return rows, total
+
+
+def phase_gate(inference_app, conv1x1, conv_int8, smi):
+    """The int8 accuracy gate (``tools/int8_accuracy_gate.run_gate``) on the
+    card: trained tiny at 416 over shapes_toy ``tfrecords/val`` (16 images),
+    bf16 against int8 calibrated on the first 4; K3 and K6 must launch. Its
+    verdict is a measurement and does not fail the phase. Beside it the fp32
+    tier's mAP@0.5 taken the gate's way (same images, K = 512, threshold 0.1)."""
+    from yolov3_tpu_torch.data.tfrecord import parse_tfrecords
+    from yolov3_tpu_torch.eval.detections_evaluator import APAccumulator
+    from yolov3_tpu_torch.tools import int8_accuracy_gate as gate
+
+    conv1x1.conv1x1_int8_requant.launches = conv_int8.conv_int8.launches = 0
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the gate's defaults are paths in the repo
+    try:
+        report = gate.run_gate(max_images=32, image_size=416, device="cuda")
+    finally:
+        os.chdir(cwd)
+    launches = {"conv1x1_int8": conv1x1.conv1x1_int8_requant.launches,
+                "conv_int8": conv_int8.conv_int8.launches}
+
+    cfg = tiny_detect_config()
+    examples = list(parse_tfrecords(os.path.join(TOY_TFRECORDS, "val"), 416, 100,
+                                    cfg["classes_name_file"]))
+    spec, params, state, anchors = tiny_model()
+    predict = inference_app.make_predictor(spec, params, state, anchors, 3, 100, 0.5, 0.1,
+                                           device="cuda")
+    out = [t.cpu().numpy() for t in predict(np.stack([im for im, _ in examples]))]
+    acc = APAccumulator(3)
+    for i, (_, lb) in enumerate(examples):
+        sel = out[3][i, : int(out[4][i])]
+        gt = lb[lb[:, 4] > 0]
+        acc.add_image(out[0][i][sel], out[1][i][sel], out[2][i][sel], gt[:, :4],
+                      gt[:, 5].astype(np.int32))
+    row = dict(report, map50_fp32=round(acc.compute()[1], 4), launches=launches, card=smi)
+    log(f"int8 gate on the card {json.dumps(row)}")
+    if min(launches.values()) == 0 or report["images"] != 16:
+        raise AssertionError(f"int8 gate: {row}")
+    return row, launches
+
+
+def phase_inference(inference_app, nms_mod, nms_kernel, round_sweep, resblock, conv1x1,
+                    conv_int8):
+    """Batch inference through ``Inference`` on the card, outputs under
+    ``build/smoke_infer/``: the trained tiny at 416 over ``tfrecords/test``
+    (8 images, batch 8) in fp32 and over the 32 shapes_toy images with
+    ``letterbox: true``; and ``quantize: int8_chain`` over ``tfrecords/test``
+    with phase 17's seeded YOLOv3-416, calibrated on those images (the tiny
+    has no residual block; Darknet-53's 23 go through K4, which must
+    launch).
+    The fp32 and letterbox runs against the same runs on the CPU: the same
+    lines of detect.txt with the same classes, boxes 1e-3 and scores 1e-4,
+    or a near-tie witness (phase 6's rule). Then ``ops/detect.detect`` on the
+    test batch's heads against decode ∘ yolo_nms ∘ gather_detections on the
+    card (classes and valid masks equal, boxes and scores 1e-6; K1 must
+    launch) and ``ops/image`` resize and letterbox card against CPU (1e-5)."""
+    from yolov3_tpu_torch.data.image import decode_image, letterbox_resize
+    from yolov3_tpu_torch.data.tfrecord import parse_tfrecords
+    from yolov3_tpu_torch.ops import detect, image
+    from yolov3_tpu_torch.ops.decode import yolo_decode
+
+    work = os.path.join(ROOT, "build", "smoke_infer")
+    counted = {"nms_sweep": nms_kernel.suppression_sweep, "round_sweep": round_sweep.round_sweep,
+               "conv1x1_int8": conv1x1.conv1x1_int8_requant, "conv_int8": conv_int8.conv_int8,
+               "resblock_int8": resblock.fused_resblock}
+    total = dict.fromkeys(counted, 0)
+    runs, rows = {}, []
+    for name, config in (
+            ("fp32", tiny_detect_config()),
+            ("int8_chain", seeded_yolov3_config(quantize="int8_chain")),
+            ("letterbox", tiny_detect_config(input_data_source="images_dir", letterbox=True))):
+        for dev in ("cuda", "cpu") if name != "int8_chain" else ("cuda",):
+            for wrapper in counted.values():
+                wrapper.launches = 0
+            out_dir = os.path.join(work, f"{name}_{dev}")
+            results, _, seconds, _ = quietly(out_dir, inference_app.Inference(),
+                                          **dict(config, output_dir=out_dir, device=dev))
+            with open(os.path.join(out_dir, "detect.txt")) as f:
+                lines = f.read().splitlines()
+            runs[name, dev] = results, lines
+            if dev == "cuda":
+                launches = {k: wrapper.launches for k, wrapper in counted.items()}
+                for k in total:
+                    total[k] += launches[k]
+                rows.append(dict(run=name, images=len(lines), seconds=seconds,
+                                 detections=sum(len(r[0]) for r in results),
+                                 launches=launches))
+                log(f"inference on the card {json.dumps(rows[-1])}")
+    k4 = next(r for r in rows if r["run"] == "int8_chain")["launches"]["resblock_int8"]
+    if k4 == 0 or min(r["launches"]["nms_sweep"] for r in rows) == 0:
+        raise AssertionError(f"inference: a kernel of the path never launched: {rows}")
+
+    # card against CPU, detect.txt and the returned detections
+    sources = {"fp32": np.stack([im for im, _ in parse_tfrecords(
+        os.path.join(TOY_TFRECORDS, "test"), 416, 100, None)]).astype(np.float32),
+        "letterbox": np.stack([letterbox_resize(decode_image(open(f, "rb").read()) / 255.0,
+                                                416, 416) for f in
+                               sorted(glob.glob(os.path.join(CALIBRATION_DIR, "*.jpg")))
+                               ]).astype(np.float32)}
+    compared = {}
+    for name, images in sources.items():
+        (card, card_lines), (cpu, cpu_lines) = runs[name, "cuda"], runs[name, "cpu"]
+        if len(card) != len(images) or len(card_lines) != len(cpu_lines) != len(images):
+            raise AssertionError(f"inference {name}: {len(card)} results, lines "
+                                 f"{len(card_lines)} / {len(cpu_lines)}")
+        witnesses, box_err, score_err, decoded = [], 0.0, 0.0, None
+        for i, ((gn, gb, gs), (cn, cb, cs)) in enumerate(zip(card, cpu)):
+            if gn != cn:
+                if decoded is None:
+                    decoded = {dev: tiny_decoded(images, dev) for dev in ("cuda", "cpu")}
+                (db, ds), (eb, es) = decoded["cuda"], decoded["cpu"]
+                witnesses.append(dict(image=i, **near_tie_witness(
+                    nms_mod, db[i], ds[i], eb[i], es[i],
+                    dict(score_threshold=0.1, iou_threshold=IOU_THR))))
+                continue
+            if len(gn):
+                box_err = max(box_err, float(np.abs(np.asarray(gb) - np.asarray(cb)).max()))
+                score_err = max(score_err, float(np.abs(np.asarray(gs) - np.asarray(cs)).max()))
+        compared[name] = dict(images_differing=witnesses, box_max_abs_err=box_err,
+                              score_max_abs_err=score_err)
+        unexplained = [w["image"] for w in witnesses
+                       if w["margin"] is None or w["margin"] > NEAR_TIE]
+        if unexplained or box_err > 1e-3 or score_err > 1e-4:
+            raise AssertionError(f"inference {name}: card vs CPU {compared[name]}")
+
+    # ops/detect on the test batch's heads against decode ∘ yolo_nms ∘ gather
+    model = tiny_model()
+    anchors = model[3]
+    kw = dict(max_boxes=100, iou_threshold=0.5, score_threshold=0.1, num_candidates=256)
+    heads = tiny_heads(model, sources["fp32"], "cuda")
+    with torch.inference_mode():
+        nms_kernel.suppression_sweep.launches = 0
+        fused = detect.detect(heads, anchors, 3, **kw)
+        torch.cuda.synchronize()
+        k1_detect = nms_kernel.suppression_sweep.launches
+        unfused = nms_mod.gather_detections(*nms_mod.yolo_nms(*yolo_decode(heads, anchors, 3),
+                                                              **kw))
+    valid = fused[3]
+    detect_row = dict(
+        detections=int(valid.sum()), k1_launches=k1_detect,
+        valid_equal=torch.equal(valid, unfused[3]),
+        classes_equal=torch.equal(fused[1][valid], unfused[1][valid]),
+        box_max_abs_err=max_abs(fused[0][valid], unfused[0][valid]),
+        score_max_abs_err=max_abs(fused[2][valid], unfused[2][valid]))
+    total["nms_sweep"] += k1_detect
+
+    # ops/image on the card against the CPU
+    rng = np.random.default_rng(3)
+    image_errs = []
+    for shape, size in (((2, 256, 256, 3), (416, 416)), ((1, 333, 500, 3), (416, 416)),
+                        ((3, 416, 416, 3), (207, 311))):
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32))
+        for fn in (image.resize_bilinear, image.letterbox_resize):
+            image_errs.append(max_abs(fn(x.cuda(), *size).cpu(), fn(x, *size)))
+    row = dict(runs=rows, card_vs_cpu=compared, detect=detect_row,
+               image_ops_max_abs_err=max(image_errs), launches=total)
+    log(f"inference {json.dumps(row)}")
+    if (not (detect_row["valid_equal"] and detect_row["classes_equal"]) or k1_detect == 0
+            or detect_row["box_max_abs_err"] > 1e-6 or detect_row["score_max_abs_err"] > 1e-6
+            or detect_row["detections"] == 0 or max(image_errs) > 1e-5):
+        raise AssertionError(f"inference: {row}")
+    return row, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -1643,6 +2128,26 @@ def main() -> int:
     if min(k5_launches) == 0:
         raise AssertionError(f"the trainer ran without K5: {k5_launches}")
 
+    # the offline entry points: evaluation, the int8 gate, batch inference;
+    # each run's kernel counts are set to 0 just before it and read just after
+    from yolov3_tpu_torch.apps import evaluate_app
+
+    torch.cuda.empty_cache()
+    eval_rows, eval_launches = timed("eval tiny", phase_eval_tiny, evaluate_app, nms_mod,
+                                     nms_kernel, round_sweep)
+    full_rows, full_launches = timed("eval yolov3", phase_eval_full, evaluate_app, models,
+                                     nms_kernel, round_sweep)
+    gate_row, gate_launches = timed("int8 gate", phase_gate, inference_app, conv1x1, conv_int8,
+                                    smi)
+    infer_row, infer_launches = timed("inference", phase_inference, inference_app, nms_mod,
+                                      nms_kernel, round_sweep, resblock, conv1x1, conv_int8)
+    offline = {"eval tiny": eval_launches, "eval yolov3": full_launches,
+               "int8 gate": gate_launches, "inference": infer_launches}
+    for path in offline.values():
+        for name, count in path.items():
+            launches[name] += count
+    log(f"offline launches {json.dumps(offline)}")
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -1681,7 +2186,9 @@ def main() -> int:
     ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels, "serve": serve_rows, "int8_forward": int8_rows,
-                    "train_step_vs_cpu": train_step_row, "train": train_rows, "card": smi}))
+                    "train_step_vs_cpu": train_step_row, "train": train_rows,
+                    "eval_tiny": eval_rows, "eval_yolov3": full_rows, "int8_gate": gate_row,
+                    "inference": infer_row, "offline_launches": offline, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

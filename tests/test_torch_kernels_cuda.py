@@ -514,3 +514,79 @@ def test_cuda_bn_moments_two_streams_and_workspace_growth(cuda_device):
     assert torch.equal(grown[0], want_huge[0]) and torch.equal(grown[1], want_huge[1])
     ref = huge.double().mean(dim=(0, 2, 3))
     assert float((grown[0].double() - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,grids,k", [(0, (13, 26, 52), 256), (1, (13, 26), 512)])
+def test_cuda_detect_equals_the_unfused_path(cuda_device, seed, grids, k):
+    """``ops/detect.detect`` on the card (its suppression one K1 launch)
+    against decode ∘ yolo_nms ∘ gather_detections on the card. Tolerance:
+    valid masks and classes equal; boxes and scores 1e-6 relative (the two
+    paths take exp and sigmoid over tensors of other lengths)."""
+    from yolov3_tpu_torch.ops import detect
+    from yolov3_tpu_torch.ops.decode import yolo_decode
+    from yolov3_tpu_torch.ops.nms import gather_detections, yolo_nms
+
+    rng = np.random.RandomState(seed)
+    anchors = rng.uniform(0.02, 0.5, (len(grids), 3, 2)).astype(np.float32)
+    heads = [torch.from_numpy(rng.normal(0, 2, (4, g, g, 3, 8)).astype(np.float32))
+             .to(cuda_device) for g in grids]
+    kw = dict(max_boxes=100, iou_threshold=0.5, score_threshold=0.3, num_candidates=k)
+    before = nms_kernel.suppression_sweep.launches
+    got = detect.detect(heads, anchors, 3, **kw)
+    torch.cuda.synchronize()
+    assert nms_kernel.suppression_sweep.launches == before + 1
+    want = gather_detections(*yolo_nms(*yolo_decode(heads, anchors, 3), **kw))
+    valid = want[3]
+    assert torch.equal(got[3], valid) and int(valid.sum()) > 0
+    assert torch.equal(got[1][valid], want[1][valid])
+    for i in (0, 2):
+        assert torch.allclose(got[i][valid], want[i][valid], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cuda_matcher_equals_cpu(cuda_device):
+    """The evaluator's batched matcher on the card against the CPU, on
+    corner cases: exact IoU ties between gts of other classes (argmax takes
+    the first), an image with no valid gt (rows of -1), an inf and a NaN box.
+    Tolerance: none."""
+    from yolov3_tpu_torch.eval.detections_evaluator import evaluate_image_counters
+
+    rng = np.random.RandomState(4)
+    b, p, g = 8, 40, 12
+    xy = rng.rand(b, g, 2) * 0.7
+    gt_boxes = np.concatenate([xy, xy + rng.rand(b, g, 2) * 0.3 + 0.02], -1).astype(np.float32)
+    gt_boxes[:, 1] = gt_boxes[:, 0]
+    gt_classes = rng.randint(0, 5, (b, g)).astype(np.int32)
+    gt_valid = rng.rand(b, g) < 0.8
+    gt_valid[2] = False
+    pick = rng.randint(0, g, (b, p))
+    pred_boxes = (np.take_along_axis(gt_boxes, pick[..., None], 1)
+                  + rng.normal(0, 0.03, (b, p, 4))).astype(np.float32)
+    pred_boxes[:, 0] = gt_boxes[:, 0]
+    pred_boxes[3, 1] = [0.1, 0.1, np.inf, 0.5]
+    pred_boxes[3, 2] = [np.nan, 0.2, 0.4, 0.4]
+    pred_classes = np.take_along_axis(gt_classes, pick, 1)
+    pred_valid = rng.rand(b, p) < 0.9
+    args = [torch.from_numpy(a) for a in (pred_boxes, pred_classes, pred_valid, gt_boxes,
+                                          gt_classes, gt_valid)]
+    want = evaluate_image_counters(*args, 5, 0.5)
+    got = evaluate_image_counters(*(a.to(cuda_device) for a in args), 5, 0.5)
+    for key, value in want.items():
+        assert torch.equal(got[key].cpu(), value), key
+    assert int(want["tp"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out", [((2, 256, 256, 3), (416, 416)), ((333, 500, 3), (416, 416)),
+                                       ((3, 416, 416, 3), (207, 311))])
+def test_cuda_image_ops_equal_cpu(cuda_device, shape, out):
+    """``ops/image`` resize and letterbox on the card against the CPU.
+    Tolerance: 1e-5."""
+    from yolov3_tpu_torch.ops import image
+
+    x = torch.from_numpy(np.random.RandomState(5).rand(*shape).astype(np.float32))
+    for fn in (image.resize_bilinear, image.letterbox_resize):
+        got, want = fn(x.to(cuda_device), *out).cpu(), fn(x, *out)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5

@@ -169,7 +169,13 @@ def test_port_imports_no_jax():
             "yolov3_tpu_torch.io, yolov3_tpu_torch.models.convert, "
             "yolov3_tpu_torch.ops.quantize, yolov3_tpu_torch.ops.s2d, "
             "yolov3_tpu_torch.ops.cuda.conv1x1, yolov3_tpu_torch.ops.cuda.conv_int8, "
-            "yolov3_tpu_torch.ops.cuda.resblock; "
+            "yolov3_tpu_torch.ops.cuda.resblock, yolov3_tpu_torch.apps.evaluate_app, "
+            "yolov3_tpu_torch.apps.inference_app, yolov3_tpu_torch.apps.train_app, "
+            "yolov3_tpu_torch.eval, yolov3_tpu_torch.eval.coco_export, "
+            "yolov3_tpu_torch.eval.plots, yolov3_tpu_torch.ops.image, "
+            "yolov3_tpu_torch.ops.detect, yolov3_tpu_torch.utils.render, "
+            "yolov3_tpu_torch.client, yolov3_tpu_torch.exceptions, "
+            "yolov3_tpu_torch.tools.int8_accuracy_gate; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'yolov3_tpu' or m.startswith('yolov3_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

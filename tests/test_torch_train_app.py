@@ -215,7 +215,7 @@ def test_transfer_learning_freezes_the_backbone(port_run, tmp_path):
                            source["params"]["head0"]["layer2"]["kernel"])
 
 
-@pytest.mark.parametrize("key", list(DEFERRED_KEYS) + ["remat", "render_dataset_example"])
+@pytest.mark.parametrize("key", list(DEFERRED_KEYS) + ["remat"])
 def test_keys_of_later_slices_raise_by_name(tmp_path, key):
     value = {"remat": "conv", "qat": "full", "multi_scale": [64, 96],
              "tensorboard": str(tmp_path / "tb"), "profile_trace_dir": str(tmp_path / "trace"),

@@ -1,9 +1,12 @@
-"""Serving predictor: BN-folded forward + decode + NMS as one callable.
+"""Inference application and its predictor: BN-folded forward + decode + NMS.
 
-Counterpart of the predictor half of ``yolov3_tpu/apps/inference_app.py``
+Counterpart of ``yolov3_tpu/apps/inference_app.py``: the predictor
 (``make_predictor``, ``calibration_batches_from_dir``,
-``build_serving_predictor``, ``gather_valid_detections``): the fp32 and
-bf16 tiers and the int8 PTQ tiers (``quantize: int8`` / ``int8_chain``).
+``build_serving_predictor``, ``gather_valid_detections``) with the fp32 and
+bf16 tiers and the int8 PTQ tiers (``quantize: int8`` / ``int8_chain``), and
+``Inference``, the reference inference.py surface (detect_config.yaml
+schema): annotated ``detect_<i>.jpg`` images and one ``detect.txt`` line per
+image from tfrecords, an images directory, one image file or a video file.
 The JAX package compiles the pipeline into one jit; here it runs eagerly on
 the device, and on the card the NMS sweeps and every int8 convolution go
 through the hand-written CUDA kernels (``ops/nms.py``,
@@ -12,21 +15,26 @@ through the hand-written CUDA kernels (``ops/nms.py``,
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
 import torch
 
 from ..config import dir_filelist, get_anchors, read_class_names
-from ..data.image import decode_image, letterbox_resize, resize_bilinear
+from ..data.image import decode_image, letterbox_resize, letterbox_unmap_boxes, resize_bilinear
+from ..data.tfrecord import parse_tfrecords
 from ..device import resolve_device
-from ..io.resolve import load_weights
+from ..io.resolve import load_weights, save_weights
 from ..models import apply_model, fold_batch_norm, init_model, parse_model_config
 from ..models.network import to_device
 from ..ops.decode import yolo_decode
 from ..ops.nms import yolo_nms
 from ..ops.quantize import calibrate_scales, quantize_params
 from ..ops.s2d import s2d_stem
+from ..utils.render import render_text_annotated_bboxes
+
+log = logging.getLogger(__name__)
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": None, None: None}
 
@@ -148,3 +156,269 @@ def gather_valid_detections(bboxes, class_indices, scores, selected, num_valid):
     """reference inference.py:21-28 — one image's valid detections."""
     sel = selected[: int(num_valid)]
     return bboxes[sel], class_indices[sel], scores[sel]
+
+
+def _open_video(path):
+    """→ ``(capture, fps, (width, height))``; OpenCV decodes the container."""
+    import cv2
+
+    if not path:
+        raise ValueError("input_data_source: video_file needs video_file_path")
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise ValueError(f"cannot open video {path}")
+    fps = float(cap.get(cv2.CAP_PROP_FPS)) or 25.0
+    size = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+            int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    return cap, fps, size
+
+
+def _video_frames(cap):
+    """Yield RGB float32 [0,1] frames until the stream ends."""
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            return
+        yield frame[:, :, ::-1].astype(np.float32) / 255.0
+
+
+class Inference:
+    """``Inference()(**detect_config)`` → per image ``(class names, boxes,
+    scores)`` (video: the last batch's frames), writing ``detect.txt``,
+    ``detect_<i>.jpg`` (video: ``detect.mp4``) and
+    ``model_inference_summary.txt`` into ``output_dir``.
+
+    Geometry as in the JAX package: tfrecords images are already square;
+    image_file / images_dir / video_file take a plain square resize, or with
+    ``letterbox: true`` an aspect-preserving one whose boxes are mapped back
+    to, and drawn on, the original image. ``save_model_path`` writes the
+    loaded weights as a native ``.npz``. ``quantize: int8`` / ``int8_chain``
+    calibrate on up to 8 images of the input source. Runs on the card unless
+    ``device: cpu``."""
+
+    def __call__(
+        self,
+        model_config_file,
+        classes_name_file,
+        anchors_file,
+        input_weights_path,
+        image_size,
+        input_data_source,
+        images_dir,
+        tfrecords_dir,
+        batch_size,
+        image_file_path,
+        output_dir,
+        yolo_max_boxes,
+        nms_iou_threshold,
+        nms_score_threshold,
+        bbox_color,
+        font_size,
+        video_file_path=None,
+        letterbox=False,
+        nms_per_class=False,
+        display_result_images=None,
+        save_model_path=None,
+        quantize=None,
+        compute_precision=None,
+        data_parallel=False,
+        spatial_partitioning=1,
+        device=None,
+        **kwargs,
+    ):
+        later = [k for k, v in (("data_parallel", data_parallel),
+                                ("spatial_partitioning", int(spatial_partitioning or 1) > 1))
+                 if v]
+        if later:
+            raise NotImplementedError(
+                f"detect keys {later} belong to a later slice of the port (data/spatial "
+                "parallelism)")
+        if kwargs.get("compilation_cache"):
+            log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
+        dev = resolve_device(device)
+        os.makedirs(output_dir, exist_ok=True)
+        detect_txt = f"{output_dir}/detect.txt"
+        if os.path.exists(detect_txt):
+            os.remove(detect_txt)
+
+        anchors_table = get_anchors(anchors_file)
+        class_names = read_class_names(classes_name_file)
+        nclasses = len(class_names)
+
+        spec = parse_model_config(model_config_file, nclasses)
+        params, bn_state = init_model(spec, torch.Generator().manual_seed(0))
+
+        # the summary lands in the run's output_dir, with its other artifacts
+        from .train_app import model_summary
+
+        with open(os.path.join(output_dir, "model_inference_summary.txt"), "w") as f:
+            f.write(model_summary(spec, params) + "\n")
+
+        params, bn_state = load_weights(spec, params, bn_state, input_weights_path)
+        print("weights loaded")
+
+        if save_model_path:
+            print(f"Saving weights loaded model to {save_model_path}: (configurable)")
+            save_weights(spec, params, bn_state, os.path.join(save_model_path, "model"))
+
+        prep = letterbox_resize if letterbox else resize_bilinear
+
+        calibration_batches = None
+        if quantize in ("int8", "int8_chain"):
+            # calibrate on up to 8 images from the configured input source
+            calib_images = []
+            if input_data_source == "tfrecords":
+                for img, _ in parse_tfrecords(tfrecords_dir, image_size, yolo_max_boxes, None):
+                    calib_images.append(img)
+                    if len(calib_images) >= 8:
+                        break
+            elif input_data_source == "video_file":
+                cap, _, _ = _open_video(video_file_path)
+                try:
+                    for frame in _video_frames(cap):
+                        calib_images.append(prep(frame, image_size, image_size))
+                        if len(calib_images) >= 8:
+                            break
+                finally:
+                    cap.release()
+                if not calib_images:
+                    raise ValueError(
+                        f"no decodable calibration frames in {video_file_path}")
+            elif input_data_source == "image_file":
+                with open(image_file_path, "rb") as f:
+                    orig = decode_image(f.read()).astype(np.float32) / 255.0
+                calib_images.append(prep(orig, image_size, image_size))
+            else:  # images_dir — shared helper (clear empty-dir error)
+                calibration_batches = calibration_batches_from_dir(
+                    images_dir, image_size, preprocess=prep)
+            if calibration_batches is None:
+                if not calib_images:
+                    raise ValueError(
+                        f"no calibration images from input_data_source="
+                        f"{input_data_source!r}")
+                calibration_batches = [np.stack(calib_images)]
+
+        predict = make_predictor(
+            spec, params, bn_state, anchors_table, nclasses,
+            yolo_max_boxes, nms_iou_threshold, nms_score_threshold,
+            compute_dtype=_DTYPES[compute_precision], quantize=quantize,
+            calibration_batches=calibration_batches, image_size=image_size,
+            nms_per_class=nms_per_class, device=dev)
+
+        image_counter = 0
+        results = []
+        outfile = open(detect_txt, "a")
+
+        def process(batch_images, raw_sizes=None, n_real=None, sink=None, originals=None):
+            """Run one batch; render/write the first ``n_real`` images (tail
+            batches arrive zero-padded to the batch size). ``sink(annotated)``
+            replaces the per-image jpg (video mode streams frames to a
+            writer). ``originals`` (letterbox mode): the full-resolution source
+            images — boxes are mapped out of the letterbox frame and rendered
+            on them."""
+            nonlocal image_counter
+            bboxes, class_idx, scores, selected, num_valid = (
+                t.cpu().numpy() for t in predict(batch_images))
+            for i in range(len(batch_images) if n_real is None else n_real):
+                bb, cc, ss = gather_valid_detections(
+                    bboxes[i], class_idx[i], scores[i], selected[i], num_valid[i])
+                names = [class_names[int(c)] for c in cc]
+                if originals is not None:
+                    oh, ow = originals[i].shape[:2]
+                    bb = letterbox_unmap_boxes(bb, oh, ow, image_size, image_size)
+                    render_source = originals[i]
+                else:
+                    render_source = batch_images[i]
+                annotated, detections = render_text_annotated_bboxes(
+                    render_source, bb, names, ss, bbox_color, font_size)
+                if raw_sizes is not None and originals is None:
+                    annotated = annotated.resize(raw_sizes[i])
+                outfile.write(f"{detections}\n")
+                outfile.flush()
+                if sink is None:
+                    annotated.save(f"{output_dir}/detect_{image_counter}.jpg")
+                else:
+                    sink(annotated)
+                image_counter += 1
+                results.append((names, bb, ss))
+
+        try:
+            if input_data_source == "tfrecords":
+                # parse_tfrecords yields square image_size images: the
+                # reference's letterbox on top is the identity there
+                batch = []
+                for img, _ in parse_tfrecords(tfrecords_dir, image_size, yolo_max_boxes, None):
+                    batch.append(img)
+                    if len(batch) == batch_size:
+                        process(np.stack(batch))
+                        batch = []
+                if batch:  # pad the tail to the batch size, drop it after
+                    pad = batch_size - len(batch)
+                    process(np.stack(batch + [np.zeros_like(batch[0])] * pad),
+                            n_real=len(batch))
+            elif input_data_source == "video_file":
+                self._video(process, prep, video_file_path, output_dir, image_size,
+                            batch_size, letterbox, results)
+                print(f"wrote {image_counter} annotated frames to {output_dir}/detect.mp4")
+            else:
+                if input_data_source == "image_file":
+                    filenames = [image_file_path]
+                elif input_data_source == "images_dir":
+                    filenames = dir_filelist(images_dir, (".jpeg", ".jpg", ".png", ".bmp"))
+                else:
+                    filenames = []
+                for file in filenames:
+                    with open(file, "rb") as f:
+                        orig = decode_image(f.read()).astype(np.float32) / 255.0
+                    image = prep(orig, image_size, image_size)
+                    process(image[None], raw_sizes=[(orig.shape[1], orig.shape[0])],
+                            originals=[orig] if letterbox else None)
+        finally:
+            outfile.close()
+        if results:
+            names, bb, ss = results[-1]
+            for class_name, box, score in zip(names, bb, ss):
+                print(f"{class_name} bbox: {box} score: {score}")
+        return results
+
+    @staticmethod
+    def _video(process, prep, video_file_path, output_dir, image_size, batch_size,
+               letterbox, results):
+        """Video mode: frames batch like tfrecords mode (zero-padded tail) with
+        the image_file geometry; annotated frames stream to
+        ``<output_dir>/detect.mp4`` at the source fps and size, and only the
+        freshest batch's detections stay in ``results`` (videos are
+        unbounded; detect.txt has every frame)."""
+        import cv2
+
+        cap, fps, vid_size = _open_video(video_file_path)
+        video_out = f"{output_dir}/detect.mp4"
+        writer = cv2.VideoWriter(video_out, cv2.VideoWriter_fourcc(*"mp4v"), fps, vid_size)
+        if not writer.isOpened():
+            cap.release()
+            raise ValueError(f"cannot open video writer for {video_out}")
+
+        def sink(annotated):
+            writer.write(np.asarray(annotated)[:, :, ::-1])  # RGB→BGR
+
+        try:
+            batch, sizes, origs = [], [], []
+            for frame in _video_frames(cap):
+                batch.append(prep(frame, image_size, image_size))
+                sizes.append(vid_size)
+                if letterbox:
+                    origs.append(frame)
+                if len(batch) == batch_size:
+                    process(np.stack(batch), raw_sizes=sizes, sink=sink,
+                            originals=origs if letterbox else None)
+                    del results[:-batch_size]
+                    batch, sizes, origs = [], [], []
+            if batch:
+                pad = batch_size - len(batch)
+                padded = np.stack(batch + [np.zeros_like(batch[0])] * pad)
+                process(padded, raw_sizes=sizes, n_real=len(batch), sink=sink,
+                        originals=origs if letterbox else None)
+                del results[:-len(batch)]
+        finally:
+            cap.release()
+            writer.release()

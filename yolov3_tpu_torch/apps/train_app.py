@@ -2,8 +2,9 @@
 
 Counterpart of ``yolov3_tpu/apps/train_app.py``. Accepts the same
 train_config.yaml schema (keys splatted into ``Train()``) and reproduces the
-observable behaviour: model summary dump beside the checkpoints, the
-transfer-learning dispatch, per-batch loss logging in ``eager_tf`` mode,
+observable behaviour: model summary dump beside the checkpoints,
+``dataset_example.png`` in the working directory (``render_dataset_example``),
+the transfer-learning dispatch, per-batch loss logging in ``eager_tf`` mode,
 periodic and final weight saving, a validation pass per epoch, early
 stopping on val_loss with best-weights restore, full-state resume, EMA shadow
 weights.
@@ -139,8 +140,6 @@ class Train:
             raise ValueError(f"remat must be false, true, or 'conv', got {remat!r}")
         if remat == "conv":
             raise NotImplementedError("remat: conv is not ported yet; use remat: true")
-        if render_dataset_example:
-            raise NotImplementedError("render_dataset_example: the renderer is not ported yet")
         if not logging.getLogger().handlers:
             logging.basicConfig(level=logging.INFO, format="%(levelname)s:%(name)s:%(message)s")
         logging.getLogger().setLevel(logging.INFO)
@@ -208,6 +207,16 @@ class Train:
             for s, cube in enumerate(grids):
                 n = int(cube[..., 4].sum())
                 log.info(f"debug_mode: scale {s} (g={cube.shape[1]}): {n} boxes assigned")
+
+        if render_dataset_example:
+            from PIL import Image
+
+            from ..utils.render import render_bboxes
+
+            images, labels = next(iter(Batcher(ds_train, 1)))
+            rendered = render_bboxes(images[0], labels[0][labels[0][:, 4] == 1][:, :4])
+            Image.fromarray(np.uint8(np.clip(rendered, 0, 1) * 255)).save("dataset_example.png")
+            log.info("render_dataset_example: wrote dataset_example.png")
 
         ema_conf, ema_decay = _ema_config(kwargs.get("ema"))
         if ema_conf is not None:
