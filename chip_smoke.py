@@ -109,7 +109,22 @@ Phases (any failure exits non-zero):
      launches: the tiny has no residual block);
      fp32 and letterbox against the CPU under phase 6's near-tie rule;
      ``ops/detect.detect`` against decode ∘ yolo_nms ∘ gather on the card
-     (K1 launches); ``ops/image`` card vs CPU within 1e-5.
+     (K1 launches); ``ops/image`` card vs CPU within 1e-5;
+ 20. the trainer's extras (outputs under ``build/smoke_extras/``): K5 against
+     its plain version on its new inputs — the phase view of the
+     space-to-depth stem's conv0 output (16, 128, 208, 208) in NCHW and
+     channels-last memory, f32 and bf16, and the stride-2 subsample copy of a
+     52² activation — with its device µs beside the same statistics without
+     the rewrite; one ``Train`` run of YOLOv3-416 at B=16 with every key of
+     the slice on (augmentation, qat full, stem_s2d, multi_scale [320, 416]
+     every step, device_dataset uint8, bn_stats_subsample 2, remat conv,
+     tensorboard, profile_trace_dir, mixed_precision; 3 epochs): finite
+     losses, K5 launched (through the phase view too), the event and trace
+     files, both scales, the checkpoint served; each key alone for 2 epochs
+     in fp32: ms a step, launches a step, K5's launches, peak memory
+     (``remat`` false, true and conv among them); the port against itself
+     on the CPU (augmentation's apply and gathered indices, QAT's integers)
+     and the stem_s2d step against the un-rewritten one on the card.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -1519,6 +1534,8 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                          and bool(((scores >= 0) & (scores <= 1)).all())
                          and bool(((num_valid >= 0) & (num_valid <= 100)).all()))
             boxes_finite = bool(torch.isfinite(boxes).all())
+            overflow = served_head_overflow(files, ckpt, torch.from_numpy(smoke_images(bodies, 16)),
+                                            torch.bfloat16 if mixed else None)
 
             # steady state of the step itself, on one resident batch: host
             # clock around 5 steps ending in a synchronize, then one step
@@ -1571,7 +1588,7 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                        checkpoints_written=written, step_counter=step_count,
                        resumed=resumed[:1], resumed_epochs=resumed_epochs,
                        served_detections=int(num_valid.sum()), served_boxes_finite=boxes_finite,
-                       profile=share)
+                       served_head_overflow=overflow, profile=share)
             log(f"trainer YOLOv3-416 {json.dumps(row)}")
             ok = (len(losses) == 10 and len(val) == 10 and all(np.isfinite(losses + val))
                   and losses[-1] < losses[0] and steps == 20 and step_count == 20
@@ -2052,6 +2069,440 @@ def phase_inference(inference_app, nms_mod, nms_kernel, round_sweep, resblock, c
     return row, total
 
 
+# --- phase 20: the trainer's extras on the card ---
+
+EXTRAS_DIR = os.path.join(ROOT, "build", "smoke_extras")
+EXP_F32_LIMIT = float(np.log(np.finfo(np.float32).max))  # exp overflows f32 above this
+
+
+def k5_check(bn_stats, x, label, baseline=None):
+    """K5 forward and backward on ``x`` (a phase view or a subsample copy)
+    against its plain version, with phase 13's checks: sums within
+    ``SUM_RTOL`` of float64, two launches bit-identical, mean and var
+    bit-equal to the plain expression of the kernel's own sums, dx bit-equal
+    to the plain dx. Device µs of one call (profiler), and of ``baseline``
+    (the same statistics without the rewrite) when given."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import device_us
+
+    n = x.numel() // x.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(n % 100003)
+    dmean = torch.randn(x.shape[1], generator=gen, device="cuda")
+    dvar = torch.randn(x.shape[1], generator=gen, device="cuda")
+    with torch.no_grad():
+        s1, q1 = bn_stats.bn_sums(x)
+        s2, q2 = bn_stats.bn_sums(x)
+        mean, var = bn_stats.bn_moments(x)
+    torch.cuda.synchronize()
+    dims = (0, 2, 3)
+    ref_s = x.sum(dim=dims, dtype=torch.float64)
+    ref_abs = x.abs().sum(dim=dims, dtype=torch.float64)
+    ref_q = (x.double() * x.double()).sum(dim=dims)
+    err = max(float(((s1.double() - ref_s).abs() / ref_abs).max()),
+              float(((q1.double() - ref_q).abs() / ref_q).max()))
+    del ref_s, ref_abs, ref_q
+    want_mean = s1 / n
+    want_var = torch.clamp(q1 / n - want_mean * want_mean, min=0.0)
+    moments_equal = torch.equal(mean, want_mean) and torch.equal(var, want_var)
+    dx = bn_stats.bn_moments_dx(x, mean, dmean, dvar)
+    want_dx = bn_stats.bn_moments_dx_plain(x, mean, dmean, dvar)
+    dx_equal = torch.equal(dx, want_dx) and dx.stride() == x.stride()
+    del dx, want_dx
+    row = dict(input=label, shape=list(x.shape), stride=list(x.stride()),
+               dtype=str(x.dtype).split(".")[-1],
+               equal=bool(torch.equal(s1, s2) and torch.equal(q1, q2) and moments_equal
+                          and dx_equal and err <= bn_stats.SUM_RTOL),
+               max_abs_err=err, moments_equal=moments_equal, dx_equal=dx_equal,
+               plan=list(bn_stats._plan(*bn_stats._check_activation("k5_check", x))),
+               device_us=device_us(lambda: bn_stats.bn_sums(x)),
+               dx_device_us=device_us(lambda: bn_stats.bn_moments_dx(x, mean, dmean, dvar)))
+    if baseline is not None:
+        row["without_device_us"] = device_us(lambda: bn_stats.bn_sums(baseline))
+        row["without_shape"] = list(baseline.shape)
+    return row
+
+
+def phase_k5_new_inputs(bn_stats):
+    """K5 on what stem_s2d and bn_stats_subsample give it: the phase view of
+    the stem's conv0 output (16, 128, 208, 208) in NCHW and channels-last
+    memory, f32 and bf16 (beside K5 on the un-rewritten conv0 output, 16 × 32
+    × 416²), and the stride-2 subsample copy of a 52² activation (beside K5
+    on the whole activation, and the copy's own device µs)."""
+    from yolov3_tpu_torch.models import layers
+    from yolov3_tpu_torch.ops.cuda.kernel_times import device_us
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    images = torch.rand((16, 3, 416, 416), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    kernel = torch.randn((32, 3, 3, 3), generator=gen, device="cuda") * 0.3
+    rows = []
+    with torch.no_grad():
+        plain0 = layers.conv2d(images, kernel, 1, 1)  # (16, 32, 416, 416)
+        phase0 = layers.conv2d(images, layers.s2d_phase_kernel_conv0(kernel), 2, 1,
+                               explicit_pad=((1, 2), (1, 2)))  # (16, 128, 208, 208)
+    for dtype in (torch.float32, torch.bfloat16):
+        for fmt, name in ((torch.contiguous_format, "nchw"), (torch.channels_last, "channels_last")):
+            x = phase0.to(dtype).contiguous(memory_format=fmt)
+            view = layers._phase_view(x, 4)
+            if view.data_ptr() != x.data_ptr():
+                raise AssertionError("K5: the phase view copied the activation")
+            # the view holds the un-rewritten activation's values, per channel
+            row = k5_check(bn_stats, view, f"phase view {name}",
+                           baseline=plain0.to(dtype).contiguous(memory_format=fmt))
+            log(f"K5 phase view {json.dumps(row)}")
+            rows.append(row)
+            del x, view
+    del plain0, phase0
+    act = torch.randn((16, 256, 52, 52), generator=gen, device="cuda") * 2.0 + 0.5
+    for fmt, name in ((torch.contiguous_format, "nchw"), (torch.channels_last, "channels_last")):
+        x = act.contiguous(memory_format=fmt)
+        sub = layers._subsampled(x, 2)
+        row = k5_check(bn_stats, sub, f"subsample copy {name}", baseline=x)
+        row["copy_device_us"] = device_us(lambda: layers._subsampled(x, 2))
+        log(f"K5 subsample {json.dumps(row)}")
+        rows.append(row)
+    bad = [r for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"K5 disagrees with its plain version on its new inputs: {bad}")
+    return rows
+
+
+def extras_config(name, **keys):
+    """The toy training config of phase 15 for one phase-20 run."""
+    files = toy_training_files()
+    ckpt = os.path.join(EXTRAS_DIR, name, "yolov3_toy.tf")
+    for suffix in (".npz", ".train_state.npz", ".ema.npz"):
+        if os.path.exists(ckpt + suffix):
+            os.remove(ckpt + suffix)
+    config = dict(
+        model_config_file=files["model"], image_size=416, batch_size=16, max_bboxes=100,
+        debug_mode=False, anchors_file=files["anchors"], learning_rate=0.001,
+        early_stop_patience=13, epochs=2, training_mode="fit", render_dataset_example=False,
+        max_dataset_examples=None, transfer_learning_config={"transfer_list": ["none"]},
+        dataset_config={"input_data_source": "tfrecords",
+                        "tfrecords": {"train": files["train"], "valid": files["valid"]}},
+        classes_name_file=files["names"], output_checkpoints_path=ckpt, early_stopping=False,
+        weights_save_peroid=100, resume=False, mixed_precision=False, seed=0)
+    config.update(keys)
+    return config
+
+
+ALL_KEYS = dict(
+    augmentation={"flip": True, "scale_jitter": 0.25, "brightness": 0.1, "contrast": 0.1,
+                  "mosaic": 0.5, "hue": 0.1, "saturation": 1.5, "exposure": 1.5},
+    qat="full", stem_s2d=True, multi_scale={"sizes": [320, 416], "interval": 1},
+    device_dataset={"dtype": "uint8"}, bn_stats_subsample=2, remat="conv",
+    mixed_precision=True)
+
+
+def counted_train(bn_stats, handler, config):
+    """One ``Train`` call with K5's counts and the peak memory set to 0 just
+    before it; BatchNorm statistics taken through a phase view (a view of
+    another tensor) are counted on the way → (train state, row)."""
+    import re
+
+    from yolov3_tpu_torch.apps.train_app import Train
+    from yolov3_tpu_torch.models import layers
+
+    through_view = [0]
+    moments = layers.bn_moments
+
+    def counting(x):
+        through_view[0] += x._base is not None
+        return moments(x)
+
+    handler.lines.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bn_stats.bn_sums.launches = bn_stats.bn_moments_dx.launches = 0
+    layers.bn_moments = counting
+    t0 = time.monotonic()
+    try:
+        state = Train()(**config)
+        torch.cuda.synchronize()
+    finally:
+        layers.bn_moments = moments
+    text = "\n".join(handler.lines)
+    steps = sum(int(v) for v in re.findall(r"epoch \d+: (\d+) steps in", text))
+    epoch_s = [float(v) for v in re.findall(r"epoch \d+: \d+ steps in (\S+)s", text)]
+    losses = [float(v) for v in re.findall(r"epoch \d+: train_loss (\S+)", text)]
+    val = [float(v) for v in re.findall(r"epoch \d+: val_loss (\S+)", text)]
+    row = dict(seconds=time.monotonic() - t0, steps=steps, train_losses=losses, val_losses=val,
+               k5_launches=[bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches],
+               k5_launches_per_step=[bn_stats.bn_sums.launches / max(steps, 1),
+                                     bn_stats.bn_moments_dx.launches / max(steps, 1)],
+               k5_phase_view_calls=through_view[0],
+               last_epoch_ms_per_step=epoch_s[-1] * 1e3 / (steps // len(epoch_s))
+               if epoch_s else None,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return state, text, row
+
+
+def step_profile(key, options, bodies, nc, files):
+    """The train step of one key alone on one resident batch: ms a step
+    (host clock around 5 steps ending in a synchronize, after two), device
+    launches and busy ms of one step (profiler), peak memory of a step."""
+    from yolov3_tpu_torch.config import get_anchors
+    from yolov3_tpu_torch.models import init_model, parse_model_config
+    from yolov3_tpu_torch.models.network import head_grid_sizes, to_device
+    from yolov3_tpu_torch.ops.s2d import s2d_stem_train
+    from yolov3_tpu_torch.parallel.train_step import init_train_state, make_adam, make_train_step
+
+    spec = parse_model_config(files["model"], nc)
+    params, st = init_model(spec, torch.Generator().manual_seed(0))
+    optimizer = make_adam(0.001)
+    opts = dict(options)
+    step_spec = s2d_stem_train(spec, 416) if opts.pop("stem_s2d", False) else spec
+    step = make_train_step(step_spec, get_anchors(files["anchors"]), head_grid_sizes(spec, 416),
+                           16, optimizer, **opts)
+    state = [init_train_state(to_device(params, "cuda"), to_device(st, "cuda"), optimizer)]
+    images = torch.from_numpy(smoke_images(bodies, 16)).cuda()
+    labels = torch.from_numpy(seeded_labels(np.random.RandomState(1), 16, nc)).cuda()
+
+    def one_step():
+        state[0], _ = step(state[0], images, labels)
+
+    one_step()
+    one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profiled = device_time_by_kernel(one_step)
+    row = dict(key=key, step_ms=ms, step_peak_memory_gb=peak)
+    if profiled is None:
+        row["profile"] = "not measured (the profiler showed no device time)"
+    else:
+        total, by_name, count, host_ms, _, in_order = profiled
+        row.update(device_busy_ms=total, device_launches=count, host_enqueue_ms=host_ms,
+                   k5_device_launches=sum("bn_moments_" in n or "bn_dx_kernel" in n
+                                          for n, _ in in_order),
+                   k5_device_ms=sum(ms_ for n, ms_ in by_name.items()
+                                    if "bn_moments_" in n or "bn_dx_kernel" in n))
+    del state
+    return row
+
+
+PER_KEY = {
+    "plain": {}, "qat": {"qat": "full"},
+    "augmentation": {"augmentation": ALL_KEYS["augmentation"]},
+    "stem_s2d": {"stem_s2d": True}, "bn_stats_subsample": {"bn_stats_subsample": 2},
+    "remat_true": {"remat": True}, "remat_conv": {"remat": "conv"},
+    "multi_scale": {"multi_scale": [320, 416]},
+    "device_dataset": {"device_dataset": {"dtype": "uint8"}},
+}
+STEP_OPTIONS = {"augmentation": "augment", "bn_stats_subsample": "bn_stats_subsample",
+                "remat": "remat", "qat": "qat", "stem_s2d": "stem_s2d"}
+
+
+def card_vs_cpu(bodies, files, nc):
+    """The port against itself: augmentation's apply and QAT's integers card
+    against CPU, and one stem_s2d step on the card against the un-rewritten
+    one (loss 1e-4 relative, gradient leaves 2e-4 of the leaf max)."""
+    from yolov3_tpu_torch.config import get_anchors
+    from yolov3_tpu_torch.models import init_model, parse_model_config
+    from yolov3_tpu_torch.models.network import head_grid_sizes, to_device
+    from yolov3_tpu_torch.ops import augment, quantize
+    from yolov3_tpu_torch.ops.s2d import s2d_stem_train
+    from yolov3_tpu_torch.parallel.train_step import loss_and_grads
+
+    row = {}
+    images = torch.from_numpy(smoke_images(bodies, 16))
+    labels = torch.from_numpy(seeded_labels(np.random.RandomState(2), 16, nc))
+    draws = augment.draw_augment(16, augment.step_generator(0, 5), **ALL_KEYS["augmentation"])
+    card = augment.apply_augment(images.cuda(), labels.cuda(), draws)
+    cpu = augment.apply_augment(images, labels, draws)
+    cpu_idx = [augment.source_indices(416, draws["offset"][:, k], draws["scale"])[0]
+               for k in (1, 0)]
+    card_idx = [augment.source_indices(416, draws["offset"][:, k].cuda(),
+                                       draws["scale"].cuda())[0] for k in (1, 0)]
+    row["augment"] = dict(
+        image_max_abs_err=max_abs(card[0].cpu(), cpu[0]),
+        label_max_abs_err=max_abs(card[1].cpu(), cpu[1]),
+        indices_equal=all(torch.equal(a.cpu(), b) for a, b in zip(card_idx, cpu_idx)))
+
+    spec = parse_model_config(files["model"], nc)
+    params, st = init_model(spec, torch.Generator().manual_seed(0))
+    kernels = [e["kernel"] for sm in params.values() for e in sm.values()]
+
+    def integers(k):
+        k32 = k.float()
+        scale = torch.clamp(k32.abs().amax(dim=(1, 2, 3), keepdim=True),
+                            min=1e-12) * quantize._INV_127
+        return torch.round(k32 / scale)
+
+    act = images.permute(0, 3, 1, 2) * 3.0 - 1.0
+    row["qat"] = dict(
+        kernels=len(kernels),
+        integers_equal=all(torch.equal(integers(k.cuda()).cpu(), integers(k)) for k in kernels),
+        fake_quant_equal=all(torch.equal(quantize.fake_quant_kernel(k.cuda()).cpu(),
+                                         quantize.fake_quant_kernel(k)) for k in kernels),
+        activation_equal=torch.equal(quantize.fake_quant_activation(act.cuda()).cpu(),
+                                     quantize.fake_quant_activation(act)))
+
+    # the stem rewrite on the card: the same loss as the plain stem, and
+    # gradients as close to float64 as the plain stem's (phase 14: at this
+    # seeded init two f32 gradients differ by percents of a leaf's largest
+    # entry whoever computes them, so each is held against float64)
+    from yolov3_tpu_torch.models import layers
+
+    anchors = get_anchors(files["anchors"])
+    grids = head_grid_sizes(spec, 416)
+    b = 4
+    runs = {}
+    for name, step_spec, dtype in (("plain", spec, torch.float32),
+                                   ("stem_s2d", s2d_stem_train(spec, 416), torch.float32),
+                                   ("float64", spec, torch.float64)):
+        moments = layers.bn_moments
+        if dtype == torch.float64:  # plain autograd statistics: no kernel, no f32 sums
+            layers.bn_moments = lambda x: (x.mean(dim=(0, 2, 3)), torch.clamp(
+                (x * x).mean(dim=(0, 2, 3)) - x.mean(dim=(0, 2, 3)) ** 2, min=0.0))
+        try:
+            grads, _, metrics = loss_and_grads(
+                step_spec, to_device(params, "cuda", dtype), to_device(st, "cuda", dtype),
+                images[:b].cuda().to(dtype), labels[:b].cuda(), anchors, grids, b)
+        finally:
+            layers.bn_moments = moments
+        runs[name] = (dict(tree_paths(to_device(grads, "cpu", torch.float64))),
+                      float(metrics["total_loss"]))
+    ref = runs["float64"][0]
+
+    def leaf_errors(got):
+        return sorted(float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()),
+                                                                 1e-12) for k in ref)
+
+    plain, s2d = leaf_errors(runs["plain"][0]), leaf_errors(runs["stem_s2d"][0])
+    direct = max(float((runs["stem_s2d"][0][k] - runs["plain"][0][k]).abs().max())
+                 / max(float(runs["plain"][0][k].abs().max()), 1e-12) for k in ref)
+    l0, l1 = runs["plain"][1], runs["stem_s2d"][1]
+    row["stem_s2d_step"] = dict(
+        batch=b, loss_plain=l0, loss_s2d=l1, loss_float64=runs["float64"][1],
+        loss_rel_err=abs(l1 - l0) / abs(l0), grad_leaf_max_err_s2d_vs_plain=direct,
+        vs_float64=dict(plain_worst=plain[-1], s2d_worst=s2d[-1],
+                        plain_median=plain[len(plain) // 2], s2d_median=s2d[len(s2d) // 2]))
+    grads_ok = (s2d[-1] <= max(2 * plain[-1], 2e-4)
+                and s2d[len(s2d) // 2] <= max(2 * plain[len(plain) // 2], 2e-4))
+    ok = (row["augment"]["image_max_abs_err"] <= 1e-6 and row["augment"]["indices_equal"]
+          and row["augment"]["label_max_abs_err"] <= 1e-6
+          and row["qat"]["integers_equal"] and row["qat"]["fake_quant_equal"]
+          and row["qat"]["activation_equal"]
+          and row["stem_s2d_step"]["loss_rel_err"] <= 1e-4 and grads_ok)
+    log(f"trainer extras card vs CPU {json.dumps(row)}")
+    if not ok:
+        raise AssertionError(f"card against CPU / the rewrite against the plain step: {row}")
+    return row
+
+
+def phase_train_extras(inference_app, bn_stats, bodies, smi):
+    """Phase 20: K5 on its new inputs, one ``Train`` run of YOLOv3-416 with
+    every key of the slice on together, each key alone against the plain
+    trainer, and the port on the card against itself on the CPU."""
+    import ast
+    import re
+
+    from yolov3_tpu_torch.config import read_class_names
+
+    files = toy_training_files()
+    nc = len(read_class_names(files["names"]))
+    result = {"card": smi, "k5_new_inputs": phase_k5_new_inputs(bn_stats)}
+    torch.cuda.empty_cache()
+    handler = _LogLines()
+    logging.getLogger().addHandler(handler)
+    try:
+        # every key at once, 3 epochs (the main path of this slice)
+        tb_dir, trace_dir = os.path.join(EXTRAS_DIR, "tb"), os.path.join(EXTRAS_DIR, "trace")
+        for d in (tb_dir, trace_dir):
+            for f in glob.glob(os.path.join(d, "*")):
+                os.remove(f)
+        config = extras_config("all_keys", epochs=3, tensorboard=tb_dir,
+                               profile_trace_dir=trace_dir, **ALL_KEYS)
+        state, text, row = counted_train(bn_stats, handler, config)
+        scales = [ast.literal_eval(m)
+                  for m in re.findall(r"multi_scale batches per size (\{[^}]*\})", text)]
+        sizes_seen = sorted({int(k) for d in scales for k in d})
+        predictor, _, _ = inference_app.build_serving_predictor(
+            files["model"], files["names"], files["anchors"], config["output_checkpoints_path"],
+            416, nms_score_threshold=0.1)
+        _, _, scores, selected, num_valid = predictor(smoke_images(bodies, 4))
+        torch.cuda.synchronize()
+        row.update(keys=sorted(ALL_KEYS) + ["profile_trace_dir", "tensorboard"],
+                   event_files=len(glob.glob(os.path.join(tb_dir, "events.out.tfevents.*"))),
+                   trace_files=[os.path.getsize(f) for f in
+                                glob.glob(os.path.join(trace_dir, "trace.*.json"))],
+                   sizes_per_epoch=scales, served=dict(
+                       shape=list(selected.shape), detections=int(num_valid.sum()),
+                       scores_finite=bool(torch.isfinite(scores).all())))
+        log(f"trainer extras all keys {json.dumps(row)}")
+        finite = all(np.isfinite(row["train_losses"] + row["val_losses"]))
+        if not (finite and len(row["train_losses"]) == 3 and row["steps"] == 6
+                and min(row["k5_launches"]) > 0 and row["k5_phase_view_calls"] > 0
+                and row["event_files"] == 1 and len(row["trace_files"]) == 1
+                and min(row["trace_files"]) > 0 and sizes_seen == [320, 416]
+                and row["served"]["shape"] == [4, 100] and row["served"]["scores_finite"]):
+            raise AssertionError(f"the all-keys run failed its checks: {row}")
+        result["all_keys"] = row
+        all_keys_launches = row["k5_launches"]
+        del state, predictor
+
+        # each key alone, 2 epochs, fp32: the trainer's run, then its step
+        per_key = []
+        for key, keys in PER_KEY.items():
+            _, _, row = counted_train(bn_stats, handler, extras_config(key, **keys))
+            options = {STEP_OPTIONS[k]: v for k, v in keys.items() if k in STEP_OPTIONS}
+            if key == "plain" or options:
+                row.update(step_profile(key, options, bodies, nc, files))
+            row["key"] = key
+            log(f"trainer extras per key {json.dumps(row)}")
+            if not (row["steps"] == 4 and all(np.isfinite(row["train_losses"]))
+                    and min(row["k5_launches"]) > 0):
+                raise AssertionError(f"the {key} run failed its checks: {row}")
+            per_key.append(row)
+            torch.cuda.empty_cache()
+        result["per_key"] = per_key
+    finally:
+        logging.getLogger().removeHandler(handler)
+    result["card_vs_cpu"] = card_vs_cpu(bodies, files, nc)
+    return result, all_keys_launches
+
+
+def served_head_overflow(files, ckpt, images, compute_dtype):
+    """Which head, anchor and term of a checkpoint's served heads overflow
+    ``exp`` in f32 (the decode's w/h): per head and anchor, the largest w and
+    h logits and how many exceed log(FLT_MAX); beside them the largest w/h
+    logit of the same weights with BatchNorm on the batch's statistics
+    (training mode) instead of the running ones."""
+    from yolov3_tpu_torch.config import read_class_names
+    from yolov3_tpu_torch.io.resolve import load_weights
+    from yolov3_tpu_torch.models import init_model, parse_model_config
+    from yolov3_tpu_torch.models.network import apply_model, fold_batch_norm, to_device
+
+    spec = parse_model_config(files["model"], len(read_class_names(files["names"])))
+    params, st = load_weights(spec, *init_model(spec, torch.Generator().manual_seed(0)), ckpt)
+    folded = to_device(fold_batch_norm(params, st), "cuda", compute_dtype)
+    x = images.cuda().to(compute_dtype or torch.float32)
+    with torch.inference_mode():
+        heads = apply_model(spec, folded, {}, x)
+        batch_heads, _ = apply_model(spec, to_device(params, "cuda", compute_dtype),
+                                     to_device(st, "cuda"), x, train=True)
+    rows = []
+    for i, head in enumerate(heads):
+        h = head.float()
+        for a in range(h.shape[3]):
+            for term, j in (("w", 2), ("h", 3)):
+                v = h[..., a, j]
+                rows.append(dict(head=i, grid=h.shape[1], anchor=a, term=term,
+                                 max_logit=float(v.max()), overflow=int((v > EXP_F32_LIMIT).sum()),
+                                 nan=int(torch.isnan(v).sum())))
+    return dict(exp_f32_limit=EXP_F32_LIMIT, heads=[
+        r for r in rows if r["overflow"] or r["nan"]] or "none overflow",
+        largest_wh_logit=max(r["max_logit"] for r in rows),
+        largest_wh_logit_batch_statistics=max(float(h[..., 2:4].float().max())
+                                              for h in batch_heads))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -2148,6 +2599,14 @@ def main() -> int:
             launches[name] += count
     log(f"offline launches {json.dumps(offline)}")
 
+    # the trainer's extras; K5's count of the all-keys run, set to 0 just
+    # before it, joins the trainer's
+    torch.cuda.empty_cache()
+    extras, extras_launches = timed("trainer extras", phase_train_extras, inference_app,
+                                    bn_stats, bodies, smi)
+    launches["bn_stats"] += extras_launches[0]
+    k5_launches[1] += extras_launches[1]
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -2182,13 +2641,17 @@ def main() -> int:
                         k5_main),
              backward_launches=k5_launches[1], backward_ms=k5_main["backward_ms"],
              backward_plain_ms=k5_main["backward_plain_ms"],
-             backward_bound_ms=k5_main["backward_bound_ms"]),
+             backward_bound_ms=k5_main["backward_bound_ms"],
+             new_inputs=[{k: r[k] for k in ("input", "shape", "dtype", "equal", "device_us",
+                                            "without_device_us")}
+                         for r in extras["k5_new_inputs"]]),
     ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels, "serve": serve_rows, "int8_forward": int8_rows,
                     "train_step_vs_cpu": train_step_row, "train": train_rows,
                     "eval_tiny": eval_rows, "eval_yolov3": full_rows, "int8_gate": gate_row,
-                    "inference": infer_row, "offline_launches": offline, "card": smi}))
+                    "inference": infer_row, "offline_launches": offline,
+                    "train_extras": extras, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -241,8 +241,20 @@ def test_inference_batch_norm_returns_the_state_it_was_given():
 
 
 def test_phases_and_wrong_inputs_raise():
-    x = torch.zeros((2, 8, 4, 4))
-    p = {"gamma": torch.ones(8), "beta": torch.zeros(8)}
-    s = {"mean": torch.zeros(8), "var": torch.ones(8)}
-    with pytest.raises(NotImplementedError, match="phases"):
-        tlayers.batch_norm(x, p, s, train=True, phases=4)
+    """``phases=4`` takes the statistics of the phase groups (JAX's
+    ``batch_norm(phases=4)``, 1e-5); an activation in neither dense layout
+    has no phase view and raises."""
+    x, params, state = _bn_case(11, (2, 4, 4, 8), "float32")
+    p = {"gamma": torch.from_numpy(params["gamma"][:2]), "beta": torch.from_numpy(params["beta"][:2])}
+    s = {"mean": torch.from_numpy(state["mean"][:2]), "var": torch.from_numpy(state["var"][:2])}
+    y, new_state = tlayers.batch_norm(_nchw(x, torch.float32, True), p, s, train=True, phases=4)
+    jy, jstate = jlayers.batch_norm(jnp.asarray(x), {k: jnp.asarray(v[:2]) for k, v in params.items()},
+                                    {k: jnp.asarray(v[:2]) for k, v in state.items()}, train=True,
+                                    phases=4)
+    np.testing.assert_allclose(y.permute(0, 2, 3, 1).numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(new_state[k].numpy(), np.asarray(jstate[k]), rtol=1e-5,
+                                   atol=1e-6)
+    strided = torch.zeros((2, 16, 4, 4))[:, ::2]
+    with pytest.raises(ValueError, match="phase view"):
+        tlayers.batch_norm(strided, p, s, train=True, phases=4)

@@ -14,7 +14,8 @@ Tolerances:
   * whole steps are compared with plain SGD (momentum 0), whose update is
     linear in the gradient: params within lr · the gradient tolerance;
   * bf16 compute: total loss 2e-2 relative (bf16 rounds elsewhere in the two
-    frameworks); remat: the port against itself, rtol 2e-5 as the JAX test."""
+    frameworks); remat (true and "conv"): the port against itself, rtol 2e-5
+    as the JAX test."""
 
 import jax
 import jax.numpy as jnp
@@ -69,9 +70,9 @@ def _assert_trees_close(got, want, rtol, atol, scale_by_leaf_max=None, path=""):
         np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=path)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    model = f"{REPO}/config/models/yolov3_tiny/model.yaml"
+def make_setup(model):
+    """Specs of ``model`` in both packages, seeded JAX weights with
+    non-trivial BN carried across, numpy images and labels."""
     jspec, tspec = jax_parse(model, NC), parse_model_config(model, NC)
     jp, js = jnet.init_model(jax.random.PRNGKey(0), jspec)
     rng = np.random.RandomState(0)
@@ -97,6 +98,11 @@ def setup():
     tp, ts = params_from_jax(jp, js)
     return dict(jspec=jspec, tspec=tspec, jp=jp, js=js, tp=tp, ts=ts, images=images,
                 labels=labels, grids=grids)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup(f"{REPO}/config/models/yolov3_tiny/model.yaml")
 
 
 @pytest.fixture(scope="module")
@@ -136,15 +142,15 @@ def test_one_forward_backward_matches_jax(setup, jax_grads):
 
 def test_remat_gives_the_same_step_and_one_bn_update(setup):
     plain = _port_grads(setup)
-    remat = _port_grads(setup, remat=True)
-    _assert_trees_close(remat[2], plain[2], rtol=2e-5, atol=0)
-    _assert_trees_close(remat[0], plain[0], rtol=2e-5, atol=1e-7)
-    # the new BN state is the first forward's: one momentum step from the old
-    # one, bit-equal to no-remat, not a second step taken by the recomputation
-    for a, b in zip(jax.tree.leaves(remat[1]), jax.tree.leaves(plain[1])):
-        np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="remat: conv"):
-        _port_grads(setup, remat="conv")
+    for mode in (True, "conv"):
+        remat = _port_grads(setup, remat=mode)
+        _assert_trees_close(remat[2], plain[2], rtol=2e-5, atol=0)
+        _assert_trees_close(remat[0], plain[0], rtol=2e-5, atol=1e-7)
+        # the new BN state is the first forward's: one momentum step from the
+        # old one, bit-equal to no-remat, not a second step taken by the
+        # recomputation
+        for a, b in zip(jax.tree.leaves(remat[1]), jax.tree.leaves(plain[1])):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_bf16_compute_keeps_f32_masters(setup, jax_grads):
@@ -349,9 +355,9 @@ def test_scheduled_learning_rate_is_read_from_the_state(setup, jax_grads):
     assert int(new_state["inject_count"]) == 1
 
 
-@pytest.mark.parametrize("key", ["mesh", "augment", "qat"])
+@pytest.mark.parametrize("key", ["mesh"])
 def test_later_slices_raise_by_name(setup, key):
-    value = {"mesh": object(), "augment": {}, "qat": "full"}[key]
+    value = {"mesh": object()}[key]
     with pytest.raises(NotImplementedError, match=key):
         tts.make_train_step(setup["tspec"], ANCHORS, setup["grids"], BATCH, tts.make_adam(LR),
                             **{key: value})

@@ -7,7 +7,12 @@ observable behaviour: model summary dump beside the checkpoints,
 the transfer-learning dispatch, per-batch loss logging in ``eager_tf`` mode,
 periodic and final weight saving, a validation pass per epoch, early
 stopping on val_loss with best-weights restore, full-state resume, EMA shadow
-weights.
+weights, and the JAX trainer's extensions: ``augmentation`` (on the device,
+``ops/augment.py``), ``qat`` (fake quantization, ``ops/quantize.py``),
+``stem_s2d`` (``ops/s2d.py::s2d_stem_train``), ``multi_scale`` (per epoch or
+per N steps, cycle or random), ``device_dataset`` (f32 or uint8),
+``bn_stats_subsample``, ``remat: conv``, ``tensorboard`` scalars and a
+``profile_trace_dir`` trace of the first epoch.
 
 Differences, by design:
   * the step runs eagerly on one device — the card unless the config says
@@ -15,7 +20,9 @@ Differences, by design:
   * checkpoints are the JAX package's native ``.npz`` files, so either
     package loads the other's weights and resumes the other's train state;
   * keys that belong to later slices of the port raise ``NotImplementedError``
-    by name (``DEFERRED_KEYS``); none is silently ignored.
+    by name (``DEFERRED_KEYS``); none is silently ignored;
+  * ``bn_stats_subsample`` is an argument threaded down to ``batch_norm``,
+    not a process-wide setting, and the profiler trace is ``torch.profiler``'s.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import count_file_lines, get_anchors
-from ..data.pipeline import Batcher, DevicePrefetcher, batched, create_dataset
+from ..data.pipeline import Batcher, DeviceDataset, DevicePrefetcher, batched, create_dataset
 from ..device import resolve_device
 from ..io.checkpoint import checkpoint_keys, load_train_state, save_train_state
 from ..io.resolve import load_weights, native_path, save_weights
@@ -36,16 +43,98 @@ from ..models import init_model, parse_model_config
 from ..models.network import head_grid_sizes, to_device
 from ..models.transfer import bn_frozen_selectors, do_transfer_learning
 from ..models.transfer import trainable_mask as make_trainable_mask
+from ..ops.image import resize_antialiased
+from ..ops.s2d import s2d_stem_train
 from ..parallel.train_step import (epoch_learning_rate, init_train_state, make_adam,
                                    make_adam_scheduled, make_eval_step, make_train_step)
 from ..tree import tree_map
+from ..utils.profiling import StepTimer, trace
 
 log = logging.getLogger(__name__)
 
 # config keys of later slices of the port: a true value raises by name
-DEFERRED_KEYS = ("qat", "augmentation", "stem_s2d", "multi_scale", "device_dataset",
-                 "multihost", "spatial_partitioning", "tensorboard", "profile_trace_dir",
-                 "bn_stats_subsample")
+DEFERRED_KEYS = ("multihost", "spatial_partitioning")
+
+
+def parse_qat_mode(qat_conf):
+    """Normalize the `qat` config key (extension) to
+    False | 'weights' | 'activations' | 'full'.
+
+    `true`/`'weights'` → weight-only QAT; `'full'` (or
+    `{weights: true, activations: true}`) → also fake-quant conv-input
+    activations on the int8_chain serving lattice (parallel/train_step.py);
+    `'activations'` (or `{weights: false, activations: true}`) →
+    activation fake-quant only, weights stay fp.
+    """
+    if isinstance(qat_conf, dict):
+        weights = qat_conf.get("weights", True)
+        activations = qat_conf.get("activations", False)
+        if activations:
+            return "full" if weights else "activations"
+        return "weights" if weights else False
+    if isinstance(qat_conf, str):
+        mode = qat_conf.strip().lower()
+        if mode not in ("weights", "activations", "full"):
+            raise ValueError(
+                f"qat must be true, 'weights', 'activations', or 'full', got {qat_conf!r}")
+        return mode
+    return "weights" if qat_conf else False
+
+
+def parse_qat_min_k2cin(qat_conf) -> int:
+    """`qat: {..., min_k2cin: N}` — mirror the serving tier's
+    mixed-precision threshold (quantize_params' min_k2cin) in the QAT
+    lattice, so training skips the same convs serving keeps in bf16."""
+    if isinstance(qat_conf, dict):
+        return int(qat_conf.get("min_k2cin", 0) or 0)
+    return 0
+
+
+def parse_multi_scale(multi_scale, device_dataset):
+    """The ``multi_scale`` config value → (sizes, mode, interval): ``[s, …]``
+    or ``{sizes, mode: cycle|random, interval: epoch|N steps}``; a step
+    interval needs ``device_dataset``. The sizes' divisibility is checked by
+    the caller, which knows the model."""
+    conf = ({"sizes": list(multi_scale)} if isinstance(multi_scale, (list, tuple))
+            else dict(multi_scale))
+    sizes = [int(v) for v in conf["sizes"]]
+    mode = conf.get("mode", "cycle")
+    if mode not in ("cycle", "random"):
+        raise ValueError(f"multi_scale mode must be cycle|random, got {mode!r}")
+    interval = conf.get("interval", "epoch")
+    if interval != "epoch":
+        interval = int(interval)
+        if interval < 1:
+            raise ValueError(
+                f"multi_scale interval must be 'epoch' or a positive "
+                f"step count, got {interval}")
+        if not device_dataset:
+            raise ValueError(
+                "multi_scale interval in steps requires "
+                "device_dataset (the split is staged once at "
+                "image_size and resized per batch on device)")
+    return sizes, mode, interval
+
+
+def ms_size_for(sizes, mode, seed, epoch):
+    """The image size of ``epoch`` (1-based) under per-epoch multi-scale:
+    cycling, or drawn from a RandomState keyed by (seed, epoch) so a resumed
+    run picks the sizes it would have picked without the restart."""
+    if mode == "random":
+        r = np.random.RandomState(seed * 100003 + epoch)
+        return sizes[int(r.randint(len(sizes)))]
+    return sizes[(epoch - 1) % len(sizes)]
+
+
+def ms_size_for_step(sizes, mode, interval, seed, epoch, bi):
+    """The image size of batch ``bi`` of ``epoch`` under step-interval
+    multi-scale, keyed by (epoch, slot = bi // interval); cycling starts each
+    epoch one size further on, so short epochs still cover every size."""
+    slot = bi // interval
+    if mode == "random":
+        r = np.random.RandomState((seed * 100003 + epoch) * 7919 + slot)
+        return sizes[int(r.randint(len(sizes)))]
+    return sizes[(slot + epoch) % len(sizes)]
 
 
 def _entry_param_count(entry) -> int:
@@ -124,9 +213,11 @@ class Train:
         early_stopping,
         weights_save_peroid,
         resume=False,
+        profile_trace_dir=None,
         debug_nans=False,
         mixed_precision=False,
         remat=False,
+        augmentation=None,
         accum_steps=1,
         device=None,
         **kwargs,
@@ -137,14 +228,19 @@ class Train:
                     f"{key}: not ported yet (a later slice of the port); remove the key "
                     "or train with the JAX package")
         if remat not in (False, True, "conv", None):
-            raise ValueError(f"remat must be false, true, or 'conv', got {remat!r}")
-        if remat == "conv":
-            raise NotImplementedError("remat: conv is not ported yet; use remat: true")
+            raise ValueError(
+                f"remat must be false, true, or 'conv' "
+                f"(save-conv-outputs policy), got {remat!r}")
         if not logging.getLogger().handlers:
             logging.basicConfig(level=logging.INFO, format="%(levelname)s:%(name)s:%(message)s")
         logging.getLogger().setLevel(logging.INFO)
         if kwargs.get("compilation_cache"):
             log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
+        bn_stats_subsample = int(kwargs.get("bn_stats_subsample") or 1)
+        if bn_stats_subsample < 1:
+            raise ValueError(f"bn_stats_subsample must be >= 1, got {bn_stats_subsample}")
+        if bn_stats_subsample > 1:
+            log.info(f"bn_stats_subsample: {bn_stats_subsample}")
         if debug_nans:
             torch.autograd.set_detect_anomaly(True)
         dev = resolve_device(device)
@@ -224,14 +320,81 @@ class Train:
                      + (", used for validation/early-stopping"
                         if ema_conf.get("use_for_validation") else ""))
 
-        train_step = make_train_step(
-            spec, anchors_table, grid_sizes, batch_size, optimizer, bn_frozen=bn_frozen,
-            trainable_mask=trainable_mask,
-            compute_dtype=torch.bfloat16 if mixed_precision else None,
-            remat=bool(remat), seed=seed, accum_steps=accum_steps, ema_decay=ema_decay,
-            ema_warmup=bool(ema_conf.get("warmup", True)) if ema_conf is not None else True)
-        eval_step = make_eval_step(spec, anchors_table, grid_sizes, batch_size,
-                                   bn_frozen=bn_frozen)
+        qat_mode = parse_qat_mode(kwargs.get("qat", False))
+        if qat_mode:
+            log.info(f"qat: {qat_mode}")
+        stem_s2d = bool(kwargs.get("stem_s2d", False))
+
+        def build_step_spec(size):
+            # the space-to-depth stem is spec only: params, gradients and
+            # checkpoints are the original spec's (ops/s2d.py::s2d_stem_train)
+            if not stem_s2d:
+                return spec
+            step_spec = s2d_stem_train(spec, size)
+            if step_spec is not spec:
+                log.info(f"stem_s2d: training stem rescheduled to 2×2-phase layout @{size}")
+            return step_spec
+
+        def build_train_step(size):
+            # one step per image size: its grids, and its stem spec
+            return make_train_step(
+                build_step_spec(size), anchors_table, head_grid_sizes(spec, size), batch_size,
+                optimizer, bn_frozen=bn_frozen, trainable_mask=trainable_mask,
+                compute_dtype=torch.bfloat16 if mixed_precision else None, remat=remat,
+                augment=(augmentation if isinstance(augmentation, dict)
+                         else {} if augmentation else None),
+                seed=seed, accum_steps=accum_steps, qat=qat_mode,
+                qat_min_k2cin=parse_qat_min_k2cin(kwargs.get("qat", False)),
+                ema_decay=ema_decay,
+                ema_warmup=bool(ema_conf.get("warmup", True)) if ema_conf is not None else True,
+                bn_stats_subsample=bn_stats_subsample)
+
+        train_step = build_train_step(image_size)
+        eval_step = make_eval_step(build_step_spec(image_size), anchors_table, grid_sizes,
+                                   batch_size, bn_frozen=bn_frozen)
+
+        # multi-scale: one size per epoch, or per N steps with device_dataset;
+        # validation stays at image_size so val_loss compares across epochs
+        multi_scale = kwargs.get("multi_scale")
+        device_ds_conf = kwargs.get("device_dataset")
+        ms_sizes, ms_mode, ms_interval = None, "cycle", "epoch"
+        if multi_scale:
+            ms_sizes, ms_mode, ms_interval = parse_multi_scale(multi_scale, device_ds_conf)
+            # the model's max stride at a power-of-two probe size: the base
+            # image_size itself may not be stride-aligned
+            probe = 2048
+            max_stride = probe // min(head_grid_sizes(spec, probe))
+            bad = [s for s in ms_sizes if s <= 0 or s % max_stride]
+            if bad:
+                raise ValueError(
+                    f"multi_scale sizes {bad} not divisible by the model's "
+                    f"max stride {max_stride}")
+            log.info(f"multi_scale: sizes {ms_sizes} ({ms_mode}, "
+                     f"interval {ms_interval})")
+
+        ms_cache = {}
+
+        def ms_pipeline(size):
+            """(train_step, ds_train) of one size on the host path: the split
+            letterboxed anew at that size."""
+            if size == image_size:
+                return train_step, ds_train
+            if size not in ms_cache:
+                (ds_s, _), _ = create_dataset(dataset_config, size, max_bboxes,
+                                              classes_name_file, max_dataset_examples)
+                ms_cache[size] = (build_train_step(size), ds_s)
+            return ms_cache[size]
+
+        def ms_device(size):
+            """(train_step, resize) of one size with device_dataset: the staged
+            batch is downscaled on the device (bilinear with antialiasing, as
+            jax.image.resize); labels are normalized, so they stay."""
+            if size == image_size:
+                return train_step, None
+            if size not in ms_cache:
+                ms_cache[size] = (build_train_step(size),
+                                  lambda im, _s=size: resize_antialiased(im, _s, _s))
+            return ms_cache[size]
 
         shuffle_conf = kwargs.get("shuffle")
         if shuffle_conf:
@@ -245,6 +408,26 @@ class Train:
             stream_workers = int(stream_workers)
             if stream_workers < 1:
                 raise ValueError(f"stream_workers must be >= 1, got {stream_workers}")
+
+        # device-resident dataset: decode once, stage the split on the card
+        dd_train = dd_val = None
+        if device_ds_conf:
+            if ms_sizes and max(ms_sizes) > image_size:
+                raise ValueError(
+                    "device_dataset + multi_scale requires every size <= "
+                    f"image_size ({image_size}): the split is staged once at "
+                    "image_size and smaller sizes run as device-side "
+                    "bilinear downscales (staging per size would multiply "
+                    "HBM). Raise image_size to the largest scale wanted.")
+            store_uint8 = (isinstance(device_ds_conf, dict)
+                           and str(device_ds_conf.get("dtype", "")).lower() == "uint8")
+            t0 = time.time()
+            dd_train = DeviceDataset(ds_train, batch_size, dev, store_uint8=store_uint8)
+            dd_val = DeviceDataset(ds_val, batch_size, dev, store_uint8=store_uint8)
+            log.info(
+                f"device_dataset: staged {dd_train.n}+{dd_val.n} examples "
+                f"({(dd_train.nbytes + dd_val.nbytes) >> 20} MB"
+                f"{', uint8' if store_uint8 else ''}) in {time.time() - t0:.1f}s")
 
         train_state = init_train_state(to_device(params, dev), to_device(bn_state, dev),
                                        optimizer, ema=ema_conf is not None)
@@ -285,100 +468,152 @@ class Train:
         best_weights = None
         patience_left = early_stop_patience
         last_epoch = start_epoch - 1
-        step_seconds: list[float] = []  # host time to enqueue each step
+        timer = StepTimer(images_per_step=batch_size)  # host time to enqueue each step
+        # TensorBoard scalars: `tensorboard: <logdir>` or true (./tb_logs); one
+        # device fetch per epoch, never a per-step wait
+        tb_writer = None
+        tb_conf = kwargs.get("tensorboard")
+        if tb_conf:
+            from ..utils.tb import SummaryWriter
+
+            tb_writer = SummaryWriter(tb_conf if isinstance(tb_conf, str) else "tb_logs")
+            log.info(f"tensorboard: writing scalars to {tb_writer.path}")
         cur_lr = learning_rate
-        for epoch in range(start_epoch, epochs + 1):
-            last_epoch = epoch
-            if lr_schedule:
-                cur_lr = epoch_learning_rate(learning_rate, epoch, epochs, lr_schedule)
-                train_state = {**train_state, "opt_state": {
-                    **train_state["opt_state"],
-                    "learning_rate": torch.tensor(cur_lr, dtype=torch.float32)}}
-                log.info(f"epoch {epoch}: learning_rate {cur_lr:.6g}")
-            t0 = time.time()
-            nbatches = 0
-            # epoch-keyed shuffle seed: fresh order each epoch, identical
-            # sequence across an interrupted+resumed run
-            epoch_iter = DevicePrefetcher(
-                batched(ds_train, batch_size, shuffle_buffer=shuffle_buffer or None,
-                        seed=seed * 1000003 + epoch, num_workers=stream_workers), dev)
-            for images, labels in epoch_iter:
-                t_step = time.perf_counter()
-                train_state, metrics = train_step(train_state, images, labels)
-                step_seconds.append(time.perf_counter() - t_step)
-                nbatches += 1
-                if verbose:
-                    self._log_metrics(epoch, "train", nbatches - 1, cur_lr, metrics)
-            if nbatches == 0:
-                raise ValueError("Dataset size less than batch size!")
-            # fetch the last step's loss BEFORE taking the epoch time: the loop
-            # above only enqueues work, the scalar fetch waits for the epoch's
-            # final step, so the logged rate is honest
-            epoch_train_loss = float(metrics["total_loss"])
-            dt = time.time() - t0
-            log.info(f"epoch {epoch}: {nbatches} steps in {dt:.2f}s "
-                     f"({nbatches * batch_size / dt:.1f} img/s)")
-            log.info(f"epoch {epoch}: train_loss {epoch_train_loss:.4f}")
-
-            if epoch % weights_save_peroid == 0:
-                save_all(epoch)
-
-            # validation pass (train.py:80-91). With `ema.use_for_validation`
-            # the pass (and thus early stopping + best-weights restore) runs
-            # on the EMA shadow — the weights one would actually serve.
-            val_src = (train_state["ema"]
-                       if ema_conf and ema_conf.get("use_for_validation") else train_state)
-            val_losses = []
-            val_iter = DevicePrefetcher(
-                batched(ds_val, batch_size, num_workers=stream_workers), dev)
-            for batch_i, (images, labels) in enumerate(val_iter):
-                metrics = eval_step(val_src["params"], val_src["bn_state"], images, labels)
-                # keep the per-batch loss on the device: one stacked fetch
-                # after the loop waits once instead of once per batch
-                val_losses.append(metrics["total_loss"])
-                if verbose:
-                    self._log_metrics(epoch, "val", batch_i, cur_lr, metrics)
-            if val_losses:
-                val_losses = torch.stack(val_losses).cpu().tolist()
-                log.info(f"epoch {epoch}: val_loss {float(np.mean(val_losses)):.4f}")
-
-            if early_stopping and val_losses:
-                val_loss = float(np.mean(val_losses))
-                if val_loss < best_val:
-                    best_val = val_loss
-                    snapshot = lambda t: t.detach().cpu().clone()  # noqa: E731
-                    best_weights = (tree_map(snapshot, val_src["params"]),
-                                    tree_map(snapshot, val_src["bn_state"]))
-                    patience_left = early_stop_patience
+        try:
+            for epoch in range(start_epoch, epochs + 1):
+                last_epoch = epoch
+                if lr_schedule:
+                    cur_lr = epoch_learning_rate(learning_rate, epoch, epochs, lr_schedule)
+                    train_state = {**train_state, "opt_state": {
+                        **train_state["opt_state"],
+                        "learning_rate": torch.tensor(cur_lr, dtype=torch.float32)}}
+                    log.info(f"epoch {epoch}: learning_rate {cur_lr:.6g}")
+                epoch_step, epoch_ds, ms_resize = train_step, ds_train, None
+                ms_per_step = ms_sizes is not None and ms_interval != "epoch"
+                if ms_sizes and not ms_per_step:
+                    size = ms_size_for(ms_sizes, ms_mode, seed, epoch)
+                    log.info(f"epoch {epoch}: multi_scale image_size {size}")
+                    if dd_train is not None:
+                        epoch_step, ms_resize = ms_device(size)
+                    else:
+                        epoch_step, epoch_ds = ms_pipeline(size)
+                t0 = time.time()
+                nbatches = 0
+                if dd_train is not None:
+                    # device-resident epoch: the same epoch-keyed determinism,
+                    # a full permutation instead of a buffer window
+                    epoch_iter = dd_train.batches(
+                        seed * 1000003 + epoch if shuffle_buffer else None)
                 else:
-                    patience_left -= 1
-                    if patience_left <= 0:
-                        log.info(f"early stopping at epoch {epoch} "
-                                 f"(best val_loss {best_val:.4f})")
-                        if best_weights is not None:
-                            # restore the best weights INTO the train state so
-                            # the final save persists them (Keras EarlyStopping
-                            # restore_best_weights). When validation monitored
-                            # the EMA shadow the best snapshot is an EMA one: it
-                            # goes back into the shadow, and the raw params stay
-                            # coherent with the optimizer moments for resume.
-                            p, s = (to_device(t, dev) for t in best_weights)
-                            if ema_conf and ema_conf.get("use_for_validation"):
-                                train_state = dict(train_state,
-                                                   ema={"params": p, "bn_state": s})
-                            else:
-                                train_state = dict(train_state, params=p, bn_state=s)
-                        break
+                    # epoch-keyed shuffle seed: fresh order each epoch, identical
+                    # sequence across an interrupted+resumed run
+                    epoch_iter = DevicePrefetcher(
+                        batched(epoch_ds, batch_size, shuffle_buffer=shuffle_buffer or None,
+                                seed=seed * 1000003 + epoch, num_workers=stream_workers), dev)
+                ms_used = {}
+                with trace(profile_trace_dir if epoch == start_epoch else None) as trace_path:
+                    for bi, (images, labels) in enumerate(epoch_iter):
+                        step_fn, resize = epoch_step, ms_resize
+                        if ms_per_step:
+                            # Darknet-style switch within the epoch: this slot's
+                            # size, the staged batch downscaled on the device
+                            size = ms_size_for_step(ms_sizes, ms_mode, ms_interval, seed,
+                                                    epoch, bi)
+                            ms_used[size] = ms_used.get(size, 0) + 1
+                            step_fn, resize = ms_device(size)
+                        if resize is not None:
+                            images = resize(images)
+                        with timer:
+                            train_state, metrics = step_fn(train_state, images, labels)
+                        nbatches += 1
+                        if verbose:
+                            self._log_metrics(epoch, "train", nbatches - 1, cur_lr, metrics)
+                if trace_path:
+                    log.info(f"profile_trace_dir: wrote {trace_path}")
+                if ms_used:
+                    log.info(f"epoch {epoch}: multi_scale batches per size "
+                             f"{dict(sorted(ms_used.items()))}")
+                if nbatches == 0:
+                    raise ValueError("Dataset size less than batch size!")
+                # fetch the last step's loss BEFORE taking the epoch time: the
+                # loop above only enqueues work, the scalar fetch waits for the
+                # epoch's final step, so the logged rate is honest
+                epoch_train_loss = float(metrics["total_loss"])
+                dt = time.time() - t0
+                log.info(f"epoch {epoch}: {nbatches} steps in {dt:.2f}s "
+                         f"({nbatches * batch_size / dt:.1f} img/s)")
+                log.info(f"epoch {epoch}: train_loss {epoch_train_loss:.4f}")
+                if tb_writer:
+                    scalars = {"train/total_loss": epoch_train_loss,
+                               "train/images_per_sec": nbatches * batch_size / dt,
+                               "train/learning_rate": float(cur_lr)}
+                    for name, v in zip(("xy", "wh", "obj", "class"),
+                                       metrics["per_source"].cpu().tolist()):
+                        scalars[f"train/loss_{name}"] = float(v)
+                    tb_writer.add_scalars(scalars, step=epoch)
 
-        # final save so short runs always leave a checkpoint, stamped with the
-        # actual last epoch so resume accounting stays correct
-        save_all(last_epoch)
-        if step_seconds:
-            d = np.asarray(step_seconds)
-            log.info("step timing (host enqueue): " + str({
-                "steps": len(d), "mean_ms": float(d.mean() * 1000),
-                "p50_ms": float(np.percentile(d, 50) * 1000),
-                "p95_ms": float(np.percentile(d, 95) * 1000)}))
+                if epoch % weights_save_peroid == 0:
+                    save_all(epoch)
+
+                # validation pass (train.py:80-91). With `ema.use_for_validation`
+                # the pass (and thus early stopping + best-weights restore) runs
+                # on the EMA shadow — the weights one would actually serve.
+                val_src = (train_state["ema"]
+                           if ema_conf and ema_conf.get("use_for_validation") else train_state)
+                val_losses = []
+                val_iter = (dd_val.batches(None) if dd_val is not None else DevicePrefetcher(
+                    batched(ds_val, batch_size, num_workers=stream_workers), dev))
+                for batch_i, (images, labels) in enumerate(val_iter):
+                    metrics = eval_step(val_src["params"], val_src["bn_state"], images, labels)
+                    # keep the per-batch loss on the device: one stacked fetch
+                    # after the loop waits once instead of once per batch
+                    val_losses.append(metrics["total_loss"])
+                    if verbose:
+                        self._log_metrics(epoch, "val", batch_i, cur_lr, metrics)
+                if val_losses:
+                    val_losses = torch.stack(val_losses).cpu().tolist()
+                    log.info(f"epoch {epoch}: val_loss {float(np.mean(val_losses)):.4f}")
+                    if tb_writer:
+                        tb_writer.add_scalar("val/total_loss", float(np.mean(val_losses)),
+                                             step=epoch)
+
+                if early_stopping and val_losses:
+                    val_loss = float(np.mean(val_losses))
+                    if val_loss < best_val:
+                        best_val = val_loss
+                        snapshot = lambda t: t.detach().cpu().clone()  # noqa: E731
+                        best_weights = (tree_map(snapshot, val_src["params"]),
+                                        tree_map(snapshot, val_src["bn_state"]))
+                        patience_left = early_stop_patience
+                    else:
+                        patience_left -= 1
+                        if patience_left <= 0:
+                            log.info(f"early stopping at epoch {epoch} "
+                                     f"(best val_loss {best_val:.4f})")
+                            if best_weights is not None:
+                                # restore the best weights INTO the train state
+                                # so the final save persists them (Keras
+                                # EarlyStopping restore_best_weights). When
+                                # validation monitored the EMA shadow the best
+                                # snapshot is an EMA one: it goes back into the
+                                # shadow, and the raw params stay coherent with
+                                # the optimizer moments for resume.
+                                p, s = (to_device(t, dev) for t in best_weights)
+                                if ema_conf and ema_conf.get("use_for_validation"):
+                                    train_state = dict(train_state,
+                                                       ema={"params": p, "bn_state": s})
+                                else:
+                                    train_state = dict(train_state, params=p, bn_state=s)
+                            break
+
+            # final save so short runs always leave a checkpoint, stamped with
+            # the actual last epoch so resume accounting stays correct
+            save_all(last_epoch)
+        finally:
+            if tb_writer:
+                tb_writer.close()
+        if timer.durations:
+            log.info(f"step timing (host enqueue): {timer.stats()}")
         return train_state
 
     @staticmethod

@@ -7,8 +7,8 @@ in numpy, because the expensive label work (grid-scatter target assignment)
 runs on the device inside the train step (ops/assign.py) —
 and tests/test_torch_data.py pins it to its original. ``DevicePrefetcher``
 is the port's own: pinned host memory and a non-blocking copy on a side
-stream, two batches in flight. ``DeviceDataset`` (the whole split resident
-on the device) belongs to a later slice of the port.
+stream, two batches in flight. So is ``DeviceDataset``: the whole split
+resident on the device, each batch a gather.
 """
 
 from __future__ import annotations
@@ -187,10 +187,63 @@ class Batcher:
 
 
 class DeviceDataset:
-    """Whole-split device residency (`device_dataset` train key): not ported yet."""
+    """Whole-split device residency (the ``device_dataset`` train key).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("device_dataset: not ported yet (a later slice of the port)")
+    Decode and resize each example once on the host, stage the whole split
+    on ``device`` once, then every epoch is device work: a batch is a gather
+    through a per-epoch permutation, so no image bytes cross after staging.
+
+    ``store_uint8``: keep pixels as uint8 on the device (4× less memory and
+    staging traffic) and turn them back into f32 / 255 in the gather. Values
+    a host resize left off the 1/255 lattice move by ≤ 1/510; the default
+    f32 storage is bit-exact against the host path.
+    """
+
+    def __init__(self, dataset, batch_size: int, device, store_uint8: bool = False):
+        import torch
+
+        imgs, labs = [], []
+        for img, lab in dataset:
+            a = np.asarray(img, np.float32)
+            imgs.append(np.clip(np.round(a * 255.0), 0, 255).astype(np.uint8)
+                        if store_uint8 else a)
+            labs.append(np.asarray(lab, np.float32))
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.store_uint8 = store_uint8
+        self.n = len(imgs)
+        self.nbatches = self.n // batch_size
+        self.nbytes = 0
+        self.images = self.labels = None
+        if self.n == 0:
+            return  # empty split: batches() yields nothing (val-less runs)
+        host_images = np.stack(imgs)
+        host_labels = np.stack(labs)
+        del imgs, labs
+        self.nbytes = host_images.nbytes + host_labels.nbytes
+        self.images = torch.from_numpy(host_images).to(self.device)
+        self.labels = torch.from_numpy(host_labels).to(self.device)
+
+    def batches(self, shuffle_seed=None):
+        """One epoch of device-resident (images, labels) batches.
+
+        ``shuffle_seed``: None = dataset order; an int seeds a FULL
+        permutation of the split (``np.random.RandomState``, as the JAX
+        package's), moved to the device once an epoch."""
+        import torch
+
+        if self.n == 0:
+            return
+        order = (np.arange(self.n, dtype=np.int64) if shuffle_seed is None
+                 else np.random.RandomState(shuffle_seed & 0x7FFFFFFF)
+                 .permutation(self.n).astype(np.int64))
+        order = torch.from_numpy(order).to(self.device)
+        for b in range(self.nbatches):
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            images = self.images.index_select(0, idx)
+            if self.store_uint8:
+                images = images.to(torch.float32) / 255.0
+            yield images, self.labels.index_select(0, idx)
 
 
 class DevicePrefetcher:

@@ -62,8 +62,34 @@ def conv2d(x, kernel, stride: int, pad: int, explicit_pad=None):
     return F.conv2d(x, kernel.to(x.dtype), stride=stride)
 
 
+def _phase_view(x, phases: int):
+    """(B, P·C, H, W) with the channels phase-major → a view whose axis 1 is
+    the C channels and whose other axes hold every (image, phase, pixel):
+    (B·P, C, H, W) of contiguous NCHW memory, (B·H·W·P, C, 1, 1) of
+    channels-last memory (``[B][H][W][P][C]`` is that contiguous tensor).
+    Either is a view, never a copy; any other memory raises."""
+    b, pc, h, w = x.shape
+    c = pc // phases
+    if x.is_contiguous():
+        return x.view(b * phases, c, h, w)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return x.permute(0, 2, 3, 1).view(b * h * w * phases, c, 1, 1)
+    raise ValueError(f"batch_norm: the phase view needs NCHW or channels-last memory, got "
+                     f"shape {tuple(x.shape)} strides {x.stride()}")
+
+
+def _subsampled(x, stride: int):
+    """The stride-``stride`` spatial subsample of ``x`` as a dense copy in
+    ``x``'s memory format (1/stride² of its bytes): the statistics kernel
+    reads dense activations only."""
+    fmt = (torch.channels_last
+           if x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+           else torch.contiguous_format)
+    return x[:, :, ::stride, ::stride].contiguous(memory_format=fmt)
+
+
 def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM, eps=BN_EPS,
-               phases: int = 1):
+               phases: int = 1, stats_subsample: int = 1):
     """Functional BatchNorm over channel axis 1. Returns ``(y, new_state)``.
 
     In training mode the statistics are the batch's mean and biased variance
@@ -73,14 +99,22 @@ def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM
     Normalization runs in ``x``'s dtype with ``mean.to(x.dtype)``, as the JAX
     package's does. The new state is detached: no gradient flows into it.
 
-    ``phases > 1`` (the statistics of the space-to-depth training stem) is
-    not carried by the port yet.
+    ``phases > 1``: the channel axis holds ``phases`` spatial-phase groups of
+    C = channels / phases channels, phase-major (the space-to-depth training
+    stem, ``ops/s2d.py::s2d_stem_train``). The statistics reduce over the
+    groups too, through a view of ``x`` (``_phase_view``), which gives the
+    un-rewritten layer's per-channel statistics; parameters and state stay
+    (C,) and are tiled over the groups to normalize.
+
+    ``stats_subsample`` = s > 1 (training only, an opt-in approximation):
+    the statistics come from every s-th row and column, a dense copy of 1/s²
+    of the activation (``_subsampled``); the normalization, the gradient
+    through the statistics and the running-average update all use that
+    estimate.
     """
-    if phases != 1:
-        raise NotImplementedError("batch_norm: phases > 1 (the space-to-depth training "
-                                  "stem's statistics) is not ported yet")
     if train:
-        mean, var = bn_moments(x)
+        xs = _subsampled(x, stats_subsample) if stats_subsample > 1 else x
+        mean, var = bn_moments(_phase_view(xs, phases) if phases > 1 else xs)
         new_state = {
             "mean": (momentum * bn_state["mean"] + (1.0 - momentum) * mean).detach(),
             "var": (momentum * bn_state["var"] + (1.0 - momentum) * var).detach(),
@@ -89,10 +123,33 @@ def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM
         mean, var = bn_state["mean"], bn_state["var"]
         new_state = bn_state
     scale = bn_params["gamma"] * torch.rsqrt(var + eps)
+    beta = bn_params["beta"]
+    if phases > 1:
+        mean, scale, beta = (v.repeat(phases) for v in (mean, scale, beta))
     shape = (1, -1, 1, 1)
     y = ((x - mean.to(x.dtype).view(shape))
-         * scale.to(x.dtype).view(shape) + bn_params["beta"].to(x.dtype).view(shape))
+         * scale.to(x.dtype).view(shape) + beta.to(x.dtype).view(shape))
     return y, new_state
+
+
+def s2d_phase_kernel_conv0(k):
+    """(cout, cin, 3, 3) → (4·cout, cin, 4, 4): the space-to-depth stem's
+    phase-stacked strided conv0, built from the original kernel inside the
+    differentiated graph (pad + concatenate: linear), so the four phase
+    groups' gradients sum back onto the one 3×3 kernel. Group g = 2·pi + pj
+    is the kernel placed at offset (pi, pj); ``ops/s2d.py`` has the geometry."""
+    return torch.cat([F.pad(k, (pj, 1 - pj, pi, 1 - pi))
+                      for pi in range(2) for pj in range(2)], dim=0)
+
+
+def s2d_phase_kernel_conv1(k):
+    """(cout, cin, 3, 3) → (cout, 4·cin, 2, 2): the phase-consuming conv1.
+    Tap (a, b) of input phase group (qi, qj) reads original tap
+    (2a + qi − 1, 2b + qj − 1); taps outside the 3×3 window are the zeros of
+    a padded kernel sliced with stride 2."""
+    kp = F.pad(k, (1, 1, 1, 1))
+    return torch.cat([kp[:, :, qi:qi + 3:2, qj:qj + 3:2]
+                      for qi in range(2) for qj in range(2)], dim=1)
 
 
 def leaky_relu(x, slope=LEAKY_SLOPE):

@@ -31,6 +31,8 @@ unfused, so the observer sees them all.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.utils.checkpoint
 
@@ -103,14 +105,37 @@ def _fusable_stages(sm: SubModelSpec, sm_params):
     return fusable
 
 
+def _conv_tail(x, p, bn_state, bn_train, phases, stats_subsample, leaky):
+    """What follows an fp conv: BatchNorm (or the bias), then LeakyReLU →
+    (y, the BN layer's new state or None)."""
+    layer_state = None
+    if "bn" in p:
+        x, layer_state = L.batch_norm(x, p["bn"], bn_state, bn_train, phases=phases,
+                                      stats_subsample=stats_subsample)
+    elif "bias" in p:
+        x = x + p["bias"].to(x.dtype).view(1, -1, 1, 1)
+    if leaky:
+        x = L.leaky_relu(x)
+    return x, layer_state
+
+
 def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                      nclasses: int, fp_dtype, conv_observer=None, out_observer=None,
-                     bn_train: bool = False, new_state=None):
+                     bn_train: bool = False, new_state=None, conv_input_transform=None,
+                     bn_stats_subsample: int = 1, remat_tail: bool = False):
     """Run one sub-model's layer list; returns its selected outputs.
 
-    ``bn_train`` runs every BatchNorm on the batch's statistics; each BN
-    layer's new running statistics go into the dict ``new_state`` (when one
-    is given) under the layer's key.
+    ``bn_train`` runs every BatchNorm on the batch's statistics (from a
+    ``bn_stats_subsample`` spatial subsample, see ``layers.batch_norm``);
+    each BN layer's new running statistics go into the dict ``new_state``
+    (when one is given) under the layer's key.
+
+    ``conv_input_transform(sm_name, layer_key, x)`` replaces the input of
+    every fp conv (one without ``kernel_q``: a quantized conv consumes its
+    QAct as it is) — the hook of activation QAT.
+
+    ``remat_tail`` checkpoints each BN conv's tail (``_conv_tail``): the
+    conv's output is kept, the tail recomputes in the backward pass.
 
     ``conv_observer(sm_name, layer_key, x)`` is called with each conv's
     input and ``out_observer(sm_name, layer_key, x)`` with each layer's
@@ -139,6 +164,8 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
             p = sm_params[key]
             if conv_observer is not None:
                 conv_observer(sm.name, key, _deq(x, fp_dtype))
+            if conv_input_transform is not None and "kernel_q" not in p:
+                x = conv_input_transform(sm.name, key, _deq(x, fp_dtype))
             leaky = layer.get("activation") == "leaky"
             if "kernel_q" in p:
                 if not isinstance(x, L.QAct):
@@ -148,16 +175,25 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                 if not isinstance(x, L.QAct):
                     x = x.permute(0, 3, 1, 2)
             else:
-                x = L.conv2d(_deq(x, fp_dtype), p["kernel"], layer["stride"],
+                # s2d_phase layers (ops/s2d.py::s2d_stem_train) carry the
+                # ORIGINAL 3×3 kernels; the phase kernel is built in the graph
+                s2d = layer.get("s2d_phase")
+                kernel = (L.s2d_phase_kernel_conv0(p["kernel"]) if s2d == "conv0"
+                          else L.s2d_phase_kernel_conv1(p["kernel"]) if s2d == "conv1"
+                          else p["kernel"])
+                x = L.conv2d(_deq(x, fp_dtype), kernel, layer["stride"],
                              layer.get("pad", 1), explicit_pad=layer.get("explicit_pad"))
-                if "bn" in p:
-                    x, layer_state = L.batch_norm(x, p["bn"], sm_state[key], bn_train)
-                    if new_state is not None:
-                        new_state[key] = layer_state
-                elif "bias" in p:
-                    x = x + p["bias"].to(x.dtype).view(1, -1, 1, 1)
-                if leaky:
-                    x = L.leaky_relu(x)
+                tail = functools.partial(
+                    _conv_tail, p=p, bn_state=sm_state.get(key), bn_train=bn_train,
+                    phases=4 if s2d == "conv0" else 1, stats_subsample=bn_stats_subsample,
+                    leaky=leaky)
+                if remat_tail and "bn" in p:
+                    x, layer_state = torch.utils.checkpoint.checkpoint(
+                        tail, x, use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x, layer_state = tail(x)
+                if layer_state is not None and new_state is not None:
+                    new_state[key] = layer_state
         elif layer.kind == "shortcut":
             other = layer_outs[layer["from"]]
             qentry = sm_params.get(key)
@@ -197,7 +233,7 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
 
 def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
                 out_observer=None, train: bool = False, bn_frozen: tuple = (),
-                remat=False):
+                remat=False, conv_input_transform=None, bn_stats_subsample: int = 1):
     """Forward pass. ``images``: (B, H, W, 3) float tensor.
 
     Returns the list of head outputs ``(B, g, g, 3, 5+nc)`` in the order of
@@ -212,10 +248,17 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
     batch_norm_freeze_list). ``remat=True`` checkpoints each sub-model: its
     activations are recomputed in the backward pass instead of kept; the new
     BN state is the first forward's, the recomputation's is dropped.
+    ``remat="conv"`` keeps every convolution's output and recomputes what
+    follows it (BN, LeakyReLU) in the backward pass, one layer at a time: a
+    checkpoint around each conv's tail, whose input is the conv output. (A
+    selective-checkpoint policy over a whole sub-model recomputes the
+    sub-model at once; on an H100 at YOLOv3-416, B=16, it saved no memory.)
+    The statistics kernel (K5) runs its forward again in the recomputation.
+
+    ``conv_input_transform``: see ``_apply_sub_model`` (activation QAT).
+    ``bn_stats_subsample``: the stride of the spatial subsample training-mode
+    BatchNorm takes its statistics from (1: every pixel).
     """
-    if remat == "conv":
-        raise NotImplementedError("remat: conv (save only the conv outputs) is not ported "
-                                  "yet; use remat: true or false")
     x = images.permute(0, 3, 1, 2)
     produced = {}
     new_state = {}
@@ -231,10 +274,13 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
             sm_new_state = {}
             outs = _apply_sub_model(_sm, sm_params, sm_state, inputs, spec.nclasses,
                                     images.dtype, conv_observer, out_observer,
-                                    bn_train=_bn, new_state=sm_new_state)
+                                    bn_train=_bn, new_state=sm_new_state,
+                                    conv_input_transform=conv_input_transform,
+                                    bn_stats_subsample=bn_stats_subsample,
+                                    remat_tail=train and remat == "conv")
             return outs, sm_new_state
 
-        if remat and train:
+        if remat and remat != "conv" and train:
             outs, sm_new_state = torch.utils.checkpoint.checkpoint(
                 run, params[sm.name], state.get(sm.name, {}), inputs_entry,
                 use_reentrant=False, preserve_rng_state=False)

@@ -7,7 +7,9 @@ tf.image.resize's default bilinear and of ``jax.image.resize`` with
 ``antialias=False``. ``letterbox_resize`` — aspect-preserving resize +
 centre zero-pad, the scaled dims from ``data/image.py::letterbox_scaled_dims``
 (tf.image.resize's rounding), so the host and device paths place the
-content alike.
+content alike. ``resize_antialiased`` — ``jax.image.resize(…, "bilinear")``
+with its default ``antialias=True``: a downscale widens the triangle kernel
+by the scale factor (the trainer's multi-scale downscale on the device).
 
 Images are channels-last, (…, H, W, C) float, on any device: use these to
 resize on the card what was decoded on the host.
@@ -27,6 +29,15 @@ def resize_bilinear(img, out_h: int, out_w: int):
     x = img.reshape(-1, h, w, c).permute(0, 3, 1, 2)
     y = F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False,
                       antialias=False)
+    return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c)
+
+
+def resize_antialiased(img, out_h: int, out_w: int):
+    """(…, H, W, C) → (…, out_h, out_w, C); bilinear with antialiasing."""
+    lead, (h, w, c) = img.shape[:-3], img.shape[-3:]
+    x = img.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                      antialias=True)
     return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c)
 
 

@@ -12,8 +12,12 @@ Counterpart of the PTQ half of ``yolov3_tpu/ops/quantize.py``:
 
 The heads' final 1×1 convs stay in fp by default (``skip_final_convs``):
 box and score logits are precision-sensitive and those layers are a
-negligible share of the operations. The QAT half (fake quantization) belongs
-to the training slice of the port.
+negligible share of the operations.
+
+The QAT half (``fake_quant_kernel``, ``fake_quant_activation``,
+``fake_quant_weights``, ``make_activation_fake_quant``) puts the training
+forward on the same int8 lattice with straight-through gradients
+(``x + (q − x).detach()``), skipping the convs ``quantized_conv_skips`` names.
 """
 
 from __future__ import annotations
@@ -167,3 +171,73 @@ def quantize_params(spec, folded_params, act_absmax, skip_final_convs: bool = Tr
                     sm_q[key] = {"out_scale": _scale(out_absmax[tap], device)}
         qparams[sm.name] = sm_q
     return qparams
+
+
+# ---------------------------------------------------------------------------
+# Quantization-aware training (QAT): fake quantization, straight-through
+# ---------------------------------------------------------------------------
+
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def fake_quant_kernel(kernel):
+    """Straight-through-estimator fake-quant of one OIHW conv kernel.
+
+    Forward: snap to the per-output-channel symmetric int8 lattice, exactly
+    ``quantize_params``' weight scheme (absmax over (cin, kh, kw) / 127, round
+    half to even, clip ±127), in f32 with a true division. Backward: identity,
+    so the f32 master keeps training through the rounding. BN folding scales a
+    kernel's output channel by one factor, which scales its absmax alike: the
+    integers after folding are ± those before, so this trains against the
+    weight error the int8 serving tier realizes.
+
+    The scale is absmax · f32(1/127): XLA compiles the JAX package's
+    ``/ 127.0`` into that product, which can differ from the quotient by one
+    ulp and so move an integer."""
+    k32 = kernel.to(torch.float32)
+    w_scale = torch.clamp(k32.abs().amax(dim=(1, 2, 3), keepdim=True), min=1e-12) * _INV_127
+    q = torch.clamp(torch.round(k32 / w_scale), -127, 127) * w_scale
+    return kernel + (q.to(kernel.dtype) - kernel).detach()
+
+
+def fake_quant_activation(x):
+    """STE fake-quant of one activation on the serving int8 lattice: one
+    per-tensor scale, the batch's absmax / 127 (serving uses the calibrated
+    absmax; training adapts to the rounding), round half to even, clip ±127,
+    the scale math in f32 whatever ``x``'s dtype (absmax · f32(1/127), as
+    ``fake_quant_kernel``). Backward: identity."""
+    x32 = x.to(torch.float32)
+    scale = torch.clamp(x32.abs().amax(), min=1e-12) * _INV_127
+    q = torch.clamp(torch.round(x32 / scale), -127, 127) * scale
+    return x + (q.to(x.dtype) - x).detach()
+
+
+def make_activation_fake_quant(spec, skip_final_convs: bool = True, min_k2cin: int = 0):
+    """→ ``transform(sm_name, layer_key, x)`` for ``apply_model``'s
+    ``conv_input_transform``: fake-quants the input of every conv the int8
+    serving tier quantizes; the skipped convs' inputs pass through."""
+    skips = quantized_conv_skips(spec, skip_final_convs, min_k2cin)
+
+    def transform(sm_name, layer_key, x):
+        if (sm_name, layer_key) in skips:
+            return x
+        return fake_quant_activation(x)
+
+    return transform
+
+
+def fake_quant_weights(spec, params, skip_final_convs: bool = True, min_k2cin: int = 0):
+    """Fake-quant every conv kernel the int8 serving tier quantizes; the
+    skipped convs (``quantized_conv_skips``), BN parameters and biases are
+    passed through untouched."""
+    skips = quantized_conv_skips(spec, skip_final_convs, min_k2cin)
+    out = {}
+    for sm in spec.sub_models:
+        sm_p = {}
+        for key, entry in params[sm.name].items():
+            if (sm.name, key) in skips or "kernel" not in entry:
+                sm_p[key] = entry
+            else:
+                sm_p[key] = dict(entry, kernel=fake_quant_kernel(entry["kernel"]))
+        out[sm.name] = sm_p
+    return out

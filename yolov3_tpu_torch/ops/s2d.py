@@ -28,7 +28,8 @@ Applies only when the model's first two layers are int8-quantized convs
 matching the Darknet stem pattern (3×3 s1 then 3×3 s2); otherwise a no-op —
 yolov3-tiny's maxpool stem, fp models and mixed-precision configs that keep
 the stem in fp all pass through unchanged. The training-mode rewrite
-(``s2d_stem_train``) belongs to the training slice of the port.
+``s2d_stem_train`` is spec only: the fp forward builds the phase kernels
+from the original ones (``models/layers.py::s2d_phase_kernel_conv{0,1}``).
 
 Kernels here are the port's quantized layout, (cout, kh, kw, cin).
 """
@@ -176,3 +177,50 @@ def s2d_stem(spec: ModelSpec, params, image_size: int | None = None):
     new_params = dict(params)
     new_params[sm0.name] = {**sm_params, f"layer{i0}": new_p0, f"layer{i0 + 1}": new_p1}
     return new_spec, new_params
+
+
+def s2d_stem_train(spec: ModelSpec, image_size: int | None = None) -> ModelSpec:
+    """Training-mode stem rewrite: spec only, params untouched.
+
+    The geometry of ``s2d_stem`` applied to the fp training forward: the two
+    stem layers are tagged ``s2d_phase`` ("conv0", "conv1") and
+    ``models/network.py`` builds the phase kernels inside the differentiated
+    graph from the ORIGINAL 3×3 kernels (linear, so the gradients land on
+    the original params). conv0's BN reduces over the 4 spatial-phase channel
+    groups (``batch_norm(phases=4)``): the same per-channel statistics as the
+    un-rewritten layout. Params, optimizer state, checkpoints and L2 are the
+    same tree; init and checkpoint loading use the ORIGINAL spec, and only
+    the step functions take the rewritten one.
+
+    Requires BN on conv0 (a per-channel bias would not tile across phases).
+    No-op (returns ``spec``) when the pattern does not match: tiny's maxpool
+    stem, odd image sizes, custom models.
+    """
+    if image_size is not None and image_size % 2:
+        return spec
+    sm0 = spec.sub_models[0]
+    i0 = _find_stem(sm0)
+    if i0 is None:
+        return spec
+    l0, l1 = sm0.layers[i0], sm0.layers[i0 + 1]
+    if not l0.get("batch_normalize"):
+        return spec
+
+    new_l0 = _layer_with(l0, size=4, stride=2, filters=4 * l0["filters"],
+                         explicit_pad=((1, 2), (1, 2)), s2d_phase="conv0")
+    new_l1 = _layer_with(l1, size=2, stride=1, explicit_pad=((1, 0), (1, 0)),
+                         s2d_phase="conv1")
+    new_sm0 = SubModelSpec(
+        name=sm0.name,
+        layers=tuple(sm0.layers[:i0]) + (new_l0, new_l1) + tuple(sm0.layers[i0 + 2:]),
+        inputs=sm0.inputs,
+        outputs_layers=sm0.outputs_layers,
+        input_shape=sm0.input_shape,
+    )
+    return ModelSpec(
+        sub_models=(new_sm0,) + tuple(spec.sub_models[1:]),
+        output_stage=spec.output_stage,
+        decay_factor=spec.decay_factor,
+        grid_sizes=spec.grid_sizes,
+        nclasses=spec.nclasses,
+    )

@@ -29,7 +29,9 @@ import torch
 
 from ..models.network import apply_model, l2_regularization
 from ..ops.assign import assign_targets
+from ..ops.augment import apply_augment, draw_augment, step_generator
 from ..ops.loss import yolo_loss_terms
+from ..ops.quantize import fake_quant_weights, make_activation_fake_quant
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7
@@ -223,10 +225,23 @@ def ema_update(ema, new, decay, step, warmup: bool = True):
 
 
 def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, grid_sizes,
-                      batch_size, bn_frozen, train, compute_dtype=None, remat=False):
+                      batch_size, bn_frozen, train, compute_dtype=None, remat=False, qat=False,
+                      qat_min_k2cin=0, bn_stats_subsample=1):
     """→ ``(total, (new_bn_state, metrics))``; total = Σ terms / batch + L2
-    on the master weights, everything after the heads in f32."""
+    on the master weights, everything after the heads in f32.
+
+    ``qat``: 'weights' (or True) fake-quants the conv kernels, 'activations'
+    the conv inputs, 'full' both (``ops/quantize.py``), before the
+    mixed-precision cast, so the rounding happens in f32; L2 still reads the
+    masters."""
     y_true = assign_targets(labels, anchors_table, grid_sizes)
+    params_master = params
+    act_transform = None
+    if qat:
+        if qat in ("weights", "full", True):
+            params = fake_quant_weights(spec, params, min_k2cin=qat_min_k2cin)
+        if qat in ("full", "activations"):
+            act_transform = make_activation_fake_quant(spec, min_k2cin=qat_min_k2cin)
     if compute_dtype is not None:
         # mixed precision: the casts sit inside the differentiated graph, so
         # the gradients come back f32 at the f32 masters
@@ -236,13 +251,15 @@ def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, gri
         params_c = params
     if train:
         outputs, new_bn = apply_model(spec, params_c, bn_state, images, train=True,
-                                      bn_frozen=bn_frozen, remat=remat)
+                                      bn_frozen=bn_frozen, remat=remat,
+                                      conv_input_transform=act_transform,
+                                      bn_stats_subsample=bn_stats_subsample)
     else:
         outputs, new_bn = apply_model(spec, params_c, bn_state, images), bn_state
     terms = torch.stack([
         yolo_loss_terms(t, p, anchors_table[i], spec.nclasses) / batch_size
         for i, (t, p) in enumerate(zip(y_true, outputs))])  # (nscales, 4) [xy, wh, obj, class]
-    reg = l2_regularization(params, spec.decay_factor)
+    reg = l2_regularization(params_master, spec.decay_factor)
     total = torch.sum(terms) + reg
     metrics = {
         "total_loss": total,
@@ -255,7 +272,8 @@ def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, gri
 
 
 def loss_and_grads(spec, params, bn_state, images, labels, anchors_table, grid_sizes,
-                   batch_size, bn_frozen=(), compute_dtype=None, remat=False):
+                   batch_size, bn_frozen=(), compute_dtype=None, remat=False, qat=False,
+                   qat_min_k2cin=0, bn_stats_subsample=1):
     """One training forward and backward → ``(grads, new_bn_state, metrics)``:
     the gradient of the total loss w.r.t. every leaf of ``params`` (a tree
     like ``params``, f32 at the f32 masters), the BatchNorm state after this
@@ -264,23 +282,23 @@ def loss_and_grads(spec, params, bn_state, images, labels, anchors_table, grid_s
     total, (new_bn, metrics) = _loss_and_metrics(
         spec, tree_unflatten(params, leaves), bn_state, images, labels, anchors_table,
         tuple(int(g) for g in grid_sizes), batch_size, tuple(bn_frozen), True,
-        compute_dtype, remat)
+        compute_dtype, remat, qat, qat_min_k2cin, bn_stats_subsample)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
     return (tree_unflatten(params, grads), new_bn,
             tree_map(lambda m: m.detach(), metrics))
 
 
-def _deferred(**options):
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"{name}: not ported yet (a later slice of the port)")
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError("mesh: not ported yet (a later slice of the port)")
 
 
 def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Optimizer,
                     mesh=None, bn_frozen=(), trainable_mask=None, compute_dtype=None,
                     remat=False, augment=None, seed=0, accum_steps: int = 1, qat=False,
-                    qat_min_k2cin: int = 0, ema_decay=None, ema_warmup: bool = True):
+                    qat_min_k2cin: int = 0, ema_decay=None, ema_warmup: bool = True,
+                    bn_stats_subsample: int = 1):
     """Returns ``step(train_state, images, labels) → (train_state, metrics)``.
 
     ``images`` (B, H, W, 3) and ``labels`` (B, M, 6) are float tensors on the
@@ -289,14 +307,23 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     and the update (with Adam a zero gradient gives an exactly-zero update).
     ``compute_dtype`` (``torch.bfloat16``): forward and backward in that type
     against f32 master weights. ``remat``: see ``apply_model``.
+    ``augment``: None, or a dict of ``ops/augment.py::draw_augment`` options:
+    each step augments its batch on the device with draws keyed by
+    (``seed``, the state's step), before the microbatch split.
     ``accum_steps``: the batch splits strided (element i → microbatch
     i % accum), the BN state threads through the microbatches, gradients and
-    metrics are averaged. ``ema_decay``: keep ``train_state["ema"]``
-    (``init_train_state(ema=True)``). The metrics are detached tensors on the
-    device. ``mesh``, ``augment`` and ``qat`` belong to later slices of the
-    port and raise.
+    metrics are averaged. ``qat``: False | True/'weights' | 'activations' |
+    'full' (see ``_loss_and_metrics``), skipping the convs the int8 serving
+    tier skips at ``qat_min_k2cin``. ``ema_decay``: keep
+    ``train_state["ema"]`` (``init_train_state(ema=True)``).
+    ``bn_stats_subsample``: see ``layers.batch_norm``. The metrics are
+    detached tensors on the device. ``mesh`` belongs to a later slice of the
+    port and raises.
     """
-    _deferred(mesh=mesh is not None, augment=augment is not None, qat=qat)
+    _no_mesh(mesh)
+    aug_options = None if augment is None else dict(augment)
+    if aug_options is not None:
+        draw_augment(batch_size, step_generator(seed, 0), **aug_options)  # options checked now
     grid_sizes = tuple(int(g) for g in grid_sizes)
     bn_frozen = tuple(bn_frozen)
     if accum_steps > 1 and batch_size % accum_steps:
@@ -308,7 +335,8 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     def grads_of(params, bn_state, images, labels, anchors, divisor):
         grads, new_bn, metrics = loss_and_grads(
             spec, params, bn_state, images, labels, anchors, grid_sizes, divisor,
-            bn_frozen=bn_frozen, compute_dtype=compute_dtype, remat=remat)
+            bn_frozen=bn_frozen, compute_dtype=compute_dtype, remat=remat, qat=qat,
+            qat_min_k2cin=qat_min_k2cin, bn_stats_subsample=bn_stats_subsample)
         return tree_leaves(grads), new_bn, metrics
 
     anchors_np = np.asarray(anchors_table, np.float32)
@@ -316,6 +344,10 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     def step(train_state, images, labels):
         params = train_state["params"]
         anchors = torch.as_tensor(anchors_np, device=images.device)
+        if aug_options is not None:
+            draws = draw_augment(images.shape[0],
+                                 step_generator(seed, int(train_state["step"])), **aug_options)
+            images, labels = apply_augment(images, labels, draws)
         if accum_steps > 1:
             bn, grads, metrics = train_state["bn_state"], None, None
             for k in range(accum_steps):
@@ -348,7 +380,7 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
 def make_eval_step(spec, anchors_table, grid_sizes, batch_size, mesh=None, bn_frozen=()):
     """Validation loss step (no update): ``step(params, bn_state, images,
     labels) → metrics``."""
-    _deferred(mesh=mesh is not None)
+    _no_mesh(mesh)
     anchors_np = np.asarray(anchors_table, np.float32)
     grid_sizes = tuple(int(g) for g in grid_sizes)
 
