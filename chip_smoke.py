@@ -124,7 +124,24 @@ Phases (any failure exits non-zero):
      in fp32: ms a step, launches a step, K5's launches, peak memory
      (``remat`` false, true and conv among them); the port against itself
      on the CPU (augmentation's apply and gathered indices, QAT's integers)
-     and the stem_s2d step against the un-rewritten one on the card.
+     and the stem_s2d step against the un-rewritten one on the card;
+ 21. the model-file entry points (outputs under ``build/smoke_convert/``): a
+     synthetic Darknet ``yolov3.weights`` (YOLOv3-416, 80 classes, seeded,
+     BN running state off its init; 248,007,048 bytes, the published file's
+     size) converted on the card by ``cli convert`` (sanity check passed,
+     seconds of reading, moving to the card, the 416² forward, writing),
+     written back byte-identical from the ``.npz``, then served from the
+     converted checkpoint: fp32 heads card vs CPU within 1e-3 at B=4, and
+     ``int8_chain`` at B=16 with K1, K3, K4 and K6 counted over its serving
+     call;
+ 22. phase 15's fp32 checkpoint recalibrated by ``python -m
+     yolov3_tpu_torch.tools.bn_recalibrate`` at 416 over the shapes_toy
+     train split (2 batches of 16): on the card exactly 144 K5 forward
+     launches and none backward, then on the CPU; the state card vs CPU
+     within 1e-3 of each leaf's largest value (else both against a float64
+     referee), params byte-identical; the largest w/h logit of each head (on
+     the served images and on a train batch) and the served boxes'
+     finiteness before and after, printed as findings.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -2503,6 +2520,257 @@ def served_head_overflow(files, ckpt, images, compute_dtype):
                                               for h in batch_heads))
 
 
+# --- the model-file entry points: Darknet convert, then BN recalibration ---
+
+CONVERT_DIR = os.path.join(ROOT, "build", "smoke_convert")
+YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights (80 classes)
+
+
+def wh_logits(spec, params, state, images):
+    """Per head, the largest |w/h logit| of the folded forward on the card,
+    and whether every one is below exp's f32 limit."""
+    from yolov3_tpu_torch.models.network import apply_model, fold_batch_norm, to_device
+
+    with torch.inference_mode():
+        heads = apply_model(spec, to_device(fold_batch_norm(params, state), "cuda"), {},
+                            images.cuda())
+    return [dict(grid=h.shape[1], largest_abs_wh_logit=float(h[..., 2:4].abs().max()),
+                 below_exp_limit=bool((h[..., 2:4] <= EXP_F32_LIMIT).all())) for h in heads]
+
+
+def phase_convert(inference_app, bodies, nms_kernel, conv1x1, conv_int8, resblock, smi):
+    """Phase 21: a synthetic Darknet ``yolov3.weights`` (YOLOv3-416, 80
+    classes, seeded init with the BN running state moved off its init: the
+    published file's layout and size), converted on the card by ``cli
+    convert``, written back byte-identical, then served from the converted
+    checkpoint in fp32 (heads card vs CPU within 1e-3) and in ``int8_chain``
+    (K1, K3, K4 and K6 counted over that serving call)."""
+    import contextlib
+    import io
+
+    import yaml
+
+    from yolov3_tpu_torch.apps import cli
+    from yolov3_tpu_torch.config import read_class_names
+    from yolov3_tpu_torch.io.darknet import save_darknet_weights
+    from yolov3_tpu_torch.io.resolve import load_weights
+    from yolov3_tpu_torch.models import fold_batch_norm, init_model, parse_model_config
+    from yolov3_tpu_torch.models.network import apply_model, to_device
+    from yolov3_tpu_torch.tree import tree_map
+
+    os.makedirs(CONVERT_DIR, exist_ok=True)
+    model = os.path.join(ROOT, "config/models/yolov3/model.yaml")
+    names = os.path.join(ROOT, "datasets/coco2012/coco.names")
+    anchors = os.path.join(ROOT, "datasets/coco2012/anchors.txt")
+    spec = parse_model_config(model, len(read_class_names(names)))
+    params, state = init_model(spec, torch.Generator().manual_seed(0))
+    state = tree_map(lambda v: v + 0.25, state)
+    weights = os.path.join(CONVERT_DIR, "yolov3.weights")
+    save_darknet_weights(spec, params, state, weights)
+    size = os.path.getsize(weights)
+    if size != YOLOV3_WEIGHTS_BYTES:
+        raise AssertionError(f"the synthetic yolov3.weights has {size} bytes, "
+                             f"expected {YOLOV3_WEIGHTS_BYTES}")
+    del params, state
+
+    ckpt = os.path.join(CONVERT_DIR, "yolov3_converted.tf")
+    config = os.path.join(CONVERT_DIR, "convert_config.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(dict(num_classes=80, weights_file=weights, output_weights_file=ckpt,
+                            model_config_file=model), f)
+    handler = _LogLines()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    out = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(["convert", "--config", config])
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    convert_s = time.monotonic() - t0
+    parts = [ln for ln in handler.lines if ln.startswith("convert seconds:")]
+    if "sanity check passed" not in out.getvalue():
+        raise AssertionError(f"convert: no sanity check passed in {out.getvalue()!r}")
+
+    params, state = load_weights(spec, *init_model(spec, torch.Generator().manual_seed(1)), ckpt)
+    again = os.path.join(CONVERT_DIR, "yolov3_again.weights")
+    save_darknet_weights(spec, params, state, again)
+    with open(weights, "rb") as a, open(again, "rb") as b:
+        round_trip = a.read() == b.read()
+
+    # fp32 heads, card against CPU, on the same B=4 batch
+    folded = fold_batch_norm(params, state)
+    four = torch.from_numpy(smoke_images(bodies, 4))
+    with torch.inference_mode():
+        on_cpu = apply_model(spec, folded, {}, four)
+        on_card = apply_model(spec, to_device(folded, "cuda"), {}, four.cuda())
+    head_err = max(max_abs(g.cpu(), c) for g, c in zip(on_card, on_cpu))
+    head_scale = max(float(c.abs().max()) for c in on_cpu)
+    finite = all(bool(torch.isfinite(h).all()) for h in on_card)
+    del folded, on_cpu, on_card, params, state
+
+    batch = smoke_images(bodies, 16)
+    wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant,
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
+    served, counts = {}, {}
+    for tier, quantize in (("fp32", None), ("int8_chain", "int8_chain")):
+        predictor, _, _ = inference_app.build_serving_predictor(
+            model, names, anchors, ckpt, 416, nms_score_threshold=0.1, quantize=quantize,
+            calibration_images_dir=CALIBRATION_DIR if quantize else None)
+        predictor(batch)  # warm-up
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t1 = time.monotonic()
+        boxes, _, scores, selected, num_valid = predictor(batch)
+        torch.cuda.synchronize()
+        served[tier] = dict(seconds=time.monotonic() - t1, detections=int(num_valid.sum()),
+                            shape=list(selected.shape),
+                            boxes_finite=bool(torch.isfinite(boxes).all()),
+                            scores_finite=bool(torch.isfinite(scores).all()))
+        counts[tier] = {k: w.launches for k, w in wrappers.items()}
+        del predictor
+    torch.cuda.empty_cache()
+
+    row = dict(card=smi, weights_bytes=size, convert_call_seconds=convert_s,
+               convert_parts=parts, byte_identical_round_trip=round_trip,
+               fp32_heads_card_vs_cpu_max_abs_err=head_err, fp32_heads_max_abs=head_scale,
+               fp32_heads_finite=finite, served=served, launches=counts)
+    log(f"convert YOLOv3-416 {json.dumps(row)}")
+    chain = counts["int8_chain"]
+    if not (round_trip and finite and head_err <= 1e-3 and len(parts) == 1
+            and min(chain.values()) > 0
+            and all(s["shape"] == [16, 100] and s["scores_finite"] for s in served.values())):
+        raise AssertionError(f"convert and serve failed its checks: {row}")
+    return row, chain
+
+
+def recalibrated_state_64(spec, params, state, batches, momentum):
+    """The recalibration in float64 on the CPU, BatchNorm moments by plain
+    float64 ops (no kernel, no f32 sums): the referee of phase 22."""
+    from yolov3_tpu_torch.models import layers
+    from yolov3_tpu_torch.models.network import apply_model, to_device
+    from yolov3_tpu_torch.tree import tree_map
+
+    def moments64(x):
+        mean = x.mean(dim=(0, 2, 3))
+        return mean, torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+
+    p, s = to_device(params, "cpu", torch.float64), to_device(state, "cpu", torch.float64)
+    kernel_moments, layers.bn_moments = layers.bn_moments, moments64
+    try:
+        acc = None
+        with torch.no_grad():
+            for images in batches:
+                _, new = apply_model(spec, p, s, torch.from_numpy(images).double(), train=True)
+                stat = tree_map(lambda n, o: (n - momentum * o) / (1.0 - momentum), new, s)
+                acc = stat if acc is None else tree_map(torch.add, acc, stat)
+    finally:
+        layers.bn_moments = kernel_moments
+    return tree_map(lambda a: a / len(batches), acc)
+
+
+def phase_recalibrate(inference_app, bn_stats, bodies, smi):
+    """Phase 22: phase 15's fp32 checkpoint recalibrated through
+    ``python -m yolov3_tpu_torch.tools.bn_recalibrate`` at 416 over the
+    shapes_toy train split (2 batches of 16) on the card, K5 counted (72
+    forward launches a batch, none backward), then on the CPU: the state card
+    against CPU within 1e-3 of each leaf's largest |value| (else each held
+    against a float64 referee, all three printed), the params byte-identical
+    to the input's; then, as findings, the w/h logits and served boxes before
+    and after."""
+    from yolov3_tpu_torch.config import read_class_names
+    from yolov3_tpu_torch.io.checkpoint import _flatten, load_checkpoint
+    from yolov3_tpu_torch.io.resolve import load_weights
+    from yolov3_tpu_torch.models import init_model, parse_model_config
+    from yolov3_tpu_torch.models.layers import BN_MOMENTUM
+    from yolov3_tpu_torch.tools import bn_recalibrate
+
+    files = toy_training_files()
+    ckpt = os.path.join(ROOT, "build", "smoke_train", "fp32", "yolov3_toy.tf")
+    data_root = os.path.join(ROOT, "datasets", "shapes_toy")
+    outs, seconds = {}, {}
+    cwd = os.getcwd()
+    try:
+        for dev in ("cuda", "cpu"):
+            outs[dev] = os.path.join(CONVERT_DIR, f"yolov3_toy_recal_{dev}.tf")
+            bn_stats.bn_sums.launches = bn_stats.bn_moments_dx.launches = 0
+            t0 = time.monotonic()
+            bn_recalibrate.main(["--ckpt", ckpt, "--model_config", files["model"],
+                                 "--data_root", data_root, "--split", "train",
+                                 "--image_size", "416", "--batches", "2", "--batch_size", "16",
+                                 "--out", outs[dev], "--device", dev])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = [bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches]
+            seconds[dev] = time.monotonic() - t0
+    finally:
+        os.chdir(cwd)
+
+    flat = {k: _flatten(load_checkpoint(p + ".npz")[0]) for k, p in
+            (("input", ckpt), ("cuda", outs["cuda"]), ("cpu", outs["cpu"]))}
+    params_identical = all(flat[d][k].tobytes() == v.tobytes()
+                           for d in ("cuda", "cpu") for k, v in flat["input"].items()
+                           if k.startswith("params/"))
+    state_keys = sorted(k for k in flat["input"] if k.startswith("bn_state/"))
+
+    def rel_errs(a, b):  # per leaf: max |a − b| over the leaf's largest |b|
+        return sorted(((float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                        / max(float(np.abs(b[k]).max()), 1e-30), k) for k in state_keys),
+                      reverse=True)
+
+    card_cpu = rel_errs(flat["cuda"], flat["cpu"])
+    moved = max(float(np.abs(flat["cuda"][k] - flat["input"][k]).max()) for k in state_keys)
+    row = dict(card=smi, seconds=seconds, k5_launches_forward_backward=launches,
+               params_byte_identical=params_identical, state_leaves=len(state_keys),
+               state_largest_move=moved,
+               state_card_vs_cpu=dict(worst=card_cpu[0][0], worst_leaf=card_cpu[0][1],
+                                      median=card_cpu[len(card_cpu) // 2][0]))
+    agree = card_cpu[0][0] <= 1e-3
+    spec = parse_model_config(files["model"], len(read_class_names(files["names"])))
+    if not agree:
+        params, state = load_weights(spec, *init_model(spec, torch.Generator().manual_seed(0)),
+                                     ckpt)
+        batches = list(bn_recalibrate.tfrecord_batches(data_root, "train", 416, 16, 2))
+        ref = _flatten({"bn_state": recalibrated_state_64(spec, params, state, batches,
+                                                          BN_MOMENTUM)})
+        card64, cpu64 = rel_errs(flat["cuda"], ref), rel_errs(flat["cpu"], ref)
+        row["state_vs_float64"] = dict(card_worst=card64[0][0], cpu_worst=cpu64[0][0],
+                                       card_median=card64[len(card64) // 2][0],
+                                       cpu_median=cpu64[len(cpu64) // 2][0],
+                                       card_worst_leaf=card64[0][1], cpu_worst_leaf=cpu64[0][1])
+        agree = card64[0][0] <= max(2 * cpu64[0][0], 1e-3)
+
+    # the finding: w/h logits and served boxes before and after, on phase
+    # 15's served images and on the first batch the statistics came from
+    images = torch.from_numpy(smoke_images(bodies, 16))
+    train_batch = torch.from_numpy(next(bn_recalibrate.tfrecord_batches(data_root, "train",
+                                                                         416, 16, 1)))
+    for tag, path in (("before", ckpt), ("after", outs["cuda"])):
+        params, state = load_weights(spec, *init_model(spec, torch.Generator().manual_seed(0)),
+                                     path)
+        predictor, _, _ = inference_app.build_serving_predictor(
+            files["model"], files["names"], files["anchors"], path, 416,
+            nms_score_threshold=0.1)
+        boxes, _, scores, _, num_valid = predictor(images.numpy())
+        torch.cuda.synchronize()
+        row[tag] = dict(heads=wh_logits(spec, params, state, images),
+                        heads_on_train_batch=wh_logits(spec, params, state, train_batch),
+                        served_boxes_finite=bool(torch.isfinite(boxes).all()),
+                        served_scores_finite=bool(torch.isfinite(scores).all()),
+                        served_detections=int(num_valid.sum()))
+        del predictor
+    log(f"recalibrate phase 15 YOLOv3-416 {json.dumps(row)}")
+    if not (agree and params_identical and launches == [144, 0] and moved > 0):
+        raise AssertionError(f"recalibration failed its checks: {row}")
+    return row, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -2607,6 +2875,19 @@ def main() -> int:
     launches["bn_stats"] += extras_launches[0]
     k5_launches[1] += extras_launches[1]
 
+    # the model-file entry points: a Darknet file converted and served (K1,
+    # K3, K4 and K6 counted over the int8_chain serving call), then phase
+    # 15's checkpoint recalibrated (K5 counted over the card's run)
+    torch.cuda.empty_cache()
+    convert_row, convert_launches = timed("convert", phase_convert, inference_app, bodies,
+                                          nms_kernel, conv1x1, conv_int8, resblock, smi)
+    for name, count in convert_launches.items():
+        launches[name] += count
+    recal_row, recal_launches = timed("recalibrate", phase_recalibrate, inference_app,
+                                      bn_stats, bodies, smi)
+    launches["bn_stats"] += recal_launches[0]
+    k5_launches[1] += recal_launches[1]
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -2651,7 +2932,8 @@ def main() -> int:
                     "train_step_vs_cpu": train_step_row, "train": train_rows,
                     "eval_tiny": eval_rows, "eval_yolov3": full_rows, "int8_gate": gate_row,
                     "inference": infer_row, "offline_launches": offline,
-                    "train_extras": extras, "card": smi}))
+                    "train_extras": extras, "convert": convert_row,
+                    "recalibrate": recal_row, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

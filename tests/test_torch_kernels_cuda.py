@@ -590,3 +590,67 @@ def test_cuda_image_ops_equal_cpu(cuda_device, shape, out):
         got, want = fn(x.to(cuda_device), *out).cpu(), fn(x, *out)
         assert got.shape == want.shape
         assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbatches", [1, 2])
+def test_cuda_bn_recalibration_runs_k5(cuda_device, monkeypatch, nbatches):
+    """BatchNorm recalibration (tools/bn_recalibrate.py) on the card, YOLOv3-tiny
+    at 96 px, seeded weights: one K5 forward launch for each BN layer and
+    batch, none backward; the recalibrated statistics bit-equal to K5's
+    moments of the activations each BN layer received, through the state
+    update of ``layers.batch_norm`` and the tool's algebra (nothing else
+    computes them); and K5's moments of those activations, and its plain
+    version's, against float64 per channel: mean within ``SUM_RTOL`` of E|x|,
+    var within ``3 · SUM_RTOL`` of E[x²] (K5's sums are taken in another order
+    than the plain version's, so the two are not bit-equal: the kernel's
+    stated tolerance)."""
+    import os
+
+    from yolov3_tpu_torch.models import init_model, layers, parse_model_config
+    from yolov3_tpu_torch.tools.bn_recalibrate import recalibrate
+    from yolov3_tpu_torch.tree import tree_leaves
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = parse_model_config(os.path.join(repo, "config/models/yolov3_tiny/model.yaml"), 3)
+    params, state = init_model(spec, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(5)
+    batches = [rng.rand(4, 96, 96, 3).astype(np.float32) for _ in range(nbatches)]
+    bn_layers = [(sm.name, f"layer{i}") for sm in spec.sub_models
+                 for i, layer in enumerate(sm.layers)
+                 if layer.kind == "convolutional" and layer["batch_normalize"]]
+    seen = []  # (activation, K5's mean, K5's var) of every call, in order
+
+    def recording(x):
+        mean, var = bn_stats.bn_moments(x)
+        seen.append((x.detach().clone(), mean.clone(), var.clone()))
+        return mean, var
+
+    monkeypatch.setattr(layers, "bn_moments", recording)
+    fwd, bwd = bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches
+    got, n = recalibrate(spec, params, state, batches, 0.99, device="cuda")
+    assert n == nbatches and len(seen) == len(bn_layers) * nbatches
+    assert bn_stats.bn_sums.launches - fwd == len(bn_layers) * nbatches
+    assert bn_stats.bn_moments_dx.launches == bwd
+
+    m = 0.99
+    for j, (sm, key) in enumerate(bn_layers):
+        old = {k: v.to(cuda_device) for k, v in state[sm][key].items()}
+        acc = {}
+        for b in range(nbatches):
+            x, mean, var = seen[b * len(bn_layers) + j]
+            for name, stat in (("mean", mean), ("var", var)):
+                new = m * old[name] + (1.0 - m) * stat
+                batch_stat = (new - m * old[name]) / (1.0 - m)
+                acc[name] = batch_stat if name not in acc else acc[name] + batch_stat
+            xf = x.double()
+            mean64 = xf.mean(dim=(0, 2, 3))
+            var64 = (xf * xf).mean(dim=(0, 2, 3)) - mean64 * mean64
+            mean_tol = bn_stats.SUM_RTOL * xf.abs().mean(dim=(0, 2, 3))
+            var_tol = 3 * bn_stats.SUM_RTOL * (xf * xf).mean(dim=(0, 2, 3))
+            for mu, v in ((mean, var), bn_stats.bn_moments_plain(x)):
+                assert bool(((mu.double() - mean64).abs() <= mean_tol).all())
+                assert bool(((v.double() - var64).abs() <= var_tol).all())
+        for name in ("mean", "var"):
+            assert torch.equal(got[sm][key][name], (acc[name] / nbatches).cpu()), (sm, key, name)
+    assert all(t.device.type == "cpu" for t in tree_leaves(got))

@@ -175,7 +175,11 @@ def test_port_imports_no_jax():
             "yolov3_tpu_torch.eval.plots, yolov3_tpu_torch.ops.image, "
             "yolov3_tpu_torch.ops.detect, yolov3_tpu_torch.utils.render, "
             "yolov3_tpu_torch.client, yolov3_tpu_torch.exceptions, "
-            "yolov3_tpu_torch.tools.int8_accuracy_gate; "
+            "yolov3_tpu_torch.tools.int8_accuracy_gate, yolov3_tpu_torch.io.darknet, "
+            "yolov3_tpu_torch.apps.convert_app, yolov3_tpu_torch.export, "
+            "yolov3_tpu_torch.export.tfjs_graph, yolov3_tpu_torch.tools.bn_recalibrate, "
+            "yolov3_tpu_torch.tools.average_checkpoints, "
+            "yolov3_tpu_torch.tools.convert_tf_checkpoint, yolov3_tpu_torch.tools.export_tfjs; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'yolov3_tpu' or m.startswith('yolov3_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,10 +1,12 @@
 """Command line of the port: ``python -m yolov3_tpu_torch.apps.cli <command> …``
-with the commands ``serve``, ``train``, ``evaluate`` and ``inference``.
+with the commands ``serve``, ``train``, ``evaluate``, ``inference`` and
+``convert``.
 
-``serve_main`` / ``train_main`` / ``evaluate_main`` / ``inference_main`` take
-the same arguments without the subcommand. The config files are the JAX
-package's ``serve_config.yaml``, ``train_config.yaml``,
-``evaluate_config.yaml`` and ``detect_config.yaml`` schemas; ``--device cpu``
+``serve_main`` / ``train_main`` / ``evaluate_main`` / ``inference_main`` /
+``convert_main`` take the same arguments without the subcommand. The config
+files are the JAX package's ``serve_config.yaml``, ``train_config.yaml``,
+``evaluate_config.yaml``, ``detect_config.yaml`` and
+``utilities/convert_config.yaml`` schemas; ``--device cpu``
 runs the plain PyTorch path on the CPU instead of the card.
 """
 
@@ -33,6 +35,12 @@ def _train_args(parser: argparse.ArgumentParser):
 
 def _inference_args(parser: argparse.ArgumentParser):
     parser.add_argument("--config", type=str, default="config/detect_config.yaml",
+                        help="yaml config file")
+    _device_arg(parser)
+
+
+def _convert_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--config", type=str, default="utilities/convert_config.yaml",
                         help="yaml config file")
     _device_arg(parser)
 
@@ -87,11 +95,19 @@ def _evaluate(args):
              coco_map=args.coco_map, device=args.device)
 
 
+def _convert(args):
+    from .convert_app import convert
+
+    logging.basicConfig(level=logging.INFO)
+    convert(_config(args))
+
+
 COMMANDS = {
     "serve": (_serve_args, _serve, "online batching detection endpoint"),
     "train": (_train_args, _train, "train on a dataset config"),
     "evaluate": (_evaluate_args, _evaluate, "score-threshold sweep: recall, precision, mAP"),
     "inference": (_inference_args, _inference, "batch inference: detect.txt + images"),
+    "convert": (_convert_args, _convert, "Darknet .weights -> native .npz checkpoint"),
 }
 
 
@@ -116,6 +132,10 @@ def evaluate_main(argv=None) -> None:
 
 def inference_main(argv=None) -> None:
     _run("inference", argv)
+
+
+def convert_main(argv=None) -> None:
+    _run("convert", argv)
 
 
 def main(argv=None) -> None:

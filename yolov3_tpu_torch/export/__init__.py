@@ -1,0 +1,10 @@
+"""Export backends of the port: the browser (TFJS) graph-model."""
+
+from .tfjs_graph import (  # noqa: F401
+    TFJS_SUPPORTED_OPS,
+    build_tf_graph,
+    quantize_weight,
+    read_graph_model,
+    run_graph_model,
+    write_graph_model,
+)

@@ -1,6 +1,7 @@
-"""Native ``.npz`` checkpoints in the JAX package's key layout, numpy only.
+"""Native ``.npz`` checkpoints in the JAX package's key layout, numpy only,
+and the legacy Keras TF-format checkpoint reader.
 
-Counterpart of ``yolov3_tpu/io/checkpoint.py`` (native format only): one
+Counterpart of ``yolov3_tpu/io/checkpoint.py`` (no Orbax interop): one
 ``.npz`` of flattened tree leaves keyed by '/'-joined paths plus a JSON
 manifest, written atomically. The trees here are JAX-layout numpy trees
 (HWIO kernels); ``models/convert.py`` turns them into the port's tensors,
@@ -8,10 +9,19 @@ so one file serves both packages. ``save_train_state`` / ``load_train_state``
 do that for a whole train state (params, BN state, optimizer moments, step,
 EMA): the file they write is the JAX package's ``.train_state.npz``, its
 optimizer state flattened by position, and either package resumes the other's.
+
+Legacy reader: maps a Keras ``save_weights`` TF-format checkpoint (the
+reference's output, e.g. ``checkpoints/...yolov3_train.tf``) onto the port's
+(params, state) trees. Keras object paths follow creation order —
+``layer_with_weights-<i>`` = i-th weighted sub-model in config order, nested
+``layer_with_weights-<j>`` = j-th weighted layer (conv / BN) within it — so
+the mapping is reconstructed from the ModelSpec. Reading the bundle needs
+TensorFlow (checked, not imported, until a checkpoint is read).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import tempfile
@@ -119,3 +129,85 @@ def load_train_state(path: str, like, optimizer, device="cpu"):
 
     tree, step = load_checkpoint(path, like=train_state_to_jax(like, optimizer))
     return train_state_from_jax(tree, optimizer, device), step
+
+
+# ---------------------------------------------------------------------------
+# Legacy Keras TF-format checkpoint reader
+# ---------------------------------------------------------------------------
+
+
+def _weighted_layer_paths(spec):
+    """Keras object-graph paths for every weight, in spec order.
+
+    Returns list of (keras_path, kind, sm_name, layer_key, leaf) where kind ∈
+    {kernel, bias, gamma, beta, moving_mean, moving_variance}.
+    """
+    entries = []
+    sm_widx = 0  # Keras numbers only sub-models that HOLD weights — a
+    # conv-free sub-model (route/upsample-only) is skipped in its
+    # layer_with_weights numbering, so track the weighted index separately
+    for sm in spec.sub_models:
+        if not any(layer.kind == "convolutional" for layer in sm.layers):
+            continue
+        sm_idx = sm_widx
+        sm_widx += 1
+        wl = 0  # layer_with_weights index within the sub-model
+        for i, layer in enumerate(sm.layers):
+            if layer.kind != "convolutional":
+                continue
+            base = f"layer_with_weights-{sm_idx}/layer_with_weights-{wl}"
+            entries.append((f"{base}/kernel", "kernel", sm.name, f"layer{i}", "kernel"))
+            if layer["batch_normalize"]:
+                wl += 1
+                bnbase = f"layer_with_weights-{sm_idx}/layer_with_weights-{wl}"
+                entries.append((f"{bnbase}/gamma", "gamma", sm.name, f"layer{i}", "gamma"))
+                entries.append((f"{bnbase}/beta", "beta", sm.name, f"layer{i}", "beta"))
+                entries.append((f"{bnbase}/moving_mean", "moving_mean", sm.name, f"layer{i}",
+                                "mean"))
+                entries.append((f"{bnbase}/moving_variance", "moving_variance", sm.name,
+                                f"layer{i}", "var"))
+            else:
+                entries.append((f"{base}/bias", "bias", sm.name, f"layer{i}", "bias"))
+            wl += 1
+    return entries
+
+
+def load_tf_keras_checkpoint(spec, params, state, prefix: str):
+    """Restore a Keras save_weights (TF format) checkpoint into the port's
+    (params, state) trees, in place → ``(params, state, loaded)``. HWIO
+    kernels become OIHW tensors; every value keeps its bits.
+
+    Partial restores are tolerated (expect_partial semantics — reference
+    inference.py:102): missing variables are left at their current values.
+    Raises ``ImportError`` where TensorFlow is not installed.
+    """
+    import torch
+
+    from ..models.convert import _kernel_to_torch
+
+    if importlib.util.find_spec("tensorflow") is None:
+        raise ImportError(
+            "Reading legacy Keras TF-format checkpoints requires tensorflow; convert the "
+            "checkpoint once with python -m yolov3_tpu_torch.tools.convert_tf_checkpoint "
+            "where tensorflow is installed")
+    from tensorflow.python.training import py_checkpoint_reader
+
+    reader = py_checkpoint_reader.NewCheckpointReader(prefix)
+    var_map = reader.get_variable_to_shape_map()
+    suffix = "/.ATTRIBUTES/VARIABLE_VALUE"
+    loaded = 0
+    for keras_path, kind, sm_name, layer_key, leaf in _weighted_layer_paths(spec):
+        full = keras_path + suffix
+        if full not in var_map:
+            continue
+        value = reader.get_tensor(full)
+        if kind == "kernel":
+            params[sm_name][layer_key]["kernel"] = _kernel_to_torch(value)
+        elif kind == "bias":
+            params[sm_name][layer_key]["bias"] = torch.from_numpy(np.array(value))
+        elif kind in ("gamma", "beta"):
+            params[sm_name][layer_key]["bn"][kind] = torch.from_numpy(np.array(value))
+        else:
+            state[sm_name][layer_key][leaf] = torch.from_numpy(np.array(value, np.float32))
+        loaded += 1
+    return params, state, loaded

@@ -1,10 +1,13 @@
 """Checkpoint path resolution for the port's trees.
 
-Counterpart of ``yolov3_tpu/io/resolve.py``. Loading tries the exact path,
-then ``path + '.npz'``, as a native checkpoint. The reference's Keras
-TF-format prefixes (``path + '.index'``) need TensorFlow's bundle reader
-and are not carried by this slice of the port. Saving always writes the
-native format in the JAX key layout, so the JAX package reads it too.
+Counterpart of ``yolov3_tpu/io/resolve.py``. The reference configs point at
+TF-checkpoint prefixes like ``checkpoints/output/yolov3_train_tiny.tf``
+(train_config.yaml:60); loading tries, in order:
+  1. the exact path / path + '.npz' as a native checkpoint;
+  2. path + '.index' as a Keras save_weights TF-format checkpoint
+     (``checkpoint.load_tf_keras_checkpoint``; needs TensorFlow).
+Saving always writes the native format in the JAX key layout (path + '.npz'
+unless the path already ends in .npz), so the JAX package reads it too.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import os
 
 from ..models.convert import params_from_jax, params_to_jax
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import load_checkpoint, load_tf_keras_checkpoint, save_checkpoint
 
 
 def native_path(path: str) -> str:
@@ -34,8 +37,8 @@ def load_weights(spec, params, state, path: str):
                                       partial=True)
             return params_from_jax(tree["params"], tree["bn_state"])
     if os.path.exists(path + ".index"):
-        raise NotImplementedError(
-            f"{path}: Keras TF-format checkpoints are read by a later slice of "
-            "the port (io + tools); convert to .npz with the JAX package's "
-            "tools/convert_tf_checkpoint.py")
-    raise FileNotFoundError(f"no checkpoint found at {path}(.npz)")
+        params, state, loaded = load_tf_keras_checkpoint(spec, params, state, path)
+        if loaded == 0:
+            raise ValueError(f"TF checkpoint {path} matched no variables")
+        return params, state
+    raise FileNotFoundError(f"no checkpoint found at {path}(.npz/.index)")
