@@ -141,7 +141,19 @@ Phases (any failure exits non-zero):
      within 1e-3 of each leaf's largest value (else both against a float64
      referee), params byte-identical; the largest w/h logit of each head (on
      the served images and on a train batch) and the served boxes'
-     finiteness before and after, printed as findings.
+     finiteness before and after, printed as findings;
+ 23. the serving artifact (outputs under ``build/smoke_artifact/``): the
+     seeded YOLOv3-416 in ``fp32`` and ``int8_chain`` exported for ``cuda``
+     (``export/aot.py``: export and save seconds, MB, the ``yolov3_torch`` op
+     nodes), loaded in a process of its own and run at B = 1, 4 and 16
+     against the eager predictor (``int8_chain`` bit-equal; fp32
+     index-exact, boxes 1e-5, or a near-tie witness), the exported predictor
+     bit-equal to its copy from before the export, one loaded B=16 call's
+     launches (``int8_chain``: K1 1, K3 11, K4 23, K6 15; fp32: K1 1, added to
+     the ``kernels`` line), eager against loaded at B=16 in turns (event-loop
+     and device-busy ms), the host's µs a call of the K1 and K3 ops against
+     their direct ctypes launch, and ``int8_chain`` served from its model keys
+     and from its artifact (``Serve``'s ``artifact:`` key) in turns.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -170,10 +182,20 @@ IOU_THR = 0.5
 # serving: closed-loop clients, a warm-up then a measured window per tier
 SERVE_CLIENTS = 48
 SERVE_WARM_S = 3.0
-SERVE_WINDOW_S = {"fp32": 10.0, "bf16": 10.0, "int8": 10.0}
+SERVE_WINDOW_S = {"fp32": 10.0, "bf16": 10.0, "int8": 10.0,
+                  # phase 23: the int8_chain tier from its model keys and from its artifact
+                  "int8_chain": 4.0, "artifact int8_chain": 4.0}
 # an image may differ end to end between card and CPU only where a
 # decision of greedy NMS sits within this margin of flipping
 NEAR_TIE = 1e-5
+
+
+def fp32_settings():
+    """fp32 as the CPU computes it: no TF32 in cuDNN's convolutions or in
+    matmuls (phase 1; phase 23's process of its own sets them too)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def log(msg):
@@ -339,8 +361,18 @@ def encoded_requests():
 
 
 def serve_tier(tier, inference_app, serve_app, bodies):
+    predictor, app, setup_s = tier_app(tier, inference_app, serve_app)
+    try:
+        row = closed_loop(app, tier, bodies, setup_s)
+    finally:
+        app.shutdown()
+    return predictor, row
+
+
+def tier_app(tier, inference_app, serve_app):
+    """The seeded YOLOv3-416 (80 COCO classes) of one tier behind a warmed-up
+    ``DetectionApp`` with buckets [1, 4, 16] → (predictor, app, seconds)."""
     model_dir = os.path.join(ROOT, "config/models/yolov3")
-    window_s = SERVE_WINDOW_S[tier]
     tier_keys = (dict(quantize=tier, calibration_images_dir=CALIBRATION_DIR)
                  if tier.startswith("int8") else dict(compute_precision=tier))
     t0 = time.monotonic()
@@ -354,59 +386,62 @@ def serve_tier(tier, inference_app, serve_app, bodies):
         raise AssertionError(f"expected the 80 COCO classes, got {len(names)}")
     app = serve_app.DetectionApp(predictor, names, 416, batch_buckets=(1, 4, 16),
                                  batch_timeout_ms=5)
-    try:
-        app.batcher.warmup((416, 416))
-        torch.cuda.synchronize()
-        setup_s = time.monotonic() - t0
-        # closed loop: each client sends its next request when the last one
-        # returns; enough clients to keep the 16 bucket fillable
-        latencies, finished, errors, detections = [], [], [], []
-        t1 = time.monotonic()
-        t_warm, t_end = t1 + SERVE_WARM_S, t1 + SERVE_WARM_S + window_s
+    app.batcher.warmup((416, 416))
+    torch.cuda.synchronize()
+    return predictor, app, time.monotonic() - t0
 
-        def client(t):
-            i = t
-            while time.monotonic() < t_end:
-                start = time.monotonic()
-                try:
-                    r = app.detect(bodies[i % len(bodies)])
-                except Exception as exc:  # reported below, fails the phase
-                    errors.append(repr(exc))
-                    return
-                end = time.monotonic()
-                for d in r["detections"]:
-                    if not all(np.isfinite(d["box_normalized"])) or not 0 <= d["score"] <= 1:
-                        errors.append(f"malformed detection {d}")
-                if t_warm <= end <= t_end:
-                    finished.append(end)
-                    detections.append(len(r["detections"]))
-                    if start >= t_warm:
-                        latencies.append((end - start) * 1e3)
-                i += SERVE_CLIENTS
 
-        threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
-        for t in threads:
-            t.start()
-        time.sleep(max(0.0, t_warm - time.monotonic()))
-        hist0 = app.stats.snapshot()["batch_histogram"]
-        for t in threads:
-            t.join(600)
-        if errors or any(t.is_alive() for t in threads) or len(latencies) < 100:
-            raise AssertionError(f"{tier}: {len(latencies)} requests in the window, "
-                                 f"failures {errors[:3]}")
-        hist = {k: v - hist0.get(k, 0)
-                for k, v in app.stats.snapshot()["batch_histogram"].items()}
-        p50, p99 = np.percentile(latencies, [50, 99])
-        row = dict(tier=tier, client_threads=SERVE_CLIENTS, window_s=window_s,
-                   setup_s=setup_s, requests_in_window=len(finished),
-                   images_per_s=len(finished) / window_s,
-                   latency_samples=len(latencies), p50_ms=float(p50), p99_ms=float(p99),
-                   batch_histogram={k: v for k, v in hist.items() if v},
-                   detections=sum(detections))
-        log(f"serve {json.dumps(row)}")
-    finally:
-        app.shutdown()
-    return predictor, row
+def closed_loop(app, tier, bodies, setup_s):
+    """``SERVE_CLIENTS`` closed-loop client threads on ``app`` (each sends its
+    next request when the last one returns; enough clients to keep the 16
+    bucket fillable): a ``SERVE_WARM_S`` warm-up, then a measured window of
+    ``SERVE_WINDOW_S[tier]`` → the serving row (img/s, p50/p99, batches)."""
+    window_s = SERVE_WINDOW_S[tier]
+    latencies, finished, errors, detections = [], [], [], []
+    t1 = time.monotonic()
+    t_warm, t_end = t1 + SERVE_WARM_S, t1 + SERVE_WARM_S + window_s
+
+    def client(t):
+        i = t
+        while time.monotonic() < t_end:
+            start = time.monotonic()
+            try:
+                r = app.detect(bodies[i % len(bodies)])
+            except Exception as exc:  # reported below, fails the phase
+                errors.append(repr(exc))
+                return
+            end = time.monotonic()
+            for d in r["detections"]:
+                if not all(np.isfinite(d["box_normalized"])) or not 0 <= d["score"] <= 1:
+                    errors.append(f"malformed detection {d}")
+            if t_warm <= end <= t_end:
+                finished.append(end)
+                detections.append(len(r["detections"]))
+                if start >= t_warm:
+                    latencies.append((end - start) * 1e3)
+            i += SERVE_CLIENTS
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(max(0.0, t_warm - time.monotonic()))
+    hist0 = app.stats.snapshot()["batch_histogram"]
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads) or len(latencies) < 100:
+        raise AssertionError(f"{tier}: {len(latencies)} requests in the window, "
+                             f"failures {errors[:3]}")
+    hist = {k: v - hist0.get(k, 0)
+            for k, v in app.stats.snapshot()["batch_histogram"].items()}
+    p50, p99 = np.percentile(latencies, [50, 99])
+    row = dict(tier=tier, client_threads=SERVE_CLIENTS, window_s=window_s,
+               setup_s=setup_s, requests_in_window=len(finished),
+               images_per_s=len(finished) / window_s,
+               latency_samples=len(latencies), p50_ms=float(p50), p99_ms=float(p99),
+               batch_histogram={k: v for k, v in hist.items() if v},
+               detections=sum(detections))
+    log(f"serve {json.dumps(row)}")
+    return row
 
 
 def phase_serve(inference_app, serve_app, models, decode, nms_mod, nms_kernel, round_sweep):
@@ -935,6 +970,8 @@ def phase_int8_forward(models, inference_app, bodies, conv1x1, conv_int8):
         q = quantize_params(spec0, folded, in_absmax,
                             out_absmax=out_absmax if mode == "int8_chain" else None)
         spec, q = s2d_stem(spec0, q, image_size=416)
+        if mode == "int8_chain":  # the blocks' constant K4 arguments, as make_predictor packs
+            q = network.pack_fused_stages(spec, q)
         quantized = [(sm, key) for sm in q for key, e in q[sm].items()
                      if "kernel_q" in e or set(e) == {"out_scale"}]
         seen = {}
@@ -2771,11 +2808,263 @@ def phase_recalibrate(inference_app, bn_stats, bodies, smi):
     return row, launches
 
 
+ARTIFACT_DIR = os.path.join(ROOT, "build", "smoke_artifact")
+ARTIFACT_BATCHES = (1, 4, 16)
+NMS_OUTPUTS = ("bboxes", "class_idx", "scores", "selected", "num_valid")
+
+
+def artifact_child(inputs, *paths):
+    """``python3 chip_smoke.py --load-artifact <inputs.npz> <artifact.zip> …``,
+    which phase 23 starts: in a process of its own, load each artifact on the
+    card and answer the images of ``inputs`` at B = 1, 4 and 16; write every
+    output to ``<artifact>.out.npz`` and print one JSON line (seconds to load,
+    to answer the first call, the kernels' launches of one B=16 call)."""
+    from yolov3_tpu_torch.export.aot import load_detector_artifact
+    from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock
+
+    fp32_settings()
+    wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant,
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
+    images = np.load(inputs)["images"]
+    rows = {}
+    for path in paths:
+        t0 = time.monotonic()
+        predict, manifest = load_detector_artifact(path)
+        load_s = time.monotonic() - t0
+        outs, seconds = {}, {}
+        for b in ARTIFACT_BATCHES:
+            t1 = time.monotonic()
+            res = predict(images[:b])
+            torch.cuda.synchronize()
+            seconds[b] = time.monotonic() - t1
+            outs.update({f"{name}_{b}": t.cpu().numpy() for name, t in zip(NMS_OUTPUTS, res)})
+        for w in wrappers.values():
+            w.launches = 0
+        predict(images[:16])
+        torch.cuda.synchronize()
+        np.savez(f"{path}.out.npz", **outs)
+        rows[os.path.basename(path)] = dict(
+            quantize=manifest["quantize"], load_s=load_s, first_call_s=seconds[1],
+            call_s={str(b): v for b, v in seconds.items()},
+            launches_b16={k: w.launches for k, w in wrappers.items()})
+    print(json.dumps(rows), flush=True)
+    return 0
+
+
+def op_host_cost(nms_kernel, conv1x1):
+    """The host's µs a call of K1 and of K3 at serving shapes (K1: B=16,
+    K=512; K3: the 13² 1×1 conv at B=16, 1024→512), through the
+    ``yolov3_torch`` op, through its wrapper, and calling the op's CUDA
+    kernel (the ctypes launch) directly, in turns (direct, op, wrapper,
+    wrapper, op, direct): ``host_us``, the device never waited for. Under
+    ``inference_mode``, as the predictors call them, and with autograd on
+    (a ``custom_op`` then also passes its autograd kernel)."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import sweep_case
+
+    rng = np.random.RandomState(23)
+    mat, valid = sweep_case(16, 512)
+    xq = torch.from_numpy(rng.randint(-127, 128, (16 * 169, 1024)).astype(np.int8)).cuda()
+    wq = torch.from_numpy(rng.randint(-127, 128, (512, 1024)).astype(np.int8)).cuda()
+    scale = torch.from_numpy((rng.rand(512) * 1e-4).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.randn(512).astype(np.float32)).cuda()
+    inv = torch.tensor([17.3], dtype=torch.float32, device="cuda")
+    calls = {
+        "K1 nms_sweep B=16 K=512": dict(
+            direct=lambda: nms_kernel._sweep_cuda(mat, valid),
+            op=lambda: torch.ops.yolov3_torch.suppression_sweep.default(mat, valid),
+            wrapper=lambda: nms_kernel.suppression_sweep(mat, valid)),
+        "K3 conv1x1_int8 M=2704 1024->512": dict(
+            direct=lambda: conv1x1._conv1x1_cuda(xq, wq, scale, bias, inv, True, torch.int8),
+            op=lambda: torch.ops.yolov3_torch.conv1x1_int8_requant.default(
+                xq, wq, scale, bias, inv, True, torch.int8),
+            wrapper=lambda: conv1x1.conv1x1_int8_requant(xq, wq, scale, bias, inv, leaky=True)),
+    }
+    rows = {}
+    for mode, context in (("inference_mode", torch.inference_mode),
+                          ("autograd", torch.enable_grad)):
+        for name, fns in calls.items():
+            us = {k: [] for k in fns}
+            with context():
+                for k in ("direct", "op", "wrapper", "wrapper", "op", "direct"):
+                    us[k].append(host_us(fns[k], 200))
+            rows[f"{name}, {mode}"] = dict(
+                us, op_minus_direct_us=float(np.mean(us["op"]) - np.mean(us["direct"])))
+    return rows
+
+
+def phase_artifact(inference_app, serve_app, nms_mod, bodies, nms_kernel, conv1x1, conv_int8,
+                   resblock, smi):
+    """Phase 23: the serving artifact on the card. The seeded YOLOv3-416 (80
+    COCO classes) in ``fp32`` and ``int8_chain`` (calibrated on the smoke
+    images), each exported for ``cuda`` (``export/aot.py``) before it has
+    answered anything; a process of its own loads both artifacts and answers
+    B = 1, 4 and 16 (``artifact_child``), held against the eager predictor on
+    the same images: ``int8_chain`` bit-equal, fp32 NMS index-exact with
+    boxes within 1e-5 or phase 6's near-tie witness; the exported predictor
+    after the export bit-equal to a copy taken before it. One loaded B=16
+    call launches K1 1, K3 11, K4 23 and K6 15 times (``int8_chain``; fp32:
+    K1 once), counted here in this process. Eager against loaded at B=16, in
+    turns: event-loop ms (CUDA events) and device-busy ms (profiler). The
+    host's µs a call of an op against its direct ctypes launch
+    (``op_host_cost``). Then the ``int8_chain`` tier served from its model
+    keys and from its artifact through ``Serve``'s ``artifact:`` key, with
+    phase 5's closed-loop clients, two short windows each in turns."""
+    import copy
+
+    from yolov3_tpu_torch.export import aot
+
+    os.makedirs(ARTIFACT_DIR, exist_ok=True)
+    model = os.path.join(ROOT, "config/models/yolov3/model.yaml")
+    names = os.path.join(ROOT, "datasets/coco2012/coco.names")
+    anchors = os.path.join(ROOT, "datasets/coco2012/anchors.txt")
+    images = smoke_images(bodies, 16)
+    inputs = os.path.join(ARTIFACT_DIR, "inputs.npz")
+    np.savez(inputs, images=images)
+    batch16 = torch.from_numpy(images).cuda()
+    wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant,
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
+    want_launches = {"fp32": dict(nms_sweep=1, conv1x1_int8=0, resblock_int8=0, conv_int8=0),
+                     "int8_chain": dict(nms_sweep=1, conv1x1_int8=11, resblock_int8=23,
+                                        conv_int8=15)}
+    tiers, predictors, paths = {}, {}, {}
+    for tier, quantize in (("fp32", None), ("int8_chain", "int8_chain")):
+        t0 = time.monotonic()
+        predictor, class_names, model_name = inference_app.build_serving_predictor(
+            model, names, anchors, None, 416, nms_score_threshold=0.1, quantize=quantize,
+            calibration_images_dir=CALIBRATION_DIR if quantize else None, seed=0)
+        build_s = time.monotonic() - t0
+        before = aot.as_predict(copy.deepcopy(predictor.module), predictor.device)
+        t1 = time.monotonic()
+        programs = aot.export_detector(predictor.module, 416, ("cuda",))
+        export_s = time.monotonic() - t1
+        ops = sorted({str(n.target) for n in programs["cuda"].graph_module.graph.nodes
+                      if str(n.target).startswith("yolov3_torch.")})
+        paths[tier] = os.path.join(ARTIFACT_DIR, f"yolov3_416_{tier}.zip")
+        t2 = time.monotonic()
+        aot.save_detector_artifact(paths[tier], programs, dict(
+            model_name=model_name, image_size=416, class_names=list(class_names),
+            yolo_max_boxes=100, nms_iou_threshold=0.5, nms_score_threshold=0.1,
+            quantize=quantize, compute_precision=None, nms_per_class=False, letterbox=False,
+            source_config=None))
+        save_s = time.monotonic() - t2
+        del programs
+        # the exported predictor answers as its copy from before the export
+        with torch.inference_mode():
+            unchanged = all(torch.equal(x, y) for b in (1, 16)
+                            for x, y in zip(predictor(batch16[:b]), before(batch16[:b])))
+        del before
+        predictors[tier] = predictor
+        tiers[tier] = dict(build_s=build_s, export_s=export_s, save_s=save_s,
+                           artifact_mb=os.path.getsize(paths[tier]) / 1e6, program_ops=ops,
+                           eager_unchanged_by_export=unchanged)
+        log(f"artifact {tier} {json.dumps(tiers[tier])}")
+        if not unchanged:
+            raise AssertionError(f"{tier}: exporting changed the eager predictor's answers")
+        torch.cuda.empty_cache()
+
+    # a fresh process loads both artifacts and answers B = 1, 4, 16
+    t0 = time.monotonic()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--load-artifact", inputs,
+                            paths["fp32"], paths["int8_chain"]],
+                           capture_output=True, text=True, timeout=600)
+    child_s = time.monotonic() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the artifact process failed (rc {child.returncode}): "
+                             f"{child.stderr[-3000:]}")
+    child_rows = json.loads(child.stdout.strip().splitlines()[-1])
+    nms_kw = dict(max_boxes=100, iou_threshold=0.5, score_threshold=0.1)
+    for tier, path in paths.items():
+        got = np.load(f"{path}.out.npz")
+        compared = {}
+        for b in ARTIFACT_BATCHES:
+            with torch.inference_mode():
+                eager = [t.cpu() for t in predictors[tier](batch16[:b])]
+            loaded = [torch.from_numpy(got[f"{name}_{b}"]) for name in NMS_OUTPUTS]
+            equal = all(torch.equal(a, e) for a, e in zip(loaded, eager))
+            nms_exact = torch.equal(loaded[3], eager[3]) and torch.equal(loaded[4], eager[4])
+            witnesses, box_err, score_err = compare_detections(nms_mod, loaded, eager, nms_kw)
+            compared[b] = dict(bit_equal=equal, nms_index_exact=nms_exact,
+                               boxes_max_abs_err=max_abs(loaded[0], eager[0]),
+                               witnesses=witnesses, detections=int(eager[4].sum()))
+            ok = equal if tier == "int8_chain" else (
+                (nms_exact and compared[b]["boxes_max_abs_err"] <= 1e-5)
+                or (witnesses and all(w["margin"] is not None and w["margin"] <= NEAR_TIE
+                                      for w in witnesses)))
+            if not ok:
+                raise AssertionError(f"{tier} B={b}: the loaded program disagrees with the "
+                                     f"eager predictor {compared[b]}")
+        row = child_rows[os.path.basename(path)]
+        tiers[tier].update(fresh_process=row, loaded_vs_eager=compared)
+        if row["launches_b16"] != want_launches[tier]:
+            raise AssertionError(f"{tier}: the loaded B=16 call in its own process launched "
+                                 f"{row['launches_b16']}, expected {want_launches[tier]}")
+
+    # this process: the loaded program's launches, and eager against loaded
+    counts = {}
+    for tier, path in paths.items():
+        t0 = time.monotonic()
+        loaded, _ = aot.load_detector_artifact(path)
+        load_s = time.monotonic() - t0
+        loaded(batch16)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        loaded(batch16)
+        torch.cuda.synchronize()
+        counts[tier] = {k: w.launches for k, w in wrappers.items()}
+        if counts[tier] != want_launches[tier]:
+            raise AssertionError(f"{tier}: one loaded B=16 call launched {counts[tier]}, "
+                                 f"expected {want_launches[tier]}")
+        turns = {"eager": dict(ms=[], device_ms=[]), "loaded": dict(ms=[], device_ms=[])}
+        for name in ("eager", "loaded", "loaded", "eager"):
+            fn = predictors[tier] if name == "eager" else loaded
+            turns[name]["ms"].append(cuda_ms(lambda: fn(batch16), 5))
+            profiled = device_time_by_kernel(lambda: fn(batch16))
+            turns[name]["device_ms"].append(profiled[0] if profiled else None)
+        tiers[tier].update(load_s_here=load_s, launches_b16=counts[tier], b16_turns=turns)
+        log(f"artifact {tier} loaded here {json.dumps(dict(load_s=load_s, b16_turns=turns))}")
+        del loaded
+    del predictors
+    torch.cuda.empty_cache()
+
+    host = op_host_cost(nms_kernel, conv1x1)
+    log(f"op host cost {json.dumps(host)}")
+
+    # int8_chain served from its model keys and from its artifact (Serve's
+    # artifact: key), in turns: keys, artifact, artifact, keys
+    _, keys_app, keys_setup_s = tier_app("int8_chain", inference_app, serve_app)
+    t0 = time.monotonic()
+    httpd, artifact_app = serve_app.Serve()(artifact=paths["int8_chain"], port=0,
+                                            batch_buckets=(1, 4, 16), batch_timeout_ms=5,
+                                            serve_forever=False)
+    artifact_setup_s = time.monotonic() - t0
+    serve_rows = []
+    try:
+        health = artifact_app.health()
+        for name in ("int8_chain", "artifact int8_chain", "artifact int8_chain", "int8_chain"):
+            app, setup_s = ((keys_app, keys_setup_s) if name == "int8_chain"
+                            else (artifact_app, artifact_setup_s))
+            serve_rows.append(closed_loop(app, name, bodies, setup_s))
+    finally:
+        keys_app.shutdown()
+        artifact_app.shutdown()
+        httpd.server_close()
+    if health["quantize"] != "int8_chain" or health["classes"] != 80:
+        raise AssertionError(f"the artifact server reports {health}")
+    row = dict(card=smi, tiers=tiers, fresh_process_s=child_s, op_host_cost=host,
+               serve=serve_rows)
+    return row, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--load-artifact"]:  # phase 23's process of its own
+        return artifact_child(*sys.argv[2:])
     from yolov3_tpu_torch import models
     from yolov3_tpu_torch.apps import inference_app, serve_app
     from yolov3_tpu_torch.ops import decode
@@ -2788,9 +3077,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    fp32_settings()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32} matmul precision="
         f"{torch.get_float32_matmul_precision()}")
@@ -2888,6 +3175,16 @@ def main() -> int:
     launches["bn_stats"] += recal_launches[0]
     k5_launches[1] += recal_launches[1]
 
+    # the serving artifact: K1, K3, K4 and K6 counted over one loaded B=16
+    # call of each tier, the counts set to 0 just before it
+    torch.cuda.empty_cache()
+    artifact_row, artifact_launches = timed("artifact", phase_artifact, inference_app, serve_app,
+                                            nms_mod, bodies, nms_kernel, conv1x1, conv_int8,
+                                            resblock, smi)
+    for counts in artifact_launches.values():
+        for name, count in counts.items():
+            launches[name] += count
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -2933,7 +3230,7 @@ def main() -> int:
                     "eval_tiny": eval_rows, "eval_yolov3": full_rows, "int8_gate": gate_row,
                     "inference": infer_row, "offline_launches": offline,
                     "train_extras": extras, "convert": convert_row,
-                    "recalibrate": recal_row, "card": smi}))
+                    "recalibrate": recal_row, "artifact": artifact_row, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -39,6 +39,7 @@ from yolov3_tpu_torch.tools.average_checkpoints import average_checkpoints
 from yolov3_tpu_torch.tree import tree_leaves, tree_map
 
 from .conftest import REPO
+from .test_torch_data import native_decode_tier
 
 TINY = os.path.join(REPO, "config/models/yolov3_tiny/model.yaml")
 TRAINED_TINY = os.path.join(REPO, "checkpoints/output/yolov3_train_tiny.tf")
@@ -144,6 +145,13 @@ def test_recalibrate_without_batches_raises():
 def test_cli_on_trained_tiny(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(REPO)  # the tool resolves paths against the repo root
     out = str(tmp_path / "recal.tf")
+    with native_decode_tier():
+        _recalibrate_both(out, capsys)
+
+
+def _recalibrate_both(out, capsys):
+    """The port's tool on the trained tiny, then JAX's ``recalibrate`` on
+    the batch that JAX's reader decodes from the same TFRecords."""
     bn_recalibrate.main(["--ckpt", TRAINED_TINY, "--model_config", TINY,
                          "--data_root", SHAPES, "--image_size", "96", "--batches", "1",
                          "--batch_size", "8", "--out", out, "--device", "cpu"])

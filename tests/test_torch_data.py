@@ -18,6 +18,7 @@ stays on the Python tier. This module therefore builds it once at import
 (collection runs in every test process before any test starts) under a lock,
 into a temporary name that is renamed over the real one."""
 
+import contextlib
 import fcntl
 import os
 import subprocess
@@ -108,6 +109,28 @@ def _toy_config():
                 "images_dir": os.path.join(REPO, "datasets/shapes_toy/coco/images"),
                 "annotations": os.path.join(REPO, "datasets/shapes_toy/coco/annotations.json")}
                 for split in ("train", "valid")}}
+
+
+@contextlib.contextmanager
+def native_decode_tier():
+    """Both packages' ``native`` modules on the native decode tier while the
+    block runs: each loads afresh the one library built above. Every test
+    that decodes TFRecords through both packages and compares what they
+    compute holds them so. The two tiers differ by an ulp, and without the pin
+    each package's tier depends on the build race above: one test process
+    kept the JAX package on the Python tier and gave the port the native one,
+    and a whole ``Train`` run's epoch losses came out 1–2% apart (the JAX
+    package's ``[58.964, 106.0662]`` on the Python tier against
+    ``[60.1824, 107.0742]`` on the native one)."""
+    build_native_library()
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jnative, tnative):
+            mp.setattr(mod, "_lib", None)
+            mp.setattr(mod, "_load_failed", False)
+        if not (jnative.available() and tnative.available()):
+            pytest.fail(f"{NATIVE_LIB} did not build or load (make and a C++ compiler are "
+                        "needed)")
+        yield
 
 
 @pytest.fixture(params=["python", "native"])

@@ -50,6 +50,7 @@ from yolov3_tpu_torch.ops import nms as tnms
 import chip_smoke
 
 from .conftest import REPO
+from .test_torch_data import native_decode_tier
 
 MAX_IMAGES = 6
 NEAR_TIE = 1e-4
@@ -109,8 +110,9 @@ def _run(package, case, workdir):
 def runs(request, tmp_path_factory):
     case = CASES[request.param]
     root = str(tmp_path_factory.mktemp(f"evaluate_{request.param}"))
-    return case, _run("jax", case, os.path.join(root, "jax")), \
-        _run("port", case, os.path.join(root, "port"))
+    with native_decode_tier():
+        return case, _run("jax", case, os.path.join(root, "jax")), \
+            _run("port", case, os.path.join(root, "port"))
 
 
 def _near_ties(case, thr, image):
@@ -121,8 +123,9 @@ def _near_ties(case, thr, image):
     detection–gt IoUs of either package within ``NEAR_TIE`` of the
     evaluation's 0.5. Returns (witness, eval IoUs near 0.5)."""
     cfg = _detect_config(case["size"])
-    img, lab = next(x for i, x in enumerate(parse_tfrecords(
-        cfg["tfrecords_dir"], case["size"], 100, cfg["classes_name_file"])) if i == image)
+    with native_decode_tier():
+        img, lab = next(x for i, x in enumerate(parse_tfrecords(
+            cfg["tfrecords_dir"], case["size"], 100, cfg["classes_name_file"])) if i == image)
     anchors = get_anchors(cfg["anchors_file"])
     jspec = jax_parse(cfg["model_config_file"], 3)
     jp = jax_load(jspec, *jax_init(jax.random.PRNGKey(0), jspec), cfg["input_weights_path"])

@@ -51,6 +51,7 @@ from yolov3_tpu_torch.ops.decode import yolo_decode
 from yolov3_tpu_torch.ops.nms import gather_detections, yolo_nms
 
 from .conftest import REPO, absolutize_run_config
+from .test_torch_data import native_decode_tier
 
 SIZE = 128
 
@@ -99,8 +100,9 @@ def test_inference_matches_jax(case, odd_images, tmp_path):
     if case == "tfrecords":
         overrides["save_model_path"] = str(tmp_path / "saved")
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
-    want = JaxInference()(**_detect_config(jax_dir, **overrides))
-    got = Inference()(**_detect_config(port_dir, device="cpu", **overrides))
+    with native_decode_tier():
+        want = JaxInference()(**_detect_config(jax_dir, **overrides))
+        got = Inference()(**_detect_config(port_dir, device="cpu", **overrides))
 
     n = {"tfrecords": 8, "images_dir": 4, "image_file": 1}[overrides["input_data_source"]]
     assert len(got) == len(want) == n
@@ -237,8 +239,9 @@ def test_int8_gate_matches_jax():
     cwd = os.getcwd()
     os.chdir(REPO)
     try:
-        want = jax_gate.run_gate(max_images=8, image_size=SIZE)
-        got = port_gate.run_gate(max_images=8, image_size=SIZE, device="cpu")
+        with native_decode_tier():
+            want = jax_gate.run_gate(max_images=8, image_size=SIZE)
+            got = port_gate.run_gate(max_images=8, image_size=SIZE, device="cpu")
     finally:
         os.chdir(cwd)
     print(f"JAX {want}\nport {got}")
@@ -256,13 +259,15 @@ def test_render_dataset_example_matches_jax(tmp_path):
     cwd = os.getcwd()
     os.chdir(tmp_path)
     try:
-        Train()(**cfg)
+        with native_decode_tier():
+            Train()(**cfg)
     finally:
         os.chdir(cwd)
     got = np.asarray(Image.open(tmp_path / "dataset_example.png"))
-    (ds_train, _), _ = jpipe.create_dataset(cfg["dataset_config"], 96, cfg["max_bboxes"],
-                                            cfg["classes_name_file"], 8)
-    images, labels = next(iter(jpipe.Batcher(ds_train, 1)))
+    with native_decode_tier():
+        (ds_train, _), _ = jpipe.create_dataset(cfg["dataset_config"], 96, cfg["max_bboxes"],
+                                                cfg["classes_name_file"], 8)
+        images, labels = next(iter(jpipe.Batcher(ds_train, 1)))
     rendered = jax_render_bboxes(images[0], labels[0][labels[0][:, 4] == 1][:, :4])
     want = np.uint8(np.clip(rendered, 0, 1) * 255)
     assert got.shape == want.shape == (96, 96, 3)

@@ -231,27 +231,33 @@ def test_fused_resblock_plain_equals_unfused_chain_through_block_args():
 
 
 def test_packed_block_args_are_reused_per_model_and_released_with_it():
-    """``packed_block_args`` returns the same packed arguments while the
-    block's tensors are the same objects, packs anew for another input scale,
-    and drops its entry with the params."""
+    """A block's constant kernel arguments, packed once into the params
+    (``block_constants`` under ``"fused"``, as ``pack_fused_stages`` does when
+    the ``int8_chain`` predictor is built), are the tensors every later
+    ``block_args`` hands the kernel, equal to what unpacked params give, and
+    go with the params: nothing outside the params tree keeps them."""
     import gc
+    import weakref
 
     rng = np.random.RandomState(9)
     squeeze = qparams_from_jax(_qparams(rng, 1, 64, 32, chain=True))
     expand = qparams_from_jax(_qparams(rng, 3, 32, 64, chain=True))
     shortcut = {"out_scale": torch.tensor(0.0611)}
     s_x = torch.tensor(0.0413)
-    first, scale = TR.packed_block_args(squeeze, expand, shortcut, s_x)
-    again, _ = TR.packed_block_args(squeeze, expand, shortcut, s_x)
-    assert again is first and scale is shortcut["out_scale"]
+    packed = dict(squeeze, fused=TR.block_constants(squeeze, expand, shortcut))
+    first, scale = TR.block_args(packed, expand, shortcut, s_x)
+    again, _ = TR.block_args(packed, expand, shortcut, torch.tensor(0.0413))
+    assert scale is shortcut["out_scale"]
+    assert all(first[k] is packed["fused"][k] is again[k] for k in packed["fused"])
+    assert set(first) == set(packed["fused"]) | {"scale1", "s_x"}
     want, _ = TR.block_args(squeeze, expand, shortcut, s_x)
     assert set(first) == set(want) and all(torch.equal(first[k], want[k]) for k in want)
-    other, _ = TR.packed_block_args(squeeze, expand, shortcut, torch.tensor(0.0413))
-    assert other is not first
-    entries = len(TR._packed)
-    del squeeze, first, again, other, want
+    assert want["w1"].untyped_storage().data_ptr() != squeeze["kernel_q"].untyped_storage(
+        ).data_ptr()
+    gone = weakref.ref(packed["fused"]["w2"])
+    del packed, first, again
     gc.collect()
-    assert len(TR._packed) == entries - 1
+    assert gone() is None
 
 
 def test_halo_round_trip_matches_jax():

@@ -654,3 +654,84 @@ def test_cuda_bn_recalibration_runs_k5(cuda_device, monkeypatch, nbatches):
         for name in ("mean", "var"):
             assert torch.equal(got[sm][key][name], (acc[name] / nbatches).cpu()), (sm, key, name)
     assert all(t.device.type == "cpu" for t in tree_leaves(got))
+
+
+# --- the kernels as torch.library ops (yolov3_torch::…) ---
+
+def _op_cases(device):
+    """name → (op, its arguments on the card, the plain version, the wrapper
+    on the same arguments, the wrapper whose ``launches`` counts the op):
+    K1 at the serving K, K2 over the round sweep's cluster, K3's persistent
+    path, K6's wgmma path (3×3 s1), K4 on the (64, 128) tile pair."""
+    rng = np.random.RandomState(17)
+    mat, valid = (torch.from_numpy(a).to(device) for a in _sweep_case(3, 4, 512))
+    boxes, scores = (torch.from_numpy(a).to(device) for a in _boxes_case(4, 3, 2000))
+    xq, wq = _int8(rng, (300, 64), device), _int8(rng, (32, 64), device)
+    s3, b3, inv = _epilogue(rng, 32, device, 1e-3)
+    x6, k6 = _int8(rng, (2, 13, 13, 64), device), _int8(rng, (128, 3, 3, 64), device, 20)
+    s6, b6, _ = _epilogue(rng, 128, device, 1e-4)
+    k4 = _resblock_args(rng, 2, 13, 13, 128, 64, device)
+    return {
+        "suppression_sweep": (
+            torch.ops.yolov3_torch.suppression_sweep.default, (mat, valid),
+            nms_kernel.suppression_sweep_ref, lambda: nms_kernel.suppression_sweep(mat, valid),
+            nms_kernel.suppression_sweep),
+        "round_sweep": (
+            torch.ops.yolov3_torch.round_sweep.default, (boxes, scores, 0.5, 0.1, 100),
+            round_sweep.round_sweep_ref,
+            lambda: round_sweep.round_sweep(boxes, scores, 0.5, 0.1, 100), round_sweep.round_sweep),
+        "conv1x1_int8_requant": (
+            torch.ops.yolov3_torch.conv1x1_int8_requant.default,
+            (xq, wq, s3, b3, inv, True, torch.int8),
+            lambda *a: conv1x1.conv1x1_int8_requant_plain(*a[:5], leaky=a[5], out_dtype=a[6]),
+            lambda: conv1x1.conv1x1_int8_requant(xq, wq, s3, b3, inv, leaky=True),
+            conv1x1.conv1x1_int8_requant),
+        "conv_int8": (
+            torch.ops.yolov3_torch.conv_int8.default,
+            (x6, k6, s6, b6, None, 1, [1, 1, 1, 1], True, torch.float32),
+            lambda *a: conv_int8.conv_int8_plain(*a[:5], stride=a[5], padding=(a[6][:2], a[6][2:]),
+                                                 leaky=a[7], out_dtype=a[8]),
+            lambda: conv_int8.conv_int8(x6, k6, s6, b6, None, stride=1, padding=((1, 1), (1, 1)),
+                                        leaky=True, out_dtype=torch.float32),
+            conv_int8.conv_int8),
+        "fused_resblock": (
+            torch.ops.yolov3_torch.fused_resblock.default, (*k4, 2, 13, 13),
+            lambda *a: resblock.fused_resblock_plain(*a[:12], b=a[12], h=a[13], w=a[14]),
+            lambda: resblock.fused_resblock(*k4, b=2, h=13, w=13), resblock.fused_resblock),
+    }
+
+
+OP_NAMES = ["suppression_sweep", "round_sweep", "conv1x1_int8_requant", "conv_int8",
+            "fused_resblock"]
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_cuda_op_equals_its_plain_version_and_its_wrapper(cuda_device, name):
+    """Each kernel called as ``torch.ops.yolov3_torch.<name>`` on CUDA
+    tensors launches once (its wrapper's count), and its outputs are
+    bit-equal to the plain version's and to the wrapper's on the same
+    inputs. Tolerance: none."""
+    op, args, plain, wrapper, counted = _op_cases(cuda_device)[name]
+    before = counted.launches
+    got = _outputs(op(*args))
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    want = _outputs(plain(*args))
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and len(got) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(got, _outputs(wrapper())))
+    assert all(g.device.type == "cuda" for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_cuda_op_passes_opcheck(cuda_device, name):
+    """``torch.library.opcheck`` on the card: the schema, the fake kernel
+    against the CUDA kernel, and the op traced with its dimensions dynamic
+    (a symbolic batch)."""
+    op, args, _, _, _ = _op_cases(cuda_device)[name]
+    torch.library.opcheck(op, args)

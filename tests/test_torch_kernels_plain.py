@@ -50,13 +50,25 @@ def test_round_sweep_plain_equals_pallas_interpret(n, max_boxes, score_t):
 
 
 def test_wrappers_raise_on_unsupported_device():
-    mat = torch.zeros((1, 4, 4), dtype=torch.bool, device="meta")
-    with pytest.raises(ValueError):
-        nms_kernel.suppression_sweep(mat, torch.zeros((1, 4), dtype=torch.bool,
-                                                      device="meta"))
-    with pytest.raises(ValueError):
-        round_sweep.round_sweep(torch.zeros((1, 4, 4), device="meta"),
-                                torch.zeros((1, 4), device="meta"), 0.5, 0.1)
+    """The wrappers call their ``yolov3_torch`` ops, whose kernels are CPU
+    (the plain version) and CUDA (the launch): a backend with neither — here
+    sparse CPU tensors — raises in the dispatcher. Meta tensors take the
+    fake kernel, which gives the output's shape and type (what
+    ``torch.export`` traces with): no launch, no plain version."""
+    dense = torch.zeros((1, 4), dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="SparseCPU"):
+        nms_kernel.suppression_sweep(torch.zeros((1, 4, 4)).to_sparse(), dense)
+    with pytest.raises(NotImplementedError, match="SparseCPU"):
+        round_sweep.round_sweep(torch.zeros((1, 4, 4)).to_sparse(), torch.zeros((1, 4)),
+                                0.5, 0.1)
+    before = nms_kernel.suppression_sweep.launches, round_sweep.round_sweep.launches
+    keep = nms_kernel.suppression_sweep(torch.zeros((1, 4, 4), dtype=torch.bool, device="meta"),
+                                        torch.zeros((1, 4), dtype=torch.bool, device="meta"))
+    sel, nv = round_sweep.round_sweep(torch.zeros((1, 4, 4), device="meta"),
+                                      torch.zeros((1, 4), device="meta"), 0.5, 0.1, 7)
+    assert (keep.device.type, tuple(keep.shape), keep.dtype) == ("meta", (1, 4), torch.bool)
+    assert (tuple(sel.shape), sel.dtype, tuple(nv.shape)) == ((1, 7), torch.int32, (1,))
+    assert (nms_kernel.suppression_sweep.launches, round_sweep.round_sweep.launches) == before
 
 
 def test_build_names_a_library_by_its_source_and_the_headers_it_includes(tmp_path, monkeypatch):

@@ -155,8 +155,7 @@ def test_serve_int8_tier_on_cpu():
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("extra", [{"artifact": "m.yoloexp"}, {"data_parallel": True},
-                                   {"spatial_partitioning": 2}])
+@pytest.mark.parametrize("extra", [{"data_parallel": True}, {"spatial_partitioning": 2}])
 def test_later_slices_raise(extra):
     cfg = _serve_cfg()
     cfg.update(serve_forever=False, device="cpu", **extra)
@@ -179,7 +178,8 @@ def test_port_imports_no_jax():
             "yolov3_tpu_torch.apps.convert_app, yolov3_tpu_torch.export, "
             "yolov3_tpu_torch.export.tfjs_graph, yolov3_tpu_torch.tools.bn_recalibrate, "
             "yolov3_tpu_torch.tools.average_checkpoints, "
-            "yolov3_tpu_torch.tools.convert_tf_checkpoint, yolov3_tpu_torch.tools.export_tfjs; "
+            "yolov3_tpu_torch.tools.convert_tf_checkpoint, yolov3_tpu_torch.tools.export_tfjs, "
+            "yolov3_tpu_torch.export.aot, yolov3_tpu_torch.apps.export_app; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'yolov3_tpu' or m.startswith('yolov3_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,13 +1,16 @@
 """Command line of the port: ``python -m yolov3_tpu_torch.apps.cli <command> …``
-with the commands ``serve``, ``train``, ``evaluate``, ``inference`` and
-``convert``.
+with the commands ``serve``, ``train``, ``evaluate``, ``inference``,
+``convert`` and ``export``.
 
 ``serve_main`` / ``train_main`` / ``evaluate_main`` / ``inference_main`` /
 ``convert_main`` take the same arguments without the subcommand. The config
 files are the JAX package's ``serve_config.yaml``, ``train_config.yaml``,
 ``evaluate_config.yaml``, ``detect_config.yaml`` and
-``utilities/convert_config.yaml`` schemas; ``--device cpu``
-runs the plain PyTorch path on the CPU instead of the card.
+``utilities/convert_config.yaml`` schemas (``export`` takes a detect or serve
+config, as ``utilities/export_serving_artifact.py`` does); ``--device cpu``
+runs the plain PyTorch path on the CPU instead of the card. ``export`` has
+``--platforms`` in its place: it builds on the card when ``cuda`` is among
+them.
 """
 
 from __future__ import annotations
@@ -43,6 +46,14 @@ def _convert_args(parser: argparse.ArgumentParser):
     parser.add_argument("--config", type=str, default="utilities/convert_config.yaml",
                         help="yaml config file")
     _device_arg(parser)
+
+
+def _export_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--config", required=True,
+                        help="detect/serve config yaml (model + NMS keys)")
+    parser.add_argument("--out", required=True, help="output artifact path (a zip)")
+    parser.add_argument("--platforms", default="cpu,cuda",
+                        help="comma-separated platforms to export a program for (cpu, cuda)")
 
 
 def _evaluate_args(parser: argparse.ArgumentParser):
@@ -102,12 +113,26 @@ def _convert(args):
     convert(_config(args))
 
 
+def _export(args):
+    import os
+
+    from ..config import load_yaml
+    from .export_app import export_artifact
+
+    logging.basicConfig(level=logging.INFO)
+    cfg = load_yaml(args.config)
+    cfg["source_config"] = os.path.abspath(args.config)
+    export_artifact(cfg, args.out,
+                    platforms=tuple(p.strip() for p in args.platforms.split(",") if p.strip()))
+
+
 COMMANDS = {
     "serve": (_serve_args, _serve, "online batching detection endpoint"),
     "train": (_train_args, _train, "train on a dataset config"),
     "evaluate": (_evaluate_args, _evaluate, "score-threshold sweep: recall, precision, mAP"),
     "inference": (_inference_args, _inference, "batch inference: detect.txt + images"),
     "convert": (_convert_args, _convert, "Darknet .weights -> native .npz checkpoint"),
+    "export": (_export_args, _export, "serving artifact: the predictor as a torch.export zip"),
 }
 
 

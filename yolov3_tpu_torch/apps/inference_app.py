@@ -10,7 +10,9 @@ image from tfrecords, an images directory, one image file or a video file.
 The JAX package compiles the pipeline into one jit; here it runs eagerly on
 the device, and on the card the NMS sweeps and every int8 convolution go
 through the hand-written CUDA kernels (``ops/nms.py``,
-``models/layers.py::conv2d_int8``).
+``models/layers.py::conv2d_int8``). The serving body is one module,
+``Detector``: the predictor calls it eagerly and ``export/aot.py`` exports
+it.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from ..config import dir_filelist, get_anchors, read_class_names
 from ..data.image import decode_image, letterbox_resize, letterbox_unmap_boxes, resize_bilinear
 from ..data.tfrecord import parse_tfrecords
 from ..device import resolve_device
+from ..export.aot import as_predict
 from ..io.resolve import load_weights, save_weights
 from ..models import apply_model, fold_batch_norm, init_model, parse_model_config
-from ..models.network import to_device
+from ..models.network import pack_fused_stages, to_device
 from ..ops.decode import yolo_decode
 from ..ops.nms import yolo_nms
 from ..ops.quantize import calibrate_scales, quantize_params
@@ -39,12 +42,72 @@ log = logging.getLogger(__name__)
 _DTYPES = {"bf16": torch.bfloat16, "fp32": None, None: None}
 
 
+def _fill(layout, buffers):
+    """A tree of ``layout``'s shape whose leaves (buffer names) are replaced
+    by those buffers."""
+    return {k: buffers[v] if isinstance(v, str) else _fill(v, buffers)
+            for k, v in layout.items()}
+
+
+class Detector(torch.nn.Module):
+    """The serving body: (B, H, W, 3) float32 images → the forward
+    (``apply_model``) → ``yolo_decode`` → ``yolo_nms``, whose tuple it
+    returns. The params (folded, possibly quantized), the BatchNorm state
+    when BN is not folded, and the anchors are its buffers, one buffer a
+    tensor (entries that share a tensor share its buffer), so
+    ``torch.export`` lifts them into the program; each forward rebuilds the
+    params tree over the buffers. ``make_predictor`` calls it under ``inference_mode`` and
+    ``export/aot.py`` exports it under ``no_grad``.
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the images for the
+    forward; decode and NMS run in float32."""
+
+    def __init__(self, spec, params, state, anchors, nclasses, max_boxes, iou_threshold,
+                 score_threshold, per_class=False, compute_dtype=None):
+        super().__init__()
+        self.spec, self.nclasses, self.compute_dtype = spec, int(nclasses), compute_dtype
+        self.nms = dict(max_boxes=int(max_boxes), iou_threshold=float(iou_threshold),
+                        score_threshold=float(score_threshold), per_class=bool(per_class))
+        self.register_buffer("anchors", anchors)
+        names = {}
+        self._layout = {"params": self._register(params, ("params",), names),
+                        "state": self._register(state, ("state",), names)}
+
+    def _register(self, tree, path, names):
+        """Register ``tree``'s tensors as buffers (``names``: id of a tensor
+        → its buffer's name) → its layout: the same tree with each tensor
+        replaced by its buffer's name."""
+        layout = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                layout[key] = self._register(value, path + (key,), names)
+            elif not isinstance(value, torch.Tensor):
+                raise TypeError(f"Detector: {'/'.join(path + (key,))} is not a tensor")
+            else:
+                if id(value) not in names:
+                    names[id(value)] = "__".join(path + (key,))
+                    self.register_buffer(names[id(value)], value)
+                layout[key] = names[id(value)]
+        return layout
+
+    def tree(self, name: str) -> dict:
+        """The ``params`` or ``state`` tree over the current buffers."""
+        return _fill(self._layout[name], self._buffers)
+
+    def forward(self, images):
+        x = images if self.compute_dtype is None else images.to(self.compute_dtype)
+        outputs = apply_model(self.spec, self.tree("params"), self.tree("state"), x)
+        boxes, conf, probs = yolo_decode(outputs, self.anchors, self.nclasses)
+        return yolo_nms(boxes, conf, probs, **self.nms)
+
+
 def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_boxes,
                    nms_iou_threshold, nms_score_threshold, fold_bn: bool = True,
                    compute_dtype=None, quantize=None, calibration_batches=None,
                    image_size=None, nms_per_class: bool = False, device=None):
-    """Build ``predict(images)``: (B, H, W, 3) float images (numpy or tensor)
-    → the ``yolo_nms`` tuple of tensors on ``device``.
+    """Build ``predict(images)``: (B, H, W, 3) float32 images (numpy or
+    tensor) → the ``yolo_nms`` tuple of tensors on ``device``
+    (``export.aot.as_predict`` over a ``Detector``, which ``predict.module``
+    holds for export).
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``) casts weights and images for
     the forward; decode and NMS run in float32 as in the JAX package.
@@ -57,7 +120,9 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
     (B, H, W, 3) float arrays) and ``fold_bn``, run the forward in float32
     whatever ``compute_dtype`` says, and apply the bit-exact space-to-depth
     stem rewrite (``ops/s2d.py``; pass ``image_size`` so odd sizes skip it).
-    Calibration runs on ``device``.
+    Calibration runs on ``device``. ``int8_chain`` packs the fused residual
+    blocks' constant kernel arguments here, once
+    (``models/network.py::pack_fused_stages``).
     """
     dev = resolve_device(device)
     run_params = fold_batch_norm(params, bn_state) if fold_bn else params
@@ -78,20 +143,12 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
     elif quantize is not None:
         raise ValueError(f"quantize must be None, 'int8' or 'int8_chain', got {quantize!r}")
     run_params = to_device(run_params, dev, compute_dtype)
+    if quantize == "int8_chain":
+        run_params = pack_fused_stages(spec, run_params)
     anchors = torch.as_tensor(np.asarray(anchors_table), dtype=torch.float32, device=dev)
-
-    @torch.inference_mode()
-    def predict_fn(images):
-        x = torch.as_tensor(images, device=dev)
-        x = x.to(compute_dtype or torch.float32)
-        outputs = apply_model(spec, run_params, run_state, x)
-        boxes, conf, probs = yolo_decode(outputs, anchors, nclasses)
-        return yolo_nms(boxes, conf, probs, max_boxes=yolo_max_boxes,
-                        iou_threshold=nms_iou_threshold,
-                        score_threshold=nms_score_threshold, per_class=nms_per_class)
-
-    predict_fn.device = dev
-    return predict_fn
+    return as_predict(Detector(spec, run_params, run_state, anchors, nclasses, yolo_max_boxes,
+                               nms_iou_threshold, nms_score_threshold, nms_per_class,
+                               compute_dtype), dev)
 
 
 def calibration_batches_from_dir(images_dir, image_size, limit: int = 8, preprocess=None):

@@ -1,9 +1,10 @@
 """Batching detection server — the port's serving path.
 
 Counterpart of ``yolov3_tpu/apps/serve_app.py``. This app wraps the
-forward+decode+NMS predictor of ``inference_app.make_predictor`` (fp32 or
-bf16 on the CUDA card, NMS sweeps in the hand-written kernels) behind an
-HTTP server with **dynamic batching**:
+forward+decode+NMS predictor of ``inference_app.make_predictor`` (fp32,
+bf16 or int8 on the CUDA card, NMS sweeps and int8 convs in the hand-written
+kernels), or the same predictor loaded from a serving artifact
+(``export/aot.py``), behind an HTTP server with **dynamic batching**:
 
   * the server pre-declares a small ladder of batch "buckets"
     (``batch_buckets: [1, 4, 16]``) so the device sees a few fixed batch
@@ -128,17 +129,14 @@ class ServerStats:
         return "\n".join(lines) + "\n"
 
 
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 class DynamicBatcher:
     """Groups concurrent requests into one device batch.
 
     ``predictor`` takes a ``(bucket, H, W, 3)`` float32 array and returns
     the ``yolo_nms`` tuple ``(bboxes, class_idx, scores, selected,
-    num_valid)`` (tensors or arrays); the eager forward serves every bucket
-    with the same callable. Only the dispatcher thread touches the device.
+    num_valid)`` of tensors (``make_predictor``'s predictor or a loaded
+    artifact's, ``export.aot.as_predict``); one callable serves every bucket.
+    Only the dispatcher thread touches the device.
     """
 
     def __init__(self, predictor, batch_buckets, batch_timeout_ms=5.0,
@@ -218,7 +216,8 @@ class DynamicBatcher:
                                    images.dtype)
                     images = np.concatenate([images, pad], axis=0)
                 out = self._predictor(images)
-                bboxes, class_idx, scores, selected, num_valid = map(_host, out)
+                bboxes, class_idx, scores, selected, num_valid = (t.cpu().numpy()
+                                                                  for t in out)
                 for i, req in enumerate(batch):
                     sel = selected[i][: int(num_valid[i])]
                     req.result = (bboxes[i][sel], class_idx[i][sel], scores[i][sel])
@@ -293,8 +292,9 @@ class _Handler(BaseHTTPRequestHandler):
 
 class DetectionApp:
     """Request pipeline shared by all handler threads, wrapping ONE ready
-    predictor (a ``make_predictor`` result). One predictor serves every
-    bucket, and a single params copy lives on the device."""
+    predictor (a ``make_predictor`` result or a loaded artifact's). One
+    predictor serves every bucket, and a single params copy lives on the
+    device."""
 
     def __init__(self, predictor, class_names, image_size,
                  batch_buckets=(1, 4, 16), batch_timeout_ms=5.0,
@@ -387,9 +387,17 @@ class Serve:
     ``host``, ``port``, ``batch_buckets``, ``batch_timeout_ms``, ``warmup``.
     ``quantize: int8`` / ``int8_chain`` serves the int8 PTQ tier, calibrated
     on the images of ``calibration_images_dir``.
-    ``device`` (default: the CUDA card) may be set to ``cpu``. The keys
-    ``artifact``, ``data_parallel`` and ``spatial_partitioning`` belong to
-    later slices of the port and raise ``NotImplementedError``.
+    ``device`` (default: the CUDA card) may be set to ``cpu``.
+
+    Alternatively ``artifact: <path>`` serves an artifact of ``python -m
+    yolov3_tpu_torch.apps.cli export`` (``export/aot.py``): the program and
+    its weights come from the zip, with the class names, image size,
+    ``quantize`` tier, model name and ``letterbox`` hint of its manifest; the
+    model, weights, anchors and NMS keys are not needed (the NMS parameters
+    are baked into the program). One loaded program serves every bucket.
+    ``data_parallel`` and ``spatial_partitioning`` belong to a later slice of
+    the port and raise ``NotImplementedError``; beside ``artifact`` they
+    raise ``ValueError``, as in the JAX package.
     """
 
     def __call__(
@@ -419,28 +427,45 @@ class Serve:
         device=None,
         **kwargs,
     ):
-        later = [k for k, v in (("artifact", artifact), ("data_parallel", data_parallel),
-                                ("spatial_partitioning", int(spatial_partitioning or 1) > 1))
-                 if v]
-        if later:
-            raise NotImplementedError(
-                f"serve keys {later} belong to later slices of the port "
-                "(export artifact, data/spatial parallelism)")
-        from .inference_app import build_serving_predictor
+        parallel = [k for k, v in (("data_parallel", data_parallel),
+                                   ("spatial_partitioning", int(spatial_partitioning or 1) > 1))
+                    if v]
+        if artifact:
+            if parallel:
+                raise ValueError(
+                    "artifact serving is single-device (the exported program "
+                    "has no mesh); use the model keys for data_parallel / "
+                    "spatial_partitioning")
+            from ..export.aot import load_detector_artifact
 
-        missing = [k for k, v in [("model_config_file", model_config_file),
-                                  ("classes_name_file", classes_name_file),
-                                  ("anchors_file", anchors_file),
-                                  ("input_weights_path", input_weights_path),
-                                  ("image_size", image_size)] if not v]
-        if missing:
-            raise ValueError(f"serve config needs {missing}")
-        predictor, class_names, model_name = build_serving_predictor(
-            model_config_file, classes_name_file, anchors_file,
-            input_weights_path, image_size, yolo_max_boxes,
-            nms_iou_threshold, nms_score_threshold, quantize,
-            compute_precision, calibration_images_dir, letterbox=letterbox,
-            nms_per_class=nms_per_class, device=device)
+            predictor, manifest = load_detector_artifact(artifact, device=device)
+            class_names = manifest["class_names"]
+            image_size = int(manifest["image_size"])
+            quantize = manifest.get("quantize")
+            model_name = manifest.get("model_name", "yolov3")
+            # the artifact's preprocessing hint (an int8 tier calibrated on
+            # letterboxed frames); the serve key can still force it on
+            letterbox = letterbox or bool(manifest.get("letterbox"))
+        else:
+            if parallel:
+                raise NotImplementedError(
+                    f"serve keys {parallel} belong to a later slice of the port "
+                    "(data/spatial parallelism)")
+            from .inference_app import build_serving_predictor
+
+            missing = [k for k, v in [("model_config_file", model_config_file),
+                                      ("classes_name_file", classes_name_file),
+                                      ("anchors_file", anchors_file),
+                                      ("input_weights_path", input_weights_path),
+                                      ("image_size", image_size)] if not v]
+            if missing:
+                raise ValueError(f"serve config needs {missing} (or artifact:)")
+            predictor, class_names, model_name = build_serving_predictor(
+                model_config_file, classes_name_file, anchors_file,
+                input_weights_path, image_size, yolo_max_boxes,
+                nms_iou_threshold, nms_score_threshold, quantize,
+                compute_precision, calibration_images_dir, letterbox=letterbox,
+                nms_per_class=nms_per_class, device=device)
 
         app = DetectionApp(
             predictor, class_names, image_size,

@@ -26,7 +26,8 @@ expand, shortcut; repeated) whose shape the fused residual-block kernel
 takes runs through it (``ops/cuda/resblock.py::fused_stage``, K4) with one
 layout change in and one out, instead of K3 → K6 → ``add_requant`` a block.
 It computes the same bits. A forward with an observer runs every layer
-unfused, so the observer sees them all.
+unfused, so the observer sees them all. ``pack_fused_stages`` computes the
+fused blocks' constant kernel arguments once, ahead of the forwards.
 """
 
 from __future__ import annotations
@@ -103,6 +104,26 @@ def _fusable_stages(sm: SubModelSpec, sm_params):
         if resblock.supports(squeeze.shape[3], squeeze.shape[0]):
             fusable[first] = starts
     return fusable
+
+
+def pack_fused_stages(spec: ModelSpec, params):
+    """Chain-mode quantized ``params`` with the constant kernel arguments of
+    every residual block that the forward runs through K4
+    (``resblock.block_constants``: the repacked weights and the scalars of
+    the block's params) computed once, under the block's squeeze entry as
+    ``"fused"``. The ``int8_chain`` predictor packs its params when it is
+    built, so no forward repacks a weight and nothing is cached inside one.
+    Returns a new tree; ``params`` is left as it is."""
+    packed = dict(params)
+    for sm in spec.sub_models:
+        sm_params = dict(params[sm.name])
+        for starts in _fusable_stages(sm, sm_params).values():
+            for i in starts:
+                squeeze = sm_params[f"layer{i}"]
+                sm_params[f"layer{i}"] = dict(squeeze, fused=resblock.block_constants(
+                    squeeze, sm_params[f"layer{i + 1}"], sm_params[f"layer{i + 2}"]))
+        packed[sm.name] = sm_params
+    return packed
 
 
 def _conv_tail(x, p, bn_state, bn_train, phases, stats_subsample, leaky):

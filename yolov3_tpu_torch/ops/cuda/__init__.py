@@ -22,7 +22,22 @@
 ``build.py`` compiles and loads the sources and sets every launch function's
 ctypes signature once; ``kernel_times.py`` times K1–K6 alone on a card.
 
+K1, K2, K3, K4 and K6 are ``torch.library`` custom ops in the
+``yolov3_torch`` namespace (``torch.ops.yolov3_torch.suppression_sweep``,
+``round_sweep``, ``conv1x1_int8_requant``, ``conv_int8``,
+``fused_resblock``), registered when this package is imported: each op's CPU
+kernel is the plain version, its CUDA kernel the launch (the only place the
+kernel's ctypes function is called), and its fake kernel gives the output's
+shape and type at a symbolic batch, so ``torch.export`` keeps each kernel as
+one node of an exported program (``export/aot.py``). The wrappers keep their
+names and signatures and call the op. K5 stays a direct wrapper with its
+``torch.autograd.Function``: it runs in training and recalibration only, and
+BatchNorm is folded at serving.
+
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in
-an integer attribute ``launches``.
+an integer attribute ``launches``, which the op's CUDA kernel increments: a
+loaded program's launches count too.
 """
+
+from . import conv1x1, conv_int8, nms_kernel, resblock, round_sweep  # noqa: F401

@@ -28,7 +28,10 @@ each):
   ``cp.async`` ring of ``csrc/int8_wgmma.cuh``;
 * otherwise — "mma.sync": one shared-memory stage and ``mma.sync``.
 
-All three are bit-equal to ``conv1x1_int8_requant_plain``.
+All three are bit-equal to ``conv1x1_int8_requant_plain``. The kernel is
+reached only through the ``yolov3_torch::conv1x1_int8_requant`` op (CPU
+kernel: the plain version; see ``nms_kernel.py``), which makes its operands
+contiguous.
 """
 
 from __future__ import annotations
@@ -103,21 +106,35 @@ def conv1x1_int8_requant(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
                          out_dtype=torch.int8):
     """xq (M, Cin) int8, wq (Cout, Cin) int8, scale/bias (Cout,) f32,
     inv_out_scale a one-element f32 tensor (unused, may be None, when
-    ``out_dtype`` is float32) → (M, Cout) ``out_dtype``. CPU tensors take
-    the plain version; CUDA tensors launch one kernel (the path of ``plan``;
-    counted in ``conv1x1_int8_requant.launches``) or raise."""
-    if xq.device.type == "cpu":
-        return conv1x1_int8_requant_plain(xq, wq, scale, bias, inv_out_scale, leaky=leaky,
-                                          out_dtype=out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"conv1x1_int8_requant: unsupported device {xq.device}")
+    ``out_dtype`` is float32) → (M, Cout) ``out_dtype``, through the
+    ``yolov3_torch::conv1x1_int8_requant`` op: CPU tensors take the plain
+    version; CUDA tensors launch one kernel (the path of ``plan``; counted in
+    ``conv1x1_int8_requant.launches``) or raise."""
+    return torch.ops.yolov3_torch.conv1x1_int8_requant.default(
+        xq, wq, scale, bias, inv_out_scale, bool(leaky), out_dtype)
+
+
+conv1x1_int8_requant.launches = 0
+
+
+@torch.library.custom_op("yolov3_torch::conv1x1_int8_requant", mutates_args=(),
+                         device_types="cpu")
+def _conv1x1_op(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                inv_out_scale: torch.Tensor | None, leaky: bool,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    return conv1x1_int8_requant_plain(xq, wq, scale, bias, inv_out_scale, leaky=leaky,
+                                      out_dtype=out_dtype)
+
+
+@_conv1x1_op.register_kernel("cuda")
+def _conv1x1_cuda(xq, wq, scale, bias, inv_out_scale, leaky, out_dtype):
     if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
         raise ValueError(f"conv1x1_int8_requant: shapes {tuple(xq.shape)}, {tuple(wq.shape)}")
     if xq.dtype != torch.int8 or wq.dtype != torch.int8 or wq.device != xq.device:
         raise ValueError(f"conv1x1_int8_requant: needs int8 on one device, got {xq.dtype}, "
                          f"{wq.dtype}")
-    if not (xq.is_contiguous() and wq.is_contiguous()):
-        raise ValueError("conv1x1_int8_requant: needs contiguous xq and wq")
+    # a loaded program's strides need not be the trace's (``nms_kernel.py``)
+    xq, wq = xq.contiguous(), wq.contiguous()
     m, cin = xq.shape
     cout = wq.shape[0]
     if m >= 2 ** 31 or xq.numel() >= 2 ** 31:
@@ -136,4 +153,6 @@ def conv1x1_int8_requant(xq, wq, scale, bias, inv_out_scale, *, leaky: bool,
     return out
 
 
-conv1x1_int8_requant.launches = 0
+@_conv1x1_op.register_fake
+def _conv1x1_fake(xq, wq, scale, bias, inv_out_scale, leaky, out_dtype):
+    return xq.new_empty((xq.shape[0], wq.shape[0]), dtype=out_dtype)

@@ -25,7 +25,10 @@ Two paths, chosen from the shape alone (``plan`` mirrors the choice that
   cluster, which add their exact s32 sums before the one epilogue.
 * otherwise (the image's Cin = 3): a byte-by-byte gather and ``mma.sync``.
 
-Both are bit-equal to ``conv_int8_plain``: integer sums, one epilogue.
+Both are bit-equal to ``conv_int8_plain``: integer sums, one epilogue. The
+kernel is reached only through the ``yolov3_torch::conv_int8`` op (CPU
+kernel: the plain version; see ``nms_kernel.py``), which makes its operands
+contiguous.
 """
 
 from __future__ import annotations
@@ -80,23 +83,38 @@ def conv_int8(xq, kq, scale, bias, inv_out_scale, *, stride: int, padding, leaky
     """xq (B, H, W, Cin) int8 NHWC, kq (Cout, kh, kw, Cin) int8, scale/bias
     (Cout,) f32, inv_out_scale a one-element f32 tensor (unused when
     ``out_dtype`` is float32), ``padding`` ((top, bottom), (left, right)) →
-    (B, Ho, Wo, Cout) ``out_dtype``. CPU tensors take the plain version; CUDA
-    tensors launch ``conv_int8_wgmma_kernel`` or ``conv_int8_bytes_kernel``
-    (see ``plan``; counted in ``conv_int8.launches``) or raise."""
-    if xq.device.type == "cpu":
-        return conv_int8_plain(xq, kq, scale, bias, inv_out_scale, stride=stride,
-                               padding=padding, leaky=leaky, out_dtype=out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"conv_int8: unsupported device {xq.device}")
+    (B, Ho, Wo, Cout) ``out_dtype``, through the ``yolov3_torch::conv_int8``
+    op: CPU tensors take the plain version; CUDA tensors launch
+    ``conv_int8_wgmma_kernel`` or ``conv_int8_bytes_kernel`` (see ``plan``;
+    counted in ``conv_int8.launches``) or raise."""
+    (top, bottom), (left, right) = padding
+    return torch.ops.yolov3_torch.conv_int8.default(
+        xq, kq, scale, bias, inv_out_scale, int(stride), [top, bottom, left, right],
+        bool(leaky), out_dtype)
+
+
+conv_int8.launches = 0
+
+
+@torch.library.custom_op("yolov3_torch::conv_int8", mutates_args=(), device_types="cpu")
+def _conv_int8_op(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  inv_out_scale: torch.Tensor | None, stride: int, pads: list[int],
+                  leaky: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    return conv_int8_plain(xq, kq, scale, bias, inv_out_scale, stride=stride,
+                           padding=(pads[:2], pads[2:]), leaky=leaky, out_dtype=out_dtype)
+
+
+@_conv_int8_op.register_kernel("cuda")
+def _conv_int8_cuda(xq, kq, scale, bias, inv_out_scale, stride, pads, leaky, out_dtype):
     if xq.dim() != 4 or kq.dim() != 4 or xq.shape[3] != kq.shape[3]:
         raise ValueError(f"conv_int8: shapes {tuple(xq.shape)}, {tuple(kq.shape)}")
     if xq.dtype != torch.int8 or kq.dtype != torch.int8 or kq.device != xq.device:
         raise ValueError(f"conv_int8: needs int8 on one device, got {xq.dtype}, {kq.dtype}")
-    if not (xq.is_contiguous() and kq.is_contiguous()):
-        raise ValueError("conv_int8: needs contiguous xq (NHWC) and kq")
+    # a loaded program's strides need not be the trace's (``nms_kernel.py``)
+    xq, kq = xq.contiguous(), kq.contiguous()
     b, h, w, cin = xq.shape
     cout, kh, kw, _ = kq.shape
-    (top, bottom), (left, right) = padding
+    top, bottom, left, right = pads
     ho, wo = out_size(h, kh, stride, (top, bottom)), out_size(w, kw, stride, (left, right))
     if ho <= 0 or wo <= 0 or b * ho * wo >= 2 ** 31 or xq.numel() >= 2 ** 31:
         raise ValueError(f"conv_int8: output {b}×{ho}×{wo} out of range")
@@ -113,4 +131,9 @@ def conv_int8(xq, kq, scale, bias, inv_out_scale, *, stride: int, padding, leaky
     return out
 
 
-conv_int8.launches = 0
+@_conv_int8_op.register_fake
+def _conv_int8_fake(xq, kq, scale, bias, inv_out_scale, stride, pads, leaky, out_dtype):
+    b, h, w, _ = xq.shape
+    cout, kh, kw, _ = kq.shape
+    return xq.new_empty((b, out_size(h, kh, stride, pads[:2]), out_size(w, kw, stride, pads[2:]),
+                         cout), dtype=out_dtype)

@@ -13,6 +13,16 @@ note says why) in one launch, a block an image holding the packed matrix in
 shared memory. The TPU's K % 128 limit was a VMEM layout limit and is gone;
 its K ≤ 1024 becomes K ≤ ``MAX_SWEEP_K`` = 1300, what that shared memory
 holds (``ops/nms.py`` sends K above 512 to the round sweep).
+
+The kernel is reached only through the ``yolov3_torch::suppression_sweep``
+op (``torch.library``), registered at import: its CPU kernel is the plain
+version, its CUDA kernel the launch, and its fake kernel gives the output's
+shape, so ``torch.export`` records the op as one node of a program. The CUDA
+kernels of these ops make their operands contiguous rather than refuse
+other strides: a loaded program replays the graph with strides that need not
+be the trace's (on an H100, YOLOv3-416's stem conv input came out of a
+loaded program with its H and W strides swapped, where the trace had it
+contiguous and had dropped the ``.contiguous()`` of the eager code).
 """
 
 from __future__ import annotations
@@ -41,14 +51,23 @@ def suppression_sweep_ref(suppress_mat, valid):
 
 
 def suppression_sweep(suppress_mat, valid):
-    """(B, K, K) bool, (B, K) bool → keep (B, K) bool. CPU tensors take the
-    plain version; CUDA tensors run the kernel on the masks in place, with no
-    copy (one launch, counted in ``suppression_sweep.launches``), or
-    raise."""
-    if suppress_mat.device.type == "cpu":
-        return suppression_sweep_ref(suppress_mat, valid)
-    if suppress_mat.device.type != "cuda":
-        raise ValueError(f"suppression_sweep: unsupported device {suppress_mat.device}")
+    """(B, K, K) bool, (B, K) bool → keep (B, K) bool, through the
+    ``yolov3_torch::suppression_sweep`` op: CPU tensors take the plain
+    version; CUDA tensors run the kernel on the masks in place, with no copy
+    (one launch, counted in ``suppression_sweep.launches``), or raise."""
+    return torch.ops.yolov3_torch.suppression_sweep.default(suppress_mat, valid)
+
+
+suppression_sweep.launches = 0
+
+
+@torch.library.custom_op("yolov3_torch::suppression_sweep", mutates_args=(), device_types="cpu")
+def _sweep_op(suppress_mat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return suppression_sweep_ref(suppress_mat, valid)
+
+
+@_sweep_op.register_kernel("cuda")
+def _sweep_cuda(suppress_mat, valid):
     b, k, k2 = suppress_mat.shape
     if k != k2 or tuple(valid.shape) != (b, k):
         raise ValueError(f"suppression_sweep: shapes {tuple(suppress_mat.shape)}, "
@@ -70,4 +89,6 @@ def suppression_sweep(suppress_mat, valid):
     return keep
 
 
-suppression_sweep.launches = 0
+@_sweep_op.register_fake
+def _sweep_fake(suppress_mat, valid):
+    return suppress_mat.new_empty(suppress_mat.shape[:2], dtype=torch.bool)

@@ -14,17 +14,20 @@ bit-compatible with the unfused chain ``conv2d_int8`` (K3) → ``conv2d_int8``
 (K6) → ``add_requant``. The weights come packed as the port keeps them, one
 row per output channel: w1 (Cm, C), w2 (9, C, Cm) tap-major (tap = dy·3+dx);
 the JAX kernel takes the transposes. ``block_args`` builds a block's
-arguments from chain-mode quantized params (``packed_block_args`` keeps them
-per model). The JAX package wires its kernel into no predictor; the port's
-``int8_chain`` tier runs every residual stage whose shape the kernel takes
-(``supports``) through ``fused_stage`` (``models/network.py``).
+arguments from chain-mode quantized params; those that depend on the params
+alone (``block_constants``) the ``int8_chain`` predictor computes once when
+it is built (``models/network.py::pack_fused_stages``). The JAX package wires
+its kernel into no predictor; the port's ``int8_chain`` tier runs every
+residual stage whose shape the kernel takes (``supports``) through
+``fused_stage`` (``models/network.py``). The kernel is reached only through
+the ``yolov3_torch::fused_resblock`` op (CPU kernel: the plain version; see
+``nms_kernel.py``), which makes its operands contiguous.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
-import weakref
 
 import numpy as np
 import torch
@@ -87,15 +90,17 @@ def from_halo(xp, b: int, h: int, w: int):
     return xp.reshape(b, h + 2, w + 2, xp.shape[1])[:, 1:h + 1, 1:w + 1, :]
 
 
-def block_args(squeeze, expand, shortcut, s_x):
-    """One residual block's kernel arguments from chain-mode quantized params.
+def block_constants(squeeze, expand, shortcut):
+    """The kernel arguments of one residual block that depend on its
+    chain-mode quantized params alone: every argument but ``scale1`` and
+    ``s_x``, which follow the scale of the block's input.
 
     ``squeeze`` / ``expand``: the 1×1 and 3×3 conv entries (``kernel_q``
     (cout, kh, kw, cin), ``w_scale``, ``bias``, ``out_scale``); ``shortcut``:
-    the shortcut layer's entry (``out_scale``); ``s_x``: the scale of the
-    block's input activation. Every scalar is the f32 value the unfused chain
-    computes (``w_scale·in_scale``, ``1/out_scale``), so the fused block is
-    bit-equal to it. Returns ``(kwargs for fused_resblock, output scale)``.
+    the shortcut layer's entry (``out_scale``). Every scalar is the f32 value
+    the unfused chain computes (``w_scale·in_scale``, ``1/out_scale``), so
+    the fused block is bit-equal to it. The weights are new tensors (w1 a
+    copy, w2 repacked tap-major), sharing no storage with the params.
     """
     k1, k2 = squeeze["kernel_q"], expand["kernel_q"]
     cm, c = k1.shape[0], k1.shape[3]
@@ -104,41 +109,23 @@ def block_args(squeeze, expand, shortcut, s_x):
                          f"{tuple(k1.shape)}, {tuple(k2.shape)}")
     s1, s2 = squeeze["out_scale"], expand["out_scale"]
     return dict(
-        w1=k1.reshape(cm, c),
+        w1=k1.reshape(cm, c).clone(),
         w2=k2.permute(1, 2, 0, 3).reshape(9, c, cm).contiguous(),
-        scale1=(squeeze["w_scale"] * s_x).to(torch.float32), bias1=squeeze["bias"],
-        inv_s1=torch.reciprocal(s1),
+        bias1=squeeze["bias"], inv_s1=torch.reciprocal(s1),
         scale2=(expand["w_scale"] * s1).to(torch.float32), bias2=expand["bias"],
-        inv_s2=torch.reciprocal(s2), s2=s2, s_x=s_x,
-        inv_out=torch.reciprocal(shortcut["out_scale"])), shortcut["out_scale"]
+        inv_s2=torch.reciprocal(s2), s2=s2,
+        inv_out=torch.reciprocal(shortcut["out_scale"]))
 
 
-# a block's packed arguments, kept while its squeeze weight lives: id of the
-# squeeze kernel_q → (weak reference to it, s_x, expand kernel_q, shortcut
-# out_scale, kwargs, output scale); tensors compare element-wise, so the key is
-# the id, and a finalizer drops the entry with the weight
-_packed = {}
-
-
-def packed_block_args(squeeze, expand, shortcut, s_x):
-    """``block_args``, computed once per block of a model and then reused: the
-    arguments are constants of the quantized params (the w2 repack and five
-    scalar ops would otherwise run on every forward). Keyed weakly by the
-    squeeze's weight and checked against the other tensors they come from;
-    nothing cached refers back to the key, so the entry goes with the
-    params."""
-    key = squeeze["kernel_q"]
-    hit = _packed.get(id(key))
-    if (hit is not None and hit[0]() is key and hit[1] is s_x and hit[2] is expand["kernel_q"]
-            and hit[3] is shortcut["out_scale"]):
-        return hit[4], hit[5]
-    kwargs, out_scale = block_args(squeeze, expand, shortcut, s_x)
-    kwargs["w1"] = kwargs["w1"].clone()   # a view would keep the key alive
-    if hit is None or hit[0]() is not key:
-        weakref.finalize(key, _packed.pop, id(key), None)
-    _packed[id(key)] = (weakref.ref(key), s_x, expand["kernel_q"], shortcut["out_scale"], kwargs,
-                        out_scale)
-    return kwargs, out_scale
+def block_args(squeeze, expand, shortcut, s_x):
+    """One residual block's kernel arguments at input scale ``s_x`` (a 0-d
+    f32 tensor) → ``(kwargs for fused_resblock, output scale)``. The
+    constants come from ``squeeze["fused"]`` where the params were packed
+    (``models/network.py::pack_fused_stages``), else from
+    ``block_constants``."""
+    constants = squeeze.get("fused") or block_constants(squeeze, expand, shortcut)
+    return (dict(constants, scale1=(squeeze["w_scale"] * s_x).to(torch.float32), s_x=s_x),
+            shortcut["out_scale"])
 
 
 def residual_blocks(sm):
@@ -174,8 +161,8 @@ def fused_stage(x, sm_params, starts):
     b, h, w, _ = q.shape
     xp = to_halo(q)
     for i in starts:
-        kwargs, scale = packed_block_args(sm_params[f"layer{i}"], sm_params[f"layer{i + 1}"],
-                                          sm_params[f"layer{i + 2}"], scale)
+        kwargs, scale = block_args(sm_params[f"layer{i}"], sm_params[f"layer{i + 1}"],
+                                   sm_params[f"layer{i + 2}"], scale)
         xp = fused_resblock(xp, **kwargs, b=b, h=h, w=w)
     return from_halo(xp, b, h, w).contiguous(), scale
 
@@ -248,7 +235,8 @@ def plan(b: int, h: int, w: int, c: int, cm: int, sms: int = _SMS):
 
 def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
                    *, b: int, h: int, w: int):
-    """One residual block over the flat zero-halo layout.
+    """One residual block over the flat zero-halo layout, through the
+    ``yolov3_torch::fused_resblock`` op.
 
     xp (B·(H+2)·(W+2), C) int8 zero-halo; w1 (Cm, C) int8; w2 (9, C, Cm) int8;
     scale1/bias1 (Cm,) f32 with scale1 = w1_scale·s_x; scale2/bias2 (C,) f32
@@ -257,11 +245,25 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
     halo matrix at scale 1/inv_out. CPU tensors take the plain version; CUDA
     tensors launch ``resblock_int8_kernel`` (counted in
     ``fused_resblock.launches``) or raise."""
-    if xp.device.type == "cpu":
-        return fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2,
-                                    s2, s_x, inv_out, b=b, h=h, w=w)
-    if xp.device.type != "cuda":
-        raise ValueError(f"fused_resblock: unsupported device {xp.device}")
+    return torch.ops.yolov3_torch.fused_resblock.default(
+        xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out, b, h, w)
+
+
+fused_resblock.launches = 0
+
+
+@torch.library.custom_op("yolov3_torch::fused_resblock", mutates_args=(), device_types="cpu")
+def _resblock_op(xp: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, scale1: torch.Tensor,
+                 bias1: torch.Tensor, inv_s1: torch.Tensor, scale2: torch.Tensor,
+                 bias2: torch.Tensor, inv_s2: torch.Tensor, s2: torch.Tensor, s_x: torch.Tensor,
+                 inv_out: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+    return fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
+                                s_x, inv_out, b=b, h=h, w=w)
+
+
+@_resblock_op.register_kernel("cuda")
+def _resblock_cuda(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
+                   b, h, w):
     c, cm = xp.shape[1], w1.shape[0]
     if (xp.dim() != 2 or xp.shape[0] != b * (h + 2) * (w + 2) or tuple(w1.shape) != (cm, c)
             or tuple(w2.shape) != (9, c, cm)):
@@ -269,11 +271,13 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
                          f"{tuple(w2.shape)} for b={b}, h={h}, w={w}")
     if c % 32 or cm % 16:
         raise ValueError(f"fused_resblock: needs C % 32 == 0 and Cm % 16 == 0, got {c}, {cm}")
+    # a loaded program's strides need not be the trace's (``nms_kernel.py``)
+    tensors = xp, w1, w2, scale1, bias1, scale2, bias2 = [
+        t.contiguous() for t in (xp, w1, w2, scale1, bias1, scale2, bias2)]
     if any(t.data_ptr() % 16 for t in (xp, w1, w2)):
         raise ValueError("fused_resblock: needs 16-byte aligned xp, w1 and w2")
-    tensors = (xp, w1, w2, scale1, bias1, scale2, bias2)
-    if any(t.device != xp.device or not t.is_contiguous() for t in tensors):
-        raise ValueError("fused_resblock: needs contiguous tensors on one device")
+    if any(t.device != xp.device for t in tensors):
+        raise ValueError("fused_resblock: needs tensors on one device")
     if any(t.dtype != torch.int8 for t in tensors[:3]) or any(
             t.dtype != torch.float32 for t in tensors[3:]):
         raise ValueError("fused_resblock: needs int8 xp/w1/w2 and f32 scales and biases")
@@ -297,4 +301,7 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
     return out
 
 
-fused_resblock.launches = 0
+@_resblock_op.register_fake
+def _resblock_fake(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
+                   b, h, w):
+    return torch.empty_like(xp)

@@ -14,6 +14,8 @@ own shared memory, a round folds the blocks' winners over distributed shared
 memory behind one cluster barrier, and each block kills from its own memory.
 ``plan`` mirrors the launch's shape. Its note says what bounds it (the
 dependent rounds) and why its IoU rounds exactly as ``round_sweep_ref`` does.
+The kernel is reached only through the ``yolov3_torch::round_sweep`` op
+(CPU kernel: the plain version; see ``nms_kernel.py``).
 """
 
 from __future__ import annotations
@@ -94,13 +96,25 @@ def round_sweep_ref(bboxes, scores, iou_threshold, score_threshold, max_boxes: i
 
 
 def round_sweep(bboxes, scores, iou_threshold, score_threshold, max_boxes: int = 100):
-    """(sel (B, max_boxes) int32, num_valid (B,) int32). CPU tensors take the
-    plain version; CUDA tensors launch ``round_sweep_kernel`` (counted in
+    """(sel (B, max_boxes) int32, num_valid (B,) int32), through the
+    ``yolov3_torch::round_sweep`` op: CPU tensors take the plain version;
+    CUDA tensors launch ``round_sweep_kernel`` (counted in
     ``round_sweep.launches``) or raise."""
-    if bboxes.device.type == "cpu":
-        return round_sweep_ref(bboxes, scores, iou_threshold, score_threshold, max_boxes)
-    if bboxes.device.type != "cuda":
-        raise ValueError(f"round_sweep: unsupported device {bboxes.device}")
+    return torch.ops.yolov3_torch.round_sweep.default(
+        bboxes, scores, float(iou_threshold), float(score_threshold), int(max_boxes))
+
+
+round_sweep.launches = 0
+
+
+@torch.library.custom_op("yolov3_torch::round_sweep", mutates_args=(), device_types="cpu")
+def _round_sweep_op(bboxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+                    score_threshold: float, max_boxes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return round_sweep_ref(bboxes, scores, iou_threshold, score_threshold, max_boxes)
+
+
+@_round_sweep_op.register_kernel("cuda")
+def _round_sweep_cuda(bboxes, scores, iou_threshold, score_threshold, max_boxes):
     b, n, four = bboxes.shape
     if four != 4 or tuple(scores.shape) != (b, n) or scores.device != bboxes.device:
         raise ValueError(f"round_sweep: shapes {tuple(bboxes.shape)}, {tuple(scores.shape)}")
@@ -119,5 +133,8 @@ def round_sweep(bboxes, scores, iou_threshold, score_threshold, max_boxes: int =
     return sel, nv
 
 
-round_sweep.launches = 0
-
+@_round_sweep_op.register_fake
+def _round_sweep_fake(bboxes, scores, iou_threshold, score_threshold, max_boxes):
+    b = bboxes.shape[0]
+    return (bboxes.new_empty((b, max_boxes), dtype=torch.int32),
+            bboxes.new_empty((b,), dtype=torch.int32))
