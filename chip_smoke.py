@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. card identity (nvidia-smi name + power limit) and the fp32 settings
-     (no TF32 in cuDNN convolutions, matmul precision "highest");
+  1. card identity (nvidia-smi name + power limit), the torch and CUDA
+     versions and the fp32 settings (no TF32 in cuDNN convolutions, matmul
+     precision "highest"; the port's fp32 entry points pin the same on their
+     own, ``device.pin_fp32_ieee``);
   2. build the hand-written CUDA kernels from the checkout's sources;
   3. K1 (NMS suppression sweep) against its plain PyTorch version on the
      card, K=512 (the serving bucket) at B=16, 1 and 4: identical keep
@@ -153,7 +155,26 @@ Phases (any failure exits non-zero):
      the ``kernels`` line), eager against loaded at B=16 in turns (event-loop
      and device-busy ms), the host's µs a call of the K1 and K3 ops against
      their direct ctypes launch, and ``int8_chain`` served from its model keys
-     and from its artifact (``Serve``'s ``artifact:`` key) in turns.
+     and from its artifact (``Serve``'s ``artifact:`` key) in turns; the fp32
+     program's 8.9e-7 traced: loaded here against eager, and loaded in a
+     process of its own with cuDNN's algorithm choice pinned on both sides
+     (deterministic, no benchmarking);
+ 24. data parallelism (outputs under ``build/smoke_dp/``), the seeded
+     YOLOv3-416 (3 classes, fp32 IEEE) on phase 15's first 16 shapes_toy
+     images, each run a process of its own (``--dp-worker``): (a) two ranks
+     on the one card over gloo, 8 images each — the data-parallel gradient
+     against one process's (loss terms 1e-4, BN state 1e-4, gradient leaves
+     2e-4 of the leaf max or, ill-conditioned, both against float64 on the
+     card as phase 14), both ranks' state after a DP step bit-identical, K5
+     and its sync all-reduces counted (72 each way a pass); (b) world size 1
+     over NCCL: the DP step bit-equal to the plain step, both in turns (ms a
+     step, device-busy ms), the 248 MB gradient all-reduce and one step's 72
+     BN all-reduces timed; (c) ``make_predictor(mesh=)`` over ("cuda:0",
+     "cuda:0") at B=16 in fp32 and ``int8_chain`` against the single
+     predictor (NMS index-exact, boxes 1e-5), K1, K3, K4, K6 launched, no
+     host sync inside a sharded call, and ``Serve`` with
+     ``data_parallel: true`` on one card logging the no-op and answering as
+     the plain server.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -2810,19 +2831,34 @@ def phase_recalibrate(inference_app, bn_stats, bodies, smi):
 
 ARTIFACT_DIR = os.path.join(ROOT, "build", "smoke_artifact")
 ARTIFACT_BATCHES = (1, 4, 16)
+# phase 23's seeded YOLOv3-416, 80 COCO classes: model, class names, anchors
+ARTIFACT_MODEL = tuple(os.path.join(ROOT, f) for f in (
+    "config/models/yolov3/model.yaml", "datasets/coco2012/coco.names",
+    "datasets/coco2012/anchors.txt"))
 NMS_OUTPUTS = ("bboxes", "class_idx", "scores", "selected", "num_valid")
 
 
 def artifact_child(inputs, *paths):
-    """``python3 chip_smoke.py --load-artifact <inputs.npz> <artifact.zip> …``,
-    which phase 23 starts: in a process of its own, load each artifact on the
-    card and answer the images of ``inputs`` at B = 1, 4 and 16; write every
-    output to ``<artifact>.out.npz`` and print one JSON line (seconds to load,
-    to answer the first call, the kernels' launches of one B=16 call)."""
+    """``python3 chip_smoke.py --load-artifact [--deterministic] <inputs.npz>
+    <artifact.zip> …``, which phase 23 starts: in a process of its own, load
+    each artifact on the card and answer the images of ``inputs`` at B = 1, 4
+    and 16; write every output to ``<artifact>.out.npz`` and print one JSON
+    line (seconds to load, to answer the first call, the kernels' launches of
+    one B=16 call). ``--deterministic`` pins cuDNN to deterministic
+    algorithms without benchmarking (``cudnn_pinned``) before anything runs,
+    and then this process also builds phase 23's seeded fp32 predictor
+    eagerly and writes its answers to ``<artifact>.eager.npz`` (the eager
+    program in a process of its own, beside the loaded one). The fp32
+    precision is the artifact's own (its manifest, applied by the loader):
+    this process sets none."""
     from yolov3_tpu_torch.export.aot import load_detector_artifact
     from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock
 
-    fp32_settings()
+    eager = inputs == "--deterministic"
+    if eager:
+        cudnn_pinned(True)
+        inputs = paths[0]
+        paths = paths[1:]
     wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
                     conv1x1_int8=conv1x1.conv1x1_int8_requant,
                     resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
@@ -2848,8 +2884,31 @@ def artifact_child(inputs, *paths):
             quantize=manifest["quantize"], load_s=load_s, first_call_s=seconds[1],
             call_s={str(b): v for b, v in seconds.items()},
             launches_b16={k: w.launches for k, w in wrappers.items()})
+        if eager:
+            from yolov3_tpu_torch.apps.inference_app import build_serving_predictor
+
+            del predict
+            here = build_serving_predictor(*ARTIFACT_MODEL, None, 416, nms_score_threshold=0.1,
+                                           seed=0)[0]
+            eager_outs = {}
+            with torch.inference_mode():
+                for b in ARTIFACT_BATCHES:
+                    res = here(images[:b])
+                    eager_outs.update({f"{name}_{b}": t.cpu().numpy()
+                                       for name, t in zip(NMS_OUTPUTS, res)})
+            np.savez(f"{path}.eager.npz", **eager_outs)
+            rows[os.path.basename(path)]["eager_equals_loaded_here"] = all(
+                np.array_equal(eager_outs[k], outs[k]) for k in outs)
     print(json.dumps(rows), flush=True)
     return 0
+
+
+def cudnn_pinned(on: bool):
+    """cuDNN's algorithm choice pinned (deterministic algorithms, no
+    benchmarking) or back to PyTorch's defaults (heuristics, no
+    benchmarking)."""
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
 
 
 def op_host_cost(nms_kernel, conv1x1):
@@ -2915,9 +2974,7 @@ def phase_artifact(inference_app, serve_app, nms_mod, bodies, nms_kernel, conv1x
     from yolov3_tpu_torch.export import aot
 
     os.makedirs(ARTIFACT_DIR, exist_ok=True)
-    model = os.path.join(ROOT, "config/models/yolov3/model.yaml")
-    names = os.path.join(ROOT, "datasets/coco2012/coco.names")
-    anchors = os.path.join(ROOT, "datasets/coco2012/anchors.txt")
+    model, names, anchors = ARTIFACT_MODEL
     images = smoke_images(bodies, 16)
     inputs = os.path.join(ARTIFACT_DIR, "inputs.npz")
     np.savez(inputs, images=images)
@@ -3001,6 +3058,48 @@ def phase_artifact(inference_app, serve_app, nms_mod, bodies, nms_kernel, conv1x
             raise AssertionError(f"{tier}: the loaded B=16 call in its own process launched "
                                  f"{row['launches_b16']}, expected {want_launches[tier]}")
 
+    # A2: the fp32 program loaded in a process of its own was index-exact
+    # with eager, not bit-equal (8.9e-7 apart). Loaded in THIS process (the
+    # same cuDNN state as eager), and loaded in a process of its own with
+    # cuDNN's algorithm choice pinned on both sides
+    fp32_trace = {}
+    loaded, _ = aot.load_detector_artifact(paths["fp32"])
+    with torch.inference_mode():
+        here, eager = loaded(batch16), predictors["fp32"](batch16)
+    fp32_trace["loaded_here"] = dict(bit_equal=all(torch.equal(a, b) for a, b in zip(here, eager)),
+                                     boxes_max_abs_err=max_abs(here[0], eager[0]))
+    fp32_trace["own_process_default"] = dict(
+        bit_equal=tiers["fp32"]["loaded_vs_eager"][16]["bit_equal"],
+        boxes_max_abs_err=tiers["fp32"]["loaded_vs_eager"][16]["boxes_max_abs_err"])
+    del loaded, here
+    cudnn_pinned(True)
+    try:
+        child_pinned = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--load-artifact", "--deterministic",
+             inputs, paths["fp32"]], capture_output=True, text=True, timeout=600)
+        if child_pinned.returncode != 0:
+            raise AssertionError(f"the pinned artifact process failed (rc "
+                                 f"{child_pinned.returncode}): {child_pinned.stderr[-3000:]}")
+        got = np.load(f"{paths['fp32']}.out.npz")
+        eager_there = np.load(f"{paths['fp32']}.eager.npz")
+        there = json.loads(child_pinned.stdout.strip().splitlines()[-1])[
+            os.path.basename(paths["fp32"])]
+        fp32_trace["own_process_pinned_eager_equals_loaded"] = there["eager_equals_loaded_here"]
+        with torch.inference_mode():
+            pinned = {b: [t.cpu() for t in predictors["fp32"](batch16[:b])]
+                      for b in ARTIFACT_BATCHES}
+    finally:
+        cudnn_pinned(False)
+    for b in ARTIFACT_BATCHES:
+        loaded_b = [torch.from_numpy(got[f"{name}_{b}"]) for name in NMS_OUTPUTS]
+        there_b = [torch.from_numpy(eager_there[f"{name}_{b}"]) for name in NMS_OUTPUTS]
+        fp32_trace[f"own_process_pinned_b{b}"] = dict(
+            bit_equal=all(torch.equal(a, e) for a, e in zip(loaded_b, pinned[b])),
+            boxes_max_abs_err=max_abs(loaded_b[0], pinned[b][0]),
+            eager_there_vs_eager_here=max_abs(there_b[0], pinned[b][0]))
+    tiers["fp32"]["a2_trace"] = fp32_trace
+    log(f"artifact fp32 trace (cuDNN default vs pinned) {json.dumps(fp32_trace)}")
+
     # this process: the loaded program's launches, and eager against loaded
     counts = {}
     for tier, path in paths.items():
@@ -3058,6 +3157,462 @@ def phase_artifact(inference_app, serve_app, nms_mod, bodies, nms_kernel, conv1x
     return row, counts
 
 
+DP_DIR = os.path.join(ROOT, "build", "smoke_dp")
+DP_BATCH = 16  # the global batch of phase 24: 2 ranks × 8, or 1 × 16
+
+
+def dp_model(device, dtype=torch.float32):
+    """The seeded YOLOv3-416 of phases 14 and 15 (3 shapes_toy classes) on
+    ``device`` → (spec, params, BN state, anchors, head grids)."""
+    from yolov3_tpu_torch import models
+    from yolov3_tpu_torch.config import get_anchors, read_class_names
+    from yolov3_tpu_torch.models.network import head_grid_sizes, to_device
+
+    files = toy_training_files()
+    spec = models.parse_model_config(files["model"], len(read_class_names(files["names"])))
+    params, state = models.init_model(spec, torch.Generator().manual_seed(0))
+    return (spec, to_device(params, device, dtype), to_device(state, device, dtype),
+            get_anchors(files["anchors"]), head_grid_sizes(spec, 416))
+
+
+def dp_inputs():
+    """Phase 15's data: the first 16 shapes_toy training images at 416² and
+    their labels, written to ``build/smoke_dp/inputs.npz`` for the ranks."""
+    from yolov3_tpu_torch.data.tfrecord import parse_tfrecords
+
+    files = toy_training_files()
+    examples = list(parse_tfrecords(files["train"], 416, 100, files["names"]))[:DP_BATCH]
+    images = np.stack([e[0] for e in examples]).astype(np.float32)
+    labels = np.stack([e[1] for e in examples]).astype(np.float32)
+    os.makedirs(DP_DIR, exist_ok=True)
+    path = os.path.join(DP_DIR, "inputs.npz")
+    np.savez(path, images=images, labels=labels)
+    return path, images, labels
+
+
+def k5_counts():
+    from yolov3_tpu_torch.ops.cuda import bn_stats
+
+    return dict(forward=bn_stats.bn_sums.launches, backward=bn_stats.bn_moments_dx.launches,
+                sync_forward=bn_stats.bn_sums.sync_launches,
+                sync_backward=bn_stats.bn_moments_dx.sync_launches)
+
+
+def reset_k5_counts():
+    from yolov3_tpu_torch.ops.cuda import bn_stats
+
+    bn_stats.bn_sums.launches = bn_stats.bn_moments_dx.launches = 0
+    bn_stats.bn_sums.sync_launches = bn_stats.bn_moments_dx.sync_launches = 0
+
+
+def state_digest(state):
+    """sha256 of every leaf of a train state, in sorted-key order."""
+    import hashlib
+
+    from yolov3_tpu_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(state):
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(mode, rank, world, port, inputs):
+    """``python3 chip_smoke.py --dp-worker <mode> <rank> <world> <port>
+    <inputs.npz>``, a rank that phase 24 starts. ``gloo``: one of two ranks
+    on the one card, joined over gloo: the data-parallel gradient of its 8
+    images (sync-BN, the coalesced mean) written by rank 0 to
+    ``dp_grads.npz``, then one DP train step (Adam, EMA) whose state's digest
+    it prints. ``nccl``: world size 1 over NCCL, the plain step and the DP
+    step in turns from one state (bit-equal), ms a step by host clock and
+    the device's busy ms (profiler), and the time of the coalesced 248 MB
+    gradient all-reduce and of one step's 72 per-layer BN all-reduces (CUDA
+    events). Prints one JSON line."""
+    import torch.distributed as dist
+
+    from yolov3_tpu_torch.device import pin_fp32_ieee, resolve_device
+    from yolov3_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from yolov3_tpu_torch.parallel.train_step import (init_train_state, loss_and_grads,
+                                                      make_adam, make_train_step)
+    from yolov3_tpu_torch.tree import tree_leaves, tree_unflatten
+
+    rank, world = int(rank), int(world)
+    initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                         backend="gloo" if mode == "gloo" else "nccl")
+    try:
+        dev = resolve_device(None)
+        pin_fp32_ieee(dev)
+        spec, params, state, anchors, grids = dp_model(dev)
+        mesh = make_mesh(devices=(dev,))
+        rows = mesh.local_slice(DP_BATCH)
+        data = np.load(inputs)
+        images = torch.from_numpy(data["images"][rows]).to(dev)
+        labels = torch.from_numpy(data["labels"][rows]).to(dev)
+        optimizer = make_adam(1e-3)
+        row = dict(mode=mode, rank=rank, world=world, device=str(dev), rows=[rows.start, rows.stop])
+        if mode == "gloo":
+            reset_k5_counts()
+            grads, bn, metrics = loss_and_grads(spec, params, state, images, labels, anchors,
+                                                grids, DP_BATCH // world, bn_group=mesh.group)
+            grads = tree_unflatten(grads, mesh.all_reduce_mean(tree_leaves(grads)))
+            metrics = tree_unflatten(metrics, mesh.all_reduce_mean(tree_leaves(metrics)))
+            torch.cuda.synchronize()
+            row["grad_counts"] = k5_counts()
+            if rank == 0:  # leaves in tree_paths order
+                np.savez(os.path.join(DP_DIR, "dp_grads.npz"),
+                         **{f"grad{i}": v.cpu().numpy()
+                            for i, (_, v) in enumerate(tree_paths(grads))},
+                         **{f"bn{i}": v.cpu().numpy() for i, (_, v) in enumerate(tree_paths(bn))},
+                         terms=metrics["per_grid_per_source"].cpu().numpy(),
+                         total_loss=metrics["total_loss"].cpu().numpy())
+            del grads, bn
+            step = make_train_step(spec, anchors, grids, DP_BATCH, optimizer, mesh=mesh,
+                                   ema_decay=0.999)
+            t0 = time.perf_counter()
+            new, m = step(init_train_state(params, state, optimizer, ema=True), images, labels)
+            torch.cuda.synchronize()
+            row.update(step_s=time.perf_counter() - t0, loss=float(m["total_loss"]),
+                       counts=k5_counts(), digest=state_digest(new))
+        else:
+            # bit-equal needs every kernel of the step deterministic: cuDNN's
+            # algorithms pinned, PyTorch's deterministic kernels where it has
+            # them (the ops without one are reported)
+            import warnings
+
+            cudnn_pinned(True)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            plain = make_train_step(spec, anchors, grids, DP_BATCH, optimizer)
+            dp = make_train_step(spec, anchors, grids, DP_BATCH, optimizer, mesh=mesh)
+            start = init_train_state(params, state, optimizer)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                outs = [fn(start, images, labels) for fn in (plain, plain, dp)]
+
+            def same(x, y):
+                return all(torch.equal(a, b) for u, v in zip(x, y)
+                           for a, b in zip(tree_leaves(u), tree_leaves(v)))
+
+            row.update(plain_repeat_bit_equal=same(outs[0], outs[1]),
+                       bit_equal=same(outs[0], outs[2]),
+                       nondeterministic_ops=sorted({str(w.message)[:120] for w in caught}))
+            torch.use_deterministic_algorithms(False)  # the times below: PyTorch's defaults
+            cudnn_pinned(False)
+            reset_k5_counts()
+            dp(start, images, labels)
+            torch.cuda.synchronize()
+            row["counts_one_step"] = k5_counts()
+            turns = {"plain": dict(ms=[], device_ms=[]), "dp": dict(ms=[], device_ms=[])}
+            for name in ("plain", "dp", "dp", "plain"):
+                fn = plain if name == "plain" else dp
+                fn(start, images, labels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn(start, images, labels)
+                torch.cuda.synchronize()
+                turns[name]["ms"].append((time.perf_counter() - t0) * 1e3 / 3)
+                profiled = device_time_by_kernel(lambda: fn(start, images, labels))
+                turns[name]["device_ms"].append(profiled[0] if profiled else None)
+            row["turns"] = turns
+            flat = tree_leaves(start["params"])
+            row["grad_bytes"] = sum(t.numel() * t.element_size() for t in flat)
+            row["grad_all_reduce_ms"] = cuda_ms(lambda: mesh.all_reduce_mean(flat), 10)
+            channels = [v["mean"].numel() for _, v in
+                        ((k, e) for sm in start["bn_state"].values() for k, e in sm.items())]
+            sums = [torch.zeros((2, c), device=dev) for c in channels]
+            row["bn_layers"] = len(channels)
+            row["bn_all_reduces_ms"] = cuda_ms(
+                lambda: [dist.all_reduce(t, group=mesh.group) for t in sums], 10)
+        print(json.dumps(row), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_dp_ranks(mode, world, inputs):
+    """Start ``world`` ranks of ``dp_worker`` and wait for them (a rank that
+    fails fails the phase) → their JSON rows."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    # cuBLAS's deterministic workspace, for (b)'s bit-equality
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", mode,
+                               str(rank), str(world), port, inputs],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for rank in range(world)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{mode} rank {rank} failed (rc {p.returncode}): {err[-3000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+class _ShardedMoments(torch.autograd.Function):
+    """K5 as two data-parallel ranks compute it, in one process: the sums of
+    each half of the batch (one launch each), added as the all-reduce adds
+    them, the global mean and var by the wrapper's expression, and K5's
+    backward over the whole batch with the global count. Phase 24's
+    reference for the DP gradient: BatchNorm's one-pass variance makes this
+    seeded init's gradient depend on the order of the statistics' sums
+    (tests/test_torch_parallel.py), so the reference takes them in the
+    ranks' order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from yolov3_tpu_torch.ops.cuda import bn_stats
+
+        halves = [bn_stats.bn_sums(part) for part in x.chunk(2)]
+        s, s2 = (a + b for a, b in zip(*halves))
+        n = x.numel() // x.shape[1]
+        mean = s / n
+        ctx.save_for_backward(x, mean)
+        ctx.n = n
+        return mean, torch.clamp(s2 / n - mean * mean, min=0.0)
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        from yolov3_tpu_torch.ops.cuda import bn_stats
+
+        x, mean = ctx.saved_tensors
+        return bn_stats.bn_moments_dx(x, mean, dmean, dvar, ctx.n)
+
+
+def phase_dp(inference_app, serve_app, nms_kernel, conv1x1, conv_int8, resblock, bodies, smi):
+    """Phase 24: data parallelism on the card, the seeded YOLOv3-416 (3
+    classes, 416², fp32 IEEE) on phase 15's first 16 shapes_toy images.
+
+    (a) two ranks on cuda:0 over gloo, 8 images each: the DP step against
+    one process's over all 16 on the card — loss terms 1e-4 relative (floor
+    10), new BN state 1e-4 · max(1, |value|); the DP gradient within 2e-4 of
+    each leaf's largest |value| of one process's whose BatchNorm sums are
+    taken per half and added (``_ShardedMoments``, the ranks' order); the
+    distances of the DP gradient, of the plain single process's and of the
+    per-half one from a float64 run on the card (phase 14's referee),
+    printed; both ranks' state after a DP step (params, BN state, Adam's
+    moments, EMA) bit-identical; K5 launched and one sync all-reduce each
+    way per BN layer. (b) world size 1 over NCCL: the DP
+    step bit-equal to the plain step, their ms in turns, the all-reduces'
+    ms. (c) ``make_predictor(mesh=)`` over ("cuda:0", "cuda:0") at B=16 in
+    fp32 and ``int8_chain`` against the single predictor (NMS index-exact,
+    boxes 1e-5), K1, K3, K4 and K6 launched, no host sync inside a sharded
+    call (``torch.cuda.set_sync_debug_mode``, which PyTorch calls a
+    prototype that does not see every sync); ``Serve`` with
+    ``data_parallel: true`` on the one card logs the no-op and answers as
+    the plain server. → (row, K5 launches {forward, backward, sync_forward,
+    sync_backward} summed over every rank of (a) and (b), the serving
+    kernels' launches of (c))."""
+    from yolov3_tpu_torch.models import layers
+    from yolov3_tpu_torch.parallel.mesh import Mesh
+    from yolov3_tpu_torch.parallel.train_step import loss_and_grads
+
+    inputs, images_np, labels_np = dp_inputs()
+    row = dict(card=smi)
+
+    # (a) one process over the 16 images on the card, and float64 on the card
+    spec, params, state, anchors, grids = dp_model("cuda")
+    images, labels = torch.from_numpy(images_np).cuda(), torch.from_numpy(labels_np).cuda()
+    grads, bn, metrics = loss_and_grads(spec, params, state, images, labels, anchors, grids,
+                                        DP_BATCH)
+    single = dict(grads={k: v.double().cpu() for k, v in tree_paths(grads)},
+                  bn={k: v.cpu() for k, v in tree_paths(bn)},
+                  terms=metrics["per_grid_per_source"].cpu())
+    kernel_moments, layers.bn_moments = layers.bn_moments, _ShardedMoments.apply
+    try:
+        grads = loss_and_grads(spec, params, state, images, labels, anchors, grids, DP_BATCH)[0]
+    finally:
+        layers.bn_moments = kernel_moments
+    halves = {k: v.double().cpu() for k, v in tree_paths(grads)}
+    del grads, bn
+
+    def moments64(x, group=None):  # plain float64 statistics: no kernel, no f32 sums
+        mean = x.mean(dim=(0, 2, 3))
+        return mean, torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+
+    p64, s64 = dp_model("cuda", torch.float64)[1:3]
+    kernel_moments, layers.bn_moments = layers.bn_moments, moments64
+    try:
+        g64 = loss_and_grads(spec, p64, s64, images.double(), labels, anchors, grids,
+                             DP_BATCH)[0]
+    finally:
+        layers.bn_moments = kernel_moments
+    ref64 = {k: v.cpu() for k, v in tree_paths(g64)}
+    del p64, s64, g64
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = run_dp_ranks("gloo", 2, inputs)
+    gloo_s = time.monotonic() - t0
+    dp = np.load(os.path.join(DP_DIR, "dp_grads.npz"))
+    dp_grads = {k: torch.from_numpy(dp[f"grad{i}"]).double()
+                for i, k in enumerate(single["grads"])}
+    terms = torch.from_numpy(dp["terms"])
+    term_err = float(((terms - single["terms"]).abs()
+                      / single["terms"].abs().clamp(min=10.0)).max())
+    bn_err = max(float(((torch.from_numpy(dp[f"bn{i}"]) - v).abs() / v.abs().clamp(min=1.0)).max())
+                 for i, v in enumerate(single["bn"].values()))
+
+    def leaf_errors(got, want):
+        return sorted(((float((got[k] - want[k]).abs().max())
+                        / max(float(want[k].abs().max()), 1e-12), k) for k in want),
+                      reverse=True)
+
+    median = lambda errs: errs[len(errs) // 2][0]  # noqa: E731
+    dp_single, dp_halves = leaf_errors(dp_grads, single["grads"]), leaf_errors(dp_grads, halves)
+    dp64, single64 = leaf_errors(dp_grads, ref64), leaf_errors(single["grads"], ref64)
+    halves64 = leaf_errors(halves, ref64)
+    # a leaf off the per-half reference by more than 2e-4 must be one that
+    # one process in fp32 gets no closer to float64: within twice the
+    # distance of the nearer of the two single-process gradients
+    far = {k: e for e, k in dp_halves if e > 2e-4}
+    by = lambda errs: {k: e for e, k in errs}  # noqa: E731
+    d64, s64_, h64 = by(dp64), by(single64), by(halves64)
+    ill = {k: dict(dp_vs_halves=e, dp_vs_float64=d64[k], single_vs_float64=s64_[k],
+                   halves_vs_float64=h64[k]) for k, e in far.items()}
+    grads_ok = all(d64[k] <= max(2 * min(s64_[k], h64[k]), 2e-4) for k in far)
+    want_counts = dict(forward=144, backward=144, sync_forward=144, sync_backward=144)
+    row["a_two_ranks_gloo"] = dict(
+        ranks=ranks, seconds=gloo_s, loss_terms_max_rel_err=term_err,
+        bn_state_max_rel_err=bn_err, grad_leaves=len(dp_single),
+        grad_dp_vs_halves=dict(worst=dp_halves[0][0], median=median(dp_halves),
+                               worst_leaves=[[k, e] for e, k in dp_halves[:3]]),
+        grad_dp_vs_single=dict(worst=dp_single[0][0], median=median(dp_single),
+                               worst_leaves=[[k, e] for e, k in dp_single[:3]]),
+        grad_vs_float64=dict(dp_worst=dp64[0][0], single_worst=single64[0][0],
+                             halves_worst=halves64[0][0], dp_median=median(dp64),
+                             single_median=median(single64), halves_median=median(halves64)),
+        leaves_beyond_2e4=ill,
+        ranks_bit_identical=ranks[0]["digest"] == ranks[1]["digest"])
+    log(f"dp (a) two ranks over gloo {json.dumps(row['a_two_ranks_gloo'])}")
+    if not (term_err <= 1e-4 and bn_err <= 1e-4 and grads_ok
+            and ranks[0]["digest"] == ranks[1]["digest"]):
+        raise AssertionError(f"phase 24 (a): the DP step disagrees: {row['a_two_ranks_gloo']}")
+    for r in ranks:
+        if r["counts"] != want_counts or r["grad_counts"] != {k: v // 2 for k, v in
+                                                                   want_counts.items()}:
+            raise AssertionError(f"phase 24 (a): rank {r['rank']} launched K5 / synced "
+                                 f"{r['counts']}, expected {want_counts} (72 BN layers, "
+                                 "one gradient then one step)")
+    del single, halves, ref64, dp_grads
+    torch.cuda.empty_cache()
+
+    # (b) world size 1 over NCCL
+    t0 = time.monotonic()
+    (nccl,) = run_dp_ranks("nccl", 1, inputs)
+    nccl["seconds"] = time.monotonic() - t0
+    row["b_world_one_nccl"] = nccl
+    log(f"dp (b) world size 1 over NCCL {json.dumps(nccl)}")
+    if not nccl["bit_equal"]:
+        raise AssertionError("phase 24 (b): the DP step at world size 1 is not the plain step")
+    k5 = {k: sum(r["counts"][k] for r in ranks) + nccl["counts_one_step"][k]
+          for k in want_counts}
+
+    # (c) data-parallel serving over two replicas on the one card
+    model, names, anchors80 = ARTIFACT_MODEL
+    mesh = Mesh((torch.device("cuda", 0), torch.device("cuda", 0)))
+    batch16 = torch.from_numpy(smoke_images(bodies, 16)).cuda()
+    wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant,
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
+    serving, serve_launches = {}, dict.fromkeys(wrappers, 0)
+    nms_kw = dict(max_boxes=100, iou_threshold=0.5, score_threshold=0.1)
+    from yolov3_tpu_torch.ops import nms as nms_mod
+
+    for tier, quantize in (("fp32", None), ("int8_chain", "int8_chain")):
+        kw = dict(nms_score_threshold=0.1, quantize=quantize, seed=0,
+                  calibration_images_dir=CALIBRATION_DIR if quantize else None)
+        one = inference_app.build_serving_predictor(model, names, anchors80, None, 416, **kw)[0]
+        two = inference_app.build_serving_predictor(model, names, anchors80, None, 416, **kw,
+                                                    mesh=mesh)[0]
+        with torch.inference_mode():
+            want = [t.cpu() for t in one(batch16)]
+            two(batch16)
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            got = two(batch16)
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items()}
+            torch.cuda.set_sync_debug_mode("warn")
+            import warnings
+
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                two(batch16)
+                torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("default")
+        got = [t.cpu() for t in got]
+        nms_exact = torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        witnesses, _, _ = compare_detections(nms_mod, got, want, nms_kw)
+        serving[tier] = dict(
+            bit_equal=all(torch.equal(a, b) for a, b in zip(got, want)), nms_index_exact=nms_exact,
+            boxes_max_abs_err=max_abs(got[0], want[0]), detections=int(want[4].sum()),
+            launches_b16=launches, host_syncs_in_a_call=len(caught),
+            host_sync_sites=sorted({f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                                    for w in caught}),
+            single_ms=cuda_ms(lambda: one(batch16), 5), sharded_ms=cuda_ms(lambda: two(batch16), 5))
+        profiled = device_time_by_kernel(lambda: two(batch16))
+        serving[tier]["sharded_device_ms"] = profiled[0] if profiled else None
+        log(f"dp (c) {tier} sharded serving {json.dumps(serving[tier])}")
+        ok = (nms_exact and serving[tier]["boxes_max_abs_err"] <= 1e-5) or (
+            witnesses and all(w["margin"] is not None and w["margin"] <= NEAR_TIE
+                              for w in witnesses))
+        if not ok:
+            raise AssertionError(f"phase 24 (c) {tier}: the sharded predictor disagrees with "
+                                 f"the single one {serving[tier]}")
+        if tier == "int8_chain" and min(launches.values()) == 0:
+            raise AssertionError(f"phase 24 (c): a kernel did not launch: {launches}")
+        if caught:  # a host sync in a call would serialize replicas on several cards
+            raise AssertionError(f"phase 24 (c) {tier}: a sharded call waits for the card at "
+                                 f"{serving[tier]['host_sync_sites']}")
+        for k, v in launches.items():
+            serve_launches[k] += v
+        del one, two
+        torch.cuda.empty_cache()
+
+    # a serve config with data_parallel: true on the one card: the no-op
+    handler, root = _LogLines(), logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    cfg = dict(model_config_file=os.path.join(ROOT, "config/models/yolov3_tiny/model.yaml"),
+               classes_name_file=os.path.join(ROOT, "datasets/shapes_toy/class.names"),
+               anchors_file=os.path.join(ROOT, "datasets/shapes_toy/anchors/anchors_tiny.txt"),
+               input_weights_path=os.path.join(ROOT, "checkpoints/output/yolov3_train_tiny.tf"),
+               image_size=416, nms_score_threshold=0.1, port=0, batch_buckets=(1, 4),
+               serve_forever=False, warmup=False)
+    answers = []
+    try:
+        for parallel in (False, True):
+            httpd, app = serve_app.Serve()(**cfg, data_parallel=parallel)
+            try:
+                answers.append(app.detect(bodies[0])["detections"])
+            finally:
+                app.shutdown()
+                httpd.server_close()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    noop = [line for line in handler.lines if "data_parallel: one cuda device, a no-op" in line]
+    same = (len(answers[0]) == len(answers[1]) > 0 and all(
+        a["class_id"] == b["class_id"] and abs(a["score"] - b["score"]) <= 1e-5
+        and max(abs(u - v) for u, v in zip(a["box_normalized"], b["box_normalized"])) <= 1e-5
+        for a, b in zip(*answers)))
+    row["c_serving"] = dict(tiers=serving, serve_data_parallel_noop_logged=bool(noop),
+                            serve_answers_equal=same, serve_detections=len(answers[0]))
+    if not (noop and same):
+        raise AssertionError(f"phase 24 (c): serve with data_parallel on one card: "
+                             f"{row['c_serving']}")
+    return row, k5, serve_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -3065,6 +3620,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--load-artifact"]:  # phase 23's process of its own
         return artifact_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase 24
+        return dp_worker(*sys.argv[2:])
     from yolov3_tpu_torch import models
     from yolov3_tpu_torch.apps import inference_app, serve_app
     from yolov3_tpu_torch.ops import decode
@@ -3078,9 +3635,11 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     fp32_settings()
+    from yolov3_tpu_torch.device import fp32_precision
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32} matmul precision="
-        f"{torch.get_float32_matmul_precision()}")
+        f"{torch.get_float32_matmul_precision()}; the port reads fp32 as {fp32_precision()}")
 
     # phase 2 — build: the kernels, and beside them K2's latency-floor probe
     # (kernel_times.round_floor, a library of its own), all nvcc at once
@@ -3185,6 +3744,18 @@ def main() -> int:
         for name, count in counts.items():
             launches[name] += count
 
+    # data parallelism: K5 counted over every rank of (a) and (b), each rank a
+    # process of its own that starts at 0; K1, K3, K4 and K6 over the sharded
+    # int8_chain and fp32 B=16 calls of (c), the counts set to 0 just before
+    torch.cuda.empty_cache()
+    dp_row, dp_k5, dp_serve_launches = timed("data parallel", phase_dp, inference_app,
+                                             serve_app, nms_kernel, conv1x1, conv_int8,
+                                             resblock, bodies, smi)
+    launches["bn_stats"] += dp_k5["forward"]
+    k5_launches[1] += dp_k5["backward"]
+    for name, count in dp_serve_launches.items():
+        launches[name] += count
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -3218,6 +3789,8 @@ def main() -> int:
         dict(kernel_row("bn_stats", "bn_stats.cu", "yolov3_tpu/ops/pallas/bn_stats.py:89", k5,
                         k5_main),
              backward_launches=k5_launches[1], backward_ms=k5_main["backward_ms"],
+             sync_launches=dict(forward=dp_k5["sync_forward"],
+                                backward=dp_k5["sync_backward"]),
              backward_plain_ms=k5_main["backward_plain_ms"],
              backward_bound_ms=k5_main["backward_bound_ms"],
              new_inputs=[{k: r[k] for k in ("input", "shape", "dtype", "equal", "device_us",
@@ -3230,7 +3803,8 @@ def main() -> int:
                     "eval_tiny": eval_rows, "eval_yolov3": full_rows, "int8_gate": gate_row,
                     "inference": infer_row, "offline_launches": offline,
                     "train_extras": extras, "convert": convert_row,
-                    "recalibrate": recal_row, "artifact": artifact_row, "card": smi}))
+                    "recalibrate": recal_row, "artifact": artifact_row,
+                    "data_parallel": dp_row, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

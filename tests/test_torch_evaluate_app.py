@@ -38,7 +38,7 @@ from yolov3_tpu.apps import evaluate_app as jax_app
 from yolov3_tpu.io.resolve import load_weights as jax_load
 from yolov3_tpu.models import init_model as jax_init
 from yolov3_tpu.models import parse_model_config as jax_parse
-from yolov3_tpu_torch.apps import cli
+from yolov3_tpu_torch.apps import cli, inference_app
 from yolov3_tpu_torch.apps import evaluate_app as port_app
 from yolov3_tpu_torch.config import get_anchors
 from yolov3_tpu_torch.data.tfrecord import parse_tfrecords
@@ -225,11 +225,24 @@ def test_coco_export_matches(runs):
                                rtol=0, atol=1e-4)
 
 
-def test_data_parallel_keys_raise():
-    for key, value in (("data_parallel", True), ("spatial_partitioning", 2)):
-        cfg = dict(_detect_config(128), **{key: value})
-        with pytest.raises(NotImplementedError, match=key):
-            port_app.evaluate({"evaluate_nms_score_thresholds": [0.1]}, cfg, device="cpu")
+def test_data_parallel_keys_raise(tmp_path, monkeypatch):
+    """``spatial_partitioning`` raises by name. ``data_parallel`` is ported:
+    on one device (the CPU) a no-op, and over two devices (two CPU replicas
+    standing in for two cards) the batch of 8 shards 4 + 4; both answer as
+    the plain sweep, counters and mAP equal."""
+    monkeypatch.chdir(tmp_path)  # the .npy histograms land in the working directory
+    sweep = {"evaluate_nms_score_thresholds": [0.1]}
+    with pytest.raises(NotImplementedError, match="spatial_partitioning"):
+        port_app.evaluate(sweep, dict(_detect_config(128), spatial_partitioning=2), device="cpu")
+    plain = port_app.evaluate(sweep, _detect_config(128), max_eval_images=8, device="cpu")
+    one = port_app.evaluate(sweep, dict(_detect_config(128), data_parallel=True),
+                            max_eval_images=8, device="cpu")
+    monkeypatch.setattr(inference_app, "local_devices", lambda kind: (torch.device(kind),) * 2)
+    two = port_app.evaluate(sweep, dict(_detect_config(128), data_parallel=True),
+                            max_eval_images=8, device="cpu")
+    for got in (one, two):
+        for a, b in zip(got, plain):
+            assert a["counters"] == b["counters"] and a["map50"] == b["map50"]
 
 
 def test_evaluate_command_on_cpu(tmp_path, capsys):

@@ -292,7 +292,10 @@ def test_manifest_keys_are_the_jax_manifests(cli_artifact, jax_artifact):
     with zipfile.ZipFile(cli_artifact[0]) as zf:
         manifest = json.loads(zf.read(aot.MANIFEST_NAME))
     jax_manifest = jax_artifact[1]
-    assert set(manifest) - {"torch_version"} == set(jax_manifest) - {"jax_version"}
+    # the port's own keys: its torch version, and the fp32 precision the loader pins
+    assert (set(manifest) - {"torch_version", "fp32_precision"}
+            == set(jax_manifest) - {"jax_version"})
+    assert manifest["fp32_precision"] == "ieee"
     assert manifest["framework"] == "yolov3_tpu_torch" and jax_manifest["framework"] == "yolov3_tpu"
     assert manifest["torch_version"] == torch.__version__ and manifest["format_version"] == 1
     for key in ("model_name", "image_size", "class_names", "yolo_max_boxes", "nms_iou_threshold",

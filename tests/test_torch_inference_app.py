@@ -179,9 +179,29 @@ def test_inference_video_mode(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("data_parallel", True), ("spatial_partitioning", 2)])
-def test_parallel_keys_raise(tmp_path, key, value):
-    with pytest.raises(NotImplementedError, match=key):
-        Inference()(**_detect_config(tmp_path, device="cpu", **{key: value}))
+def test_parallel_keys_raise(tmp_path, key, value, monkeypatch):
+    """``spatial_partitioning`` raises by name. ``data_parallel`` keeps the
+    JAX package's rules: an image source that predicts one image at a time
+    raises its ``ValueError``; over tfrecords it is a no-op on one device
+    (the CPU) and shards the batch over two (two CPU replicas standing in
+    for two cards, a batch of 4 as 2 + 2); both write the plain run's
+    ``detect.txt``."""
+    if key == "spatial_partitioning":
+        with pytest.raises(NotImplementedError, match=key):
+            Inference()(**_detect_config(tmp_path, device="cpu", **{key: value}))
+        return
+    with pytest.raises(ValueError, match="data_parallel requires a batched input_data_source"):
+        Inference()(**_detect_config(tmp_path, device="cpu", input_data_source="images_dir",
+                                     **{key: value}))
+    cfg = dict(image_size=96, batch_size=4, input_data_source="tfrecords", device="cpu")
+    Inference()(**_detect_config(tmp_path / "plain", **cfg))
+    Inference()(**_detect_config(tmp_path / "one", **cfg, **{key: value}))
+    from yolov3_tpu_torch.apps import inference_app
+
+    monkeypatch.setattr(inference_app, "local_devices", lambda kind: (torch.device(kind),) * 2)
+    Inference()(**_detect_config(tmp_path / "two", **cfg, **{key: value}))
+    want = _detect_lines(tmp_path / "plain")
+    assert want and _detect_lines(tmp_path / "one") == want == _detect_lines(tmp_path / "two")
 
 
 def test_inference_command(tmp_path):

@@ -735,3 +735,105 @@ def test_cuda_op_passes_opcheck(cuda_device, name):
     (a symbolic batch)."""
     op, args, _, _, _ = _op_cases(cuda_device)[name]
     torch.library.opcheck(op, args)
+
+
+_FRESH_FP32 = r'''
+import json, sys
+import numpy as np, torch
+from yolov3_tpu_torch.apps.inference_app import build_serving_predictor
+from yolov3_tpu_torch.device import fp32_precision
+from yolov3_tpu_torch.export import aot
+from yolov3_tpu_torch.models import apply_model
+
+mode, path = sys.argv[1:3]
+cfg = dict(model_config_file="config/models/yolov3_tiny/model.yaml",
+           classes_name_file="datasets/shapes_toy/class.names",
+           anchors_file="datasets/shapes_toy/anchors/anchors_tiny.txt",
+           input_weights_path="checkpoints/output/yolov3_train_tiny.tf", image_size=416,
+           nms_score_threshold=0.1)
+images = np.random.RandomState(0).rand(4, 416, 416, 3).astype(np.float32)
+row = {"before": fp32_precision()}
+cpu = build_serving_predictor(**cfg, device="cpu")[0]
+if mode == "predict":
+    card, names, _ = build_serving_predictor(**cfg)
+    row["after"] = fp32_precision()
+    heads = [apply_model(p.module.spec, p.module.tree("params"), p.module.tree("state"),
+                         torch.from_numpy(images).to(p.device)) for p in (card, cpu)]
+    row["err"] = [float((a.cpu() - b).abs().max()) for a, b in zip(*heads)]
+    row["scale"] = [float(b.abs().max()) for b in heads[1]]
+    aot.save_detector_artifact(path, aot.export_detector(card.module, 416, ("cuda",)),
+                               dict(image_size=416, class_names=list(names), quantize=None))
+else:
+    loaded, manifest = aot.load_detector_artifact(path)
+    row["after"], row["manifest"] = fp32_precision(), manifest["fp32_precision"]
+    got, want = loaded(images), cpu(images)
+    # every candidate's decoded box and score (before NMS selects any)
+    row["err"] = [float((got[i].cpu() - want[i]).abs().max()) for i in (0, 2)]
+    row["scale"] = [float(want[i].abs().max()) for i in (0, 2)]
+print(json.dumps(row))
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_is_ieee_in_a_fresh_process(cuda_device, tmp_path):
+    """fp32 on the card is IEEE fp32 without the caller asking: a process of
+    its own that never sets a precision builds the fp32 predictor (trained
+    tiny, 416², B=4), and a second one loads its exported ``cuda`` artifact.
+    Each starts in PyTorch's default (TF32 in cuDNN's convolutions) and reads
+    IEEE afterwards; the manifest says ``ieee``. The card's heads (and the
+    loaded program's decoded boxes and scores) are held against the CPU:
+    within 1e-3, and within 1e-4 of the largest |value| — TF32 keeps about
+    three decimal digits, IEEE fp32 on the card was 1.8e-7 from the CPU on
+    YOLOv3-416's heads (PERF.md)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path / "tiny_fp32.zip")
+    for mode in ("predict", "load"):
+        done = subprocess.run([sys.executable, "-c", _FRESH_FP32, mode, path], cwd=repo,
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=repo))
+        assert done.returncode == 0, done.stderr[-3000:]
+        row = json.loads(done.stdout.strip().splitlines()[-1])
+        assert row["before"] == "tf32" and row["after"] == "ieee", row
+        for err, scale in zip(row["err"], row["scale"]):
+            assert err <= 1e-3 and err <= 1e-4 * scale, row
+    assert row["manifest"] == "ieee"
+
+
+@pytest.mark.cuda
+def test_cuda_sync_bn_over_a_group_of_one_is_the_unsynced_path(cuda_device, tmp_path):
+    """K5 synced over a process group of this process alone (gloo, CUDA
+    tensors) is the unsynced K5 bit for bit, forward and backward, at a
+    YOLOv3-416 shape (C=64, 208², B=2, f32, NCHW and channels-last); one
+    kernel launch and one all-reduce each way."""
+    import torch.distributed as dist
+
+    rng = np.random.RandomState(11)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            x0 = torch.from_numpy(rng.randn(2, 64, 208, 208).astype(np.float32)).to(
+                cuda_device).contiguous(memory_format=fmt)
+            dmean, dvar = (torch.from_numpy(rng.randn(64).astype(np.float32)).to(cuda_device)
+                           for _ in range(2))
+            outs = []
+            for group in (None, dist.group.WORLD):
+                x = x0.clone().requires_grad_(True)
+                counts = (bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches,
+                          bn_stats.bn_sums.sync_launches, bn_stats.bn_moments_dx.sync_launches)
+                mean, var = bn_stats.bn_moments(x, group=group)
+                (mean @ dmean + var @ dvar).backward()
+                torch.cuda.synchronize()
+                after = (bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches,
+                         bn_stats.bn_sums.sync_launches, bn_stats.bn_moments_dx.sync_launches)
+                assert [a - b for a, b in zip(after, counts)] == [1, 1] + (
+                    [0, 0] if group is None else [1, 1])
+                outs.append((mean, var, x.grad))
+            assert all(torch.equal(a, b) for a, b in zip(*outs))
+    finally:
+        dist.destroy_process_group()

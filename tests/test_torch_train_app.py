@@ -7,8 +7,9 @@ CPU: YOLOv3-tiny on the in-repo shapes_toy TFRecords at 96 px.
     (every leaf bit-equal), and the port resumes a state the JAX trainer
     wrote;
   * lr_schedule, transfer learning with a frozen backbone;
-  * every config key of a later slice (multihost, spatial_partitioning)
-    raises ``NotImplementedError`` by name.
+  * the config key of a later slice (spatial_partitioning) raises
+    ``NotImplementedError`` by name; ``multihost`` over a group of one
+    process is the plain trainer.
 
 Tolerance: none — checkpoints carry bits."""
 
@@ -216,12 +217,34 @@ def test_transfer_learning_freezes_the_backbone(port_run, tmp_path):
                            source["params"]["head0"]["layer2"]["kernel"])
 
 
-@pytest.mark.parametrize("key", list(DEFERRED_KEYS))
+@pytest.mark.parametrize("key", ["multihost", "spatial_partitioning"])
 def test_keys_of_later_slices_raise_by_name(tmp_path, key):
-    value = {"spatial_partitioning": 2}.get(key, True)
-    with pytest.raises(NotImplementedError, match=key):
-        Train()(**_config(tmp_path, device="cpu", **{key: value}))
-    assert not os.path.exists(os.path.join(str(tmp_path), "tiny.tf.npz"))
+    """``spatial_partitioning`` still raises ``NotImplementedError`` by name
+    (``DEFERRED_KEYS``) and writes nothing. ``multihost`` is ported: the
+    ``multihost`` dict joins a process group, and a group of one process is
+    the plain trainer (as a one-device mesh is in the JAX package), bit for
+    bit; the data-parallel run itself is tests/test_torch_multihost.py's."""
+    if key in DEFERRED_KEYS:
+        with pytest.raises(NotImplementedError, match=key):
+            Train()(**_config(tmp_path, device="cpu", **{key: 2}))
+        assert not os.path.exists(os.path.join(str(tmp_path), "tiny.tf.npz"))
+        return
+    import torch.distributed as dist
+
+    from .test_torch_multihost import free_port
+
+    kw = dict(device="cpu", ema=None, max_dataset_examples=8)
+    try:
+        joined = Train()(**_config(tmp_path / "mh", **kw, multihost={
+            "coordinator_address": f"127.0.0.1:{free_port()}", "num_processes": 1,
+            "process_id": 0, "backend": "gloo"}))
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    plain = Train()(**_config(tmp_path / "plain", **kw))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(joined), tree_leaves(plain)))
+    assert os.path.exists(os.path.join(str(tmp_path / "mh"), "tiny.tf.npz"))
 
 
 def test_trainer_defaults_to_the_card(tmp_path):

@@ -356,8 +356,25 @@ def test_scheduled_learning_rate_is_read_from_the_state(setup, jax_grads):
 
 
 @pytest.mark.parametrize("key", ["mesh"])
-def test_later_slices_raise_by_name(setup, key):
-    value = {"mesh": object()}[key]
-    with pytest.raises(NotImplementedError, match=key):
-        tts.make_train_step(setup["tspec"], ANCHORS, setup["grids"], BATCH, tts.make_adam(LR),
-                            **{key: value})
+def test_later_slices_raise_by_name(setup, key, tmp_path):
+    """``mesh`` is ported (parallel/mesh.py): over a process group of this
+    process alone the data-parallel step (sync-BN, the coalesced gradient
+    and metric all-reduces) is the plain step bit for bit; a serving mesh
+    (several devices of one process) is refused by name."""
+    from yolov3_tpu_torch.parallel import mesh as tmesh
+
+    from .test_torch_multihost import one_process_group
+
+    optimizer = tts.make_adam(LR)
+    images, labels = torch.from_numpy(setup["images"]), torch.from_numpy(setup["labels"])
+    plain = tts.make_train_step(setup["tspec"], ANCHORS, setup["grids"], BATCH, optimizer)
+    want = plain(tts.init_train_state(setup["tp"], setup["ts"], optimizer), images, labels)
+    with one_process_group(tmp_path):
+        step = tts.make_train_step(setup["tspec"], ANCHORS, setup["grids"], BATCH, optimizer,
+                                   **{key: tmesh.make_mesh(devices=("cpu",))})
+        got = step(tts.init_train_state(setup["tp"], setup["ts"], optimizer), images, labels)
+    for g, w in zip(got, want):  # (train state, metrics)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g), tree_leaves(w)))
+    with pytest.raises(ValueError, match="one process per device"):
+        tts.make_train_step(setup["tspec"], ANCHORS, setup["grids"], BATCH, optimizer,
+                            **{key: tmesh.Mesh(("cpu", "cpu"))})

@@ -31,37 +31,56 @@ import torch
 
 from ..config import get_anchors, read_class_names
 from ..data.tfrecord import parse_tfrecords
-from ..device import resolve_device
+from ..device import pin_fp32_ieee, resolve_device
 from ..eval.detections_evaluator import APAccumulator, CocoAPAccumulator, EvaluateDetections
 from ..io.resolve import load_weights
 from ..models import apply_model, fold_batch_norm, init_model, parse_model_config
 from ..models.network import to_device
 from ..ops.decode import yolo_decode
 from ..ops.nms import DEFAULT_NUM_CANDIDATES, next_escalation_k, nms_inexact_mask, yolo_nms
+from ..parallel.mesh import check_spatial
+from .inference_app import data_parallel_mesh
 
 log = logging.getLogger(__name__)
 
 
 def make_sweepable_predictor(spec, params, bn_state, anchors_table, nclasses,
-                             yolo_max_boxes, nms_per_class=False, device=None):
+                             yolo_max_boxes, nms_per_class=False, device=None, mesh=None):
     """``predict(images, iou_threshold, score_threshold, num_candidates)`` →
     the ``yolo_nms`` tuple of tensors on ``device``: BN-folded float32
-    forward, decode and NMS, the thresholds plain arguments.
+    forward (IEEE fp32 on the card, ``device.pin_fp32_ieee``), decode and
+    NMS, the thresholds plain arguments.
     ``nms_per_class``: per-class suppression (extension; the reference — and
-    the default — is class-agnostic)."""
-    dev = resolve_device(device)
-    run_params = to_device(fold_batch_norm(params, bn_state), dev)
-    anchors = torch.as_tensor(np.asarray(anchors_table), dtype=torch.float32, device=dev)
+    the default — is class-agnostic). ``mesh``: data-parallel evaluation, a
+    copy of the params on each device of ``mesh.devices`` (then ``device`` is
+    not read), the batch split evenly over them and the answers gathered in
+    batch order on the first (``inference_app.make_predictor``)."""
+    devices = ([resolve_device(device)] if mesh is None
+               else [resolve_device(d) for d in mesh.devices])
+    folded = fold_batch_norm(params, bn_state)
+    replicas = []
+    for dev in devices:
+        pin_fp32_ieee(dev)
+        replicas.append((to_device(folded, dev), torch.as_tensor(
+            np.asarray(anchors_table), dtype=torch.float32, device=dev)))
 
-    @torch.inference_mode()
-    def predict(images, iou_threshold, score_threshold,
-                num_candidates=DEFAULT_NUM_CANDIDATES):
-        x = torch.as_tensor(images, device=dev).float()
+    def run(x, run_params, anchors, iou_threshold, score_threshold, num_candidates):
         outputs = apply_model(spec, run_params, {}, x)
         boxes, conf, probs = yolo_decode(outputs, anchors, nclasses)
         return yolo_nms(boxes, conf, probs, max_boxes=yolo_max_boxes,
                         iou_threshold=iou_threshold, score_threshold=score_threshold,
                         num_candidates=num_candidates, per_class=nms_per_class)
+
+    @torch.inference_mode()
+    def predict(images, iou_threshold, score_threshold,
+                num_candidates=DEFAULT_NUM_CANDIDATES):
+        if mesh is None:
+            x = torch.as_tensor(images, device=devices[0]).float()
+            return run(x, *replicas[0], iou_threshold, score_threshold, num_candidates)
+        parts = mesh.shard_batch(torch.as_tensor(images).float())
+        outs = [run(x, *replica, iou_threshold, score_threshold, num_candidates)
+                for x, replica in zip(parts, replicas)]
+        return tuple(mesh.gather_batch(list(field)) for field in zip(*outs))
 
     return predict
 
@@ -94,13 +113,7 @@ def evaluate(evaluate_config: dict, detect_config: dict, max_eval_images=None,
     """Run the sweep; returns one result dict per threshold (recall,
     precision, wall_seconds, images_per_sec, counters, counters_oneclass,
     and ap_per_class / map50 [/ map50_95] unless ``compute_map`` is off)."""
-    later = [k for k, v in (
-        ("data_parallel", detect_config.get("data_parallel")),
-        ("spatial_partitioning", int(detect_config.get("spatial_partitioning") or 1) > 1)) if v]
-    if later:
-        raise NotImplementedError(
-            f"detect keys {later} belong to a later slice of the port (data/spatial "
-            "parallelism)")
+    check_spatial(int(detect_config.get("spatial_partitioning") or 1))
     if detect_config.get("compilation_cache"):
         log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
     dev = resolve_device(device if device is not None else detect_config.get("device"))
@@ -122,9 +135,11 @@ def evaluate(evaluate_config: dict, detect_config: dict, max_eval_images=None,
     spec = parse_model_config(detect_config["model_config_file"], nclasses)
     params, bn_state = init_model(spec, torch.Generator().manual_seed(0))
     params, bn_state = load_weights(spec, params, bn_state, detect_config["input_weights_path"])
+    # data_parallel: the batch shards over every local device (a no-op on one)
+    mesh = data_parallel_mesh(detect_config.get("data_parallel"), batch_size, dev)
     predict = make_sweepable_predictor(
         spec, params, bn_state, anchors_table, nclasses, yolo_max_boxes,
-        nms_per_class=bool(detect_config.get("nms_per_class")), device=dev)
+        nms_per_class=bool(detect_config.get("nms_per_class")), device=dev, mesh=mesh)
 
     # dataset: tfrecords, gt kept padded + masked (fixed shapes).
     # parse_tfrecords already yields square image_size images, so the

@@ -17,6 +17,7 @@ it.
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 
@@ -26,7 +27,7 @@ import torch
 from ..config import dir_filelist, get_anchors, read_class_names
 from ..data.image import decode_image, letterbox_resize, letterbox_unmap_boxes, resize_bilinear
 from ..data.tfrecord import parse_tfrecords
-from ..device import resolve_device
+from ..device import pin_fp32_ieee, resolve_device
 from ..export.aot import as_predict
 from ..io.resolve import load_weights, save_weights
 from ..models import apply_model, fold_batch_norm, init_model, parse_model_config
@@ -35,6 +36,7 @@ from ..ops.decode import yolo_decode
 from ..ops.nms import yolo_nms
 from ..ops.quantize import calibrate_scales, quantize_params
 from ..ops.s2d import s2d_stem
+from ..parallel.mesh import check_spatial, local_devices, make_data_parallel_mesh
 from ..utils.render import render_text_annotated_bboxes
 
 log = logging.getLogger(__name__)
@@ -103,7 +105,7 @@ class Detector(torch.nn.Module):
 def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_boxes,
                    nms_iou_threshold, nms_score_threshold, fold_bn: bool = True,
                    compute_dtype=None, quantize=None, calibration_batches=None,
-                   image_size=None, nms_per_class: bool = False, device=None):
+                   image_size=None, nms_per_class: bool = False, device=None, mesh=None):
     """Build ``predict(images)``: (B, H, W, 3) float32 images (numpy or
     tensor) → the ``yolo_nms`` tuple of tensors on ``device``
     (``export.aot.as_predict`` over a ``Detector``, which ``predict.module``
@@ -122,9 +124,27 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
     stem rewrite (``ops/s2d.py``; pass ``image_size`` so odd sizes skip it).
     Calibration runs on ``device``. ``int8_chain`` packs the fused residual
     blocks' constant kernel arguments here, once
-    (``models/network.py::pack_fused_stages``).
+    (``models/network.py::pack_fused_stages``). A tier that runs its forward
+    in float32 (fp32, and the int8 tiers' fp tails and calibration) pins fp32
+    to IEEE on the card (``device.pin_fp32_ieee``).
+
+    ``mesh`` (``parallel/mesh.py::make_data_parallel_mesh``): data-parallel
+    serving, one replica per device of ``mesh.devices`` (then ``device`` is
+    not read). The first device builds the predictor (and calibrates an int8
+    tier), the others get copies of its params, as the JAX package
+    replicates them; a call splits the batch evenly over the replicas (it
+    must divide), runs each slice on its device and gathers the answers in
+    batch order on the first device.
     """
-    dev = resolve_device(device)
+    if mesh is not None and mesh.world_size > 1:
+        raise ValueError("make_predictor: data-parallel serving shards over one process's "
+                         "devices; this mesh spans processes (a training mesh)")
+    devices = ([resolve_device(device)] if mesh is None
+               else [resolve_device(d) for d in mesh.devices])
+    dev = devices[0]
+    if compute_dtype is None or quantize in ("int8", "int8_chain"):
+        for d in devices:
+            pin_fp32_ieee(d)
     run_params = fold_batch_norm(params, bn_state) if fold_bn else params
     run_state = {} if fold_bn else to_device(bn_state, dev)
     if quantize in ("int8", "int8_chain"):
@@ -146,9 +166,32 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
     if quantize == "int8_chain":
         run_params = pack_fused_stages(spec, run_params)
     anchors = torch.as_tensor(np.asarray(anchors_table), dtype=torch.float32, device=dev)
-    return as_predict(Detector(spec, run_params, run_state, anchors, nclasses, yolo_max_boxes,
-                               nms_iou_threshold, nms_score_threshold, nms_per_class,
-                               compute_dtype), dev)
+    detector = Detector(spec, run_params, run_state, anchors, nclasses, yolo_max_boxes,
+                        nms_iou_threshold, nms_score_threshold, nms_per_class, compute_dtype)
+    if mesh is None:
+        return as_predict(detector, dev)
+    replicas = [detector] + [copy.deepcopy(detector).to(d) for d in devices[1:]]
+    return sharded_predict(replicas, mesh)
+
+
+def sharded_predict(replicas, mesh):
+    """``predict(images)`` over one ``Detector`` replica per device of
+    ``mesh``: the batch split evenly (``mesh.shard_batch``), each slice
+    answered on its device, the ``yolo_nms`` tuple gathered in batch order
+    on the first device (``mesh.gather_batch``). The replicas are called one
+    after another from this thread; nothing in a call waits for the device,
+    so each replica's launches queue on its own device without waiting for
+    the others. ``predict.replicas`` holds them; ``predict.module`` is the
+    first."""
+
+    @torch.inference_mode()
+    def predict(images):
+        parts = mesh.shard_batch(torch.as_tensor(images, dtype=torch.float32))
+        outs = [replica(part) for replica, part in zip(replicas, parts)]
+        return tuple(mesh.gather_batch(list(field)) for field in zip(*outs))
+
+    predict.device, predict.module, predict.replicas = mesh.devices[0], replicas[0], replicas
+    return predict
 
 
 def calibration_batches_from_dir(images_dir, image_size, limit: int = 8, preprocess=None):
@@ -171,7 +214,7 @@ def build_serving_predictor(model_config_file, classes_name_file, anchors_file,
                             nms_iou_threshold=0.5, nms_score_threshold=0.3,
                             quantize=None, compute_precision=None,
                             calibration_images_dir=None, letterbox=False,
-                            nms_per_class=False, device=None, seed=None):
+                            nms_per_class=False, device=None, seed=None, mesh=None):
     """Detect-config keys → ``(predictor, class_names, model_name)``.
 
     ``quantize: int8`` / ``int8_chain`` calibrates on the images of
@@ -181,7 +224,8 @@ def build_serving_predictor(model_config_file, classes_name_file, anchors_file,
     ``input_weights_path`` is a native ``.npz`` checkpoint (JAX key layout).
     ``input_weights_path=None`` with a ``seed`` serves Keras-default weights
     drawn from ``torch.Generator().manual_seed(seed)`` — for runs that need
-    the full-width model but have no trained weights for it.
+    the full-width model but have no trained weights for it. ``mesh``:
+    data-parallel serving (``make_predictor``).
     """
     anchors_table = get_anchors(anchors_file)
     class_names = read_class_names(classes_name_file)
@@ -204,9 +248,24 @@ def build_serving_predictor(model_config_file, classes_name_file, anchors_file,
         nms_iou_threshold, nms_score_threshold,
         compute_dtype=_DTYPES[compute_precision], quantize=quantize,
         calibration_batches=calibration_batches, image_size=image_size,
-        nms_per_class=nms_per_class, device=device)
+        nms_per_class=nms_per_class, device=device, mesh=mesh)
     model_name = os.path.basename(os.path.dirname(model_config_file)) or "yolov3"
     return predictor, class_names, model_name
+
+
+def data_parallel_mesh(data_parallel, batch_size: int, device):
+    """The ``data_parallel`` key → the serving mesh over every local device
+    of ``device``'s kind (``parallel/mesh.py::make_data_parallel_mesh``), or
+    None: off, or one device, where it is a no-op (logged), as in the JAX
+    package."""
+    if not data_parallel:
+        return None
+    mesh = make_data_parallel_mesh(batch_size, devices=local_devices(device.type))
+    if mesh is None:
+        log.info(f"data_parallel: one {device.type} device, a no-op")
+    else:
+        log.info(f"data_parallel: batch {batch_size} over {mesh.size} devices {mesh.devices}")
+    return mesh
 
 
 def gather_valid_detections(bboxes, class_indices, scores, selected, num_valid):
@@ -250,8 +309,11 @@ class Inference:
     ``letterbox: true`` an aspect-preserving one whose boxes are mapped back
     to, and drawn on, the original image. ``save_model_path`` writes the
     loaded weights as a native ``.npz``. ``quantize: int8`` / ``int8_chain``
-    calibrate on up to 8 images of the input source. Runs on the card unless
-    ``device: cpu``."""
+    calibrate on up to 8 images of the input source. ``data_parallel: true``
+    shards each batch over every visible card (``make_predictor(mesh=)``; a
+    no-op on one device; a source that predicts one image at a time raises,
+    as in the JAX package); ``spatial_partitioning`` is not ported and
+    raises. Runs on the card unless ``device: cpu``."""
 
     def __call__(
         self,
@@ -283,16 +345,18 @@ class Inference:
         device=None,
         **kwargs,
     ):
-        later = [k for k, v in (("data_parallel", data_parallel),
-                                ("spatial_partitioning", int(spatial_partitioning or 1) > 1))
-                 if v]
-        if later:
-            raise NotImplementedError(
-                f"detect keys {later} belong to a later slice of the port (data/spatial "
-                "parallelism)")
+        check_spatial(int(spatial_partitioning or 1))
+        batched_sources = ("tfrecords", "video_file")
+        if data_parallel and input_data_source not in batched_sources:
+            # image_file / images_dir predict one image at a time
+            raise ValueError(
+                "data_parallel requires a batched input_data_source "
+                "(tfrecords/video_file); image_file/images_dir predict "
+                "per-image")
         if kwargs.get("compilation_cache"):
             log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
         dev = resolve_device(device)
+        mesh = data_parallel_mesh(data_parallel, batch_size, dev)
         os.makedirs(output_dir, exist_ok=True)
         detect_txt = f"{output_dir}/detect.txt"
         if os.path.exists(detect_txt):
@@ -360,7 +424,7 @@ class Inference:
             yolo_max_boxes, nms_iou_threshold, nms_score_threshold,
             compute_dtype=_DTYPES[compute_precision], quantize=quantize,
             calibration_batches=calibration_batches, image_size=image_size,
-            nms_per_class=nms_per_class, device=dev)
+            nms_per_class=nms_per_class, device=dev, mesh=mesh)
 
         image_counter = 0
         results = []

@@ -395,9 +395,13 @@ class Serve:
     ``quantize`` tier, model name and ``letterbox`` hint of its manifest; the
     model, weights, anchors and NMS keys are not needed (the NMS parameters
     are baked into the program). One loaded program serves every bucket.
-    ``data_parallel`` and ``spatial_partitioning`` belong to a later slice of
-    the port and raise ``NotImplementedError``; beside ``artifact`` they
-    raise ``ValueError``, as in the JAX package.
+
+    ``data_parallel: true`` serves one replica of the predictor per visible
+    device of ``device``'s kind (``inference_app.make_predictor(mesh=)``):
+    every bucket must divide by the device count, and on one device it is a
+    no-op (logged), as in the JAX package. ``spatial_partitioning`` belongs
+    to a later slice of the port and raises ``NotImplementedError``; beside
+    ``artifact`` either key raises ``ValueError``, as in the JAX package.
     """
 
     def __call__(
@@ -447,11 +451,28 @@ class Serve:
             # letterboxed frames); the serve key can still force it on
             letterbox = letterbox or bool(manifest.get("letterbox"))
         else:
-            if parallel:
-                raise NotImplementedError(
-                    f"serve keys {parallel} belong to a later slice of the port "
-                    "(data/spatial parallelism)")
+            from ..device import resolve_device
+            from ..parallel.mesh import check_spatial, local_devices, make_data_parallel_mesh
             from .inference_app import build_serving_predictor
+
+            check_spatial(int(spatial_partitioning or 1))
+            # sharded serving (the inference CLI's semantics): the batch
+            # shards over the devices, so EVERY bucket must divide by them
+            mesh = None
+            if data_parallel:
+                dev = resolve_device(device)
+                devices = local_devices(dev.type)
+                if len(devices) <= 1:
+                    log.info("data_parallel: one %s device, a no-op", dev.type)
+                else:
+                    bad = [b for b in batch_buckets if int(b) % len(devices)]
+                    if bad:
+                        raise ValueError(
+                            f"batch_buckets {bad} not divisible by the "
+                            f"data-axis size ({len(devices)} = {len(devices)} devices / "
+                            f"spatial 1)")
+                    mesh = make_data_parallel_mesh(int(batch_buckets[0]), devices=devices)
+                    log.info("sharded serving over %d devices %s", mesh.size, mesh.devices)
 
             missing = [k for k, v in [("model_config_file", model_config_file),
                                       ("classes_name_file", classes_name_file),
@@ -465,7 +486,7 @@ class Serve:
                 input_weights_path, image_size, yolo_max_boxes,
                 nms_iou_threshold, nms_score_threshold, quantize,
                 compute_precision, calibration_images_dir, letterbox=letterbox,
-                nms_per_class=nms_per_class, device=device)
+                nms_per_class=nms_per_class, device=device, mesh=mesh)
 
         app = DetectionApp(
             predictor, class_names, image_size,

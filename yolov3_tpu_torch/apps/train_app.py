@@ -11,12 +11,20 @@ weights, and the JAX trainer's extensions: ``augmentation`` (on the device,
 ``ops/augment.py``), ``qat`` (fake quantization, ``ops/quantize.py``),
 ``stem_s2d`` (``ops/s2d.py::s2d_stem_train``), ``multi_scale`` (per epoch or
 per N steps, cycle or random), ``device_dataset`` (f32 or uint8),
-``bn_stats_subsample``, ``remat: conv``, ``tensorboard`` scalars and a
-``profile_trace_dir`` trace of the first epoch.
+``bn_stats_subsample``, ``remat: conv``, ``tensorboard`` scalars, a
+``profile_trace_dir`` trace of the first epoch, and data parallelism over
+processes (``multihost``, ``parallel/mesh.py``).
 
 Differences, by design:
-  * the step runs eagerly on one device — the card unless the config says
-    ``device: cpu``; with more than one visible card it still trains on one;
+  * the step runs eagerly; one process drives one device — the card unless
+    the config says ``device: cpu``. Data parallelism runs one process per
+    card (``torchrun --nproc_per_node N`` with ``multihost: true``, or the
+    ``multihost`` dict with ``coordinator_address`` / ``num_processes`` /
+    ``process_id`` and optionally ``backend``); the JAX package drives all
+    local devices from one process. The math is the same: every process
+    iterates the same dataset and steps on its ``local_batch_slice`` of each
+    global batch, BatchNorm syncs, gradients average, and only rank 0 writes
+    (summary, checkpoints, train state, TensorBoard, profiler trace);
   * checkpoints are the JAX package's native ``.npz`` files, so either
     package loads the other's weights and resumes the other's train state;
   * keys that belong to later slices of the port raise ``NotImplementedError``
@@ -45,6 +53,7 @@ from ..models.transfer import bn_frozen_selectors, do_transfer_learning
 from ..models.transfer import trainable_mask as make_trainable_mask
 from ..ops.image import resize_antialiased
 from ..ops.s2d import s2d_stem_train
+from ..parallel.mesh import initialize_multihost, make_mesh
 from ..parallel.train_step import (epoch_learning_rate, init_train_state, make_adam,
                                    make_adam_scheduled, make_eval_step, make_train_step)
 from ..tree import tree_map
@@ -53,7 +62,7 @@ from ..utils.profiling import StepTimer, trace
 log = logging.getLogger(__name__)
 
 # config keys of later slices of the port: a true value raises by name
-DEFERRED_KEYS = ("multihost", "spatial_partitioning")
+DEFERRED_KEYS = ("spatial_partitioning",)
 
 
 def parse_qat_mode(qat_conf):
@@ -243,9 +252,32 @@ class Train:
             log.info(f"bn_stats_subsample: {bn_stats_subsample}")
         if debug_nans:
             torch.autograd.set_detect_anomaly(True)
+        # --- multi-host: join the process group BEFORE the device is chosen
+        # (each process takes its own card). World size 1 is the plain
+        # trainer, as a one-device mesh is in the JAX package.
+        multihost = kwargs.get("multihost")
+        if multihost:
+            initialize_multihost(**(multihost if isinstance(multihost, dict) else {}))
+        elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise ValueError(
+                "this process was started as one of several (WORLD_SIZE="
+                f"{os.environ['WORLD_SIZE']}); add `multihost: true` to the config to train "
+                "them data-parallel")
         dev = resolve_device(device)
-        if dev.type == "cuda" and torch.cuda.device_count() > 1:
-            log.info(f"{torch.cuda.device_count()} cards visible; training on {dev}")
+        world = torch.distributed.get_world_size() if multihost else 1
+        is_main = not multihost or torch.distributed.get_rank() == 0
+        mesh = None
+        if world > 1:
+            if batch_size % world:
+                raise ValueError(
+                    f"multihost training needs batch_size ({batch_size}) divisible "
+                    f"by the global device count ({world})")
+            mesh = make_mesh(devices=(dev,))
+            log.info(f"data-parallel over {world} processes: rank {mesh.rank} on {dev}, "
+                     f"{batch_size // world} of each batch of {batch_size}")
+        elif dev.type == "cuda" and torch.cuda.device_count() > 1:
+            log.info(f"{torch.cuda.device_count()} cards visible; training on {dev} "
+                     "(data parallelism runs one process per card: multihost)")
         seed = int(kwargs.get("seed", 0))
 
         anchors_table = get_anchors(anchors_file)
@@ -254,10 +286,11 @@ class Train:
         spec = parse_model_config(model_config_file, nclasses)
         params, bn_state = init_model(spec, torch.Generator().manual_seed(seed))
 
-        summary_dir = os.path.dirname(output_checkpoints_path) or "."
-        os.makedirs(summary_dir, exist_ok=True)
-        with open(os.path.join(summary_dir, "model_summary.txt"), "w") as f:
-            f.write(model_summary(spec, params, image_size) + "\n")
+        if is_main:
+            summary_dir = os.path.dirname(output_checkpoints_path) or "."
+            os.makedirs(summary_dir, exist_ok=True)
+            with open(os.path.join(summary_dir, "model_summary.txt"), "w") as f:
+                f.write(model_summary(spec, params, image_size) + "\n")
 
         # --- transfer learning dispatch (reference train.py:160-166) ---
         trainable_mask = None
@@ -304,7 +337,7 @@ class Train:
                 n = int(cube[..., 4].sum())
                 log.info(f"debug_mode: scale {s} (g={cube.shape[1]}): {n} boxes assigned")
 
-        if render_dataset_example:
+        if render_dataset_example and is_main:
             from PIL import Image
 
             from ..utils.render import render_bboxes
@@ -339,7 +372,7 @@ class Train:
             # one step per image size: its grids, and its stem spec
             return make_train_step(
                 build_step_spec(size), anchors_table, head_grid_sizes(spec, size), batch_size,
-                optimizer, bn_frozen=bn_frozen, trainable_mask=trainable_mask,
+                optimizer, mesh=mesh, bn_frozen=bn_frozen, trainable_mask=trainable_mask,
                 compute_dtype=torch.bfloat16 if mixed_precision else None, remat=remat,
                 augment=(augmentation if isinstance(augmentation, dict)
                          else {} if augmentation else None),
@@ -351,7 +384,10 @@ class Train:
 
         train_step = build_train_step(image_size)
         eval_step = make_eval_step(build_step_spec(image_size), anchors_table, grid_sizes,
-                                   batch_size, bn_frozen=bn_frozen)
+                                   batch_size, mesh=mesh, bn_frozen=bn_frozen)
+        # every process iterates the same deterministic dataset and keeps
+        # only its slice of each global batch (the JAX trainer's `put`)
+        rows = None if mesh is None else mesh.local_slice(batch_size)
 
         # multi-scale: one size per epoch, or per N steps with device_dataset;
         # validation stays at image_size so val_loss compares across epochs
@@ -419,6 +455,10 @@ class Train:
                     "image_size and smaller sizes run as device-side "
                     "bilinear downscales (staging per size would multiply "
                     "HBM). Raise image_size to the largest scale wanted.")
+            if mesh is not None:
+                raise ValueError(
+                    "device_dataset + multihost is not supported "
+                    "(each process would need its own local-shard staging)")
             store_uint8 = (isinstance(device_ds_conf, dict)
                            and str(device_ds_conf.get("dtype", "")).lower() == "uint8")
             t0 = time.time()
@@ -437,7 +477,15 @@ class Train:
         state_path = native_path(output_checkpoints_path).replace(".npz", ".train_state.npz")
         ema_path = native_path(output_checkpoints_path).replace(".npz", ".ema.npz")
         start_epoch = 1
-        if resume and os.path.exists(state_path):
+        # under a mesh only rank 0 writes checkpoints, so the resume decision
+        # and the restored state both come from rank 0 (per-process
+        # os.path.exists could diverge without a shared filesystem)
+        do_resume = resume and is_main and os.path.exists(state_path)
+        if mesh is not None:
+            flag = torch.tensor([int(do_resume)], device=dev)
+            torch.distributed.broadcast(flag, src=0)
+            do_resume = bool(flag.item())
+        if do_resume and is_main:
             # the core state loads strictly; the EMA subtree may be absent
             # (resuming a pre-EMA run with `ema:` newly enabled) — it reseeds
             # from the restored weights
@@ -454,9 +502,16 @@ class Train:
                          "seeded EMA from the restored weights")
             train_state = restored
             start_epoch = int(saved_epoch or 0) + 1
+        if do_resume and mesh is not None:
+            # the other ranks receive rank 0's restored state and epoch
+            train_state = mesh.broadcast_state(train_state)
+            start_epoch = int(mesh.broadcast_state(torch.tensor(start_epoch)))
+        if do_resume:
             log.info(f"resumed full train state from {state_path} at epoch {start_epoch}")
 
         def save_all(epoch):
+            if not is_main:
+                return
             save_weights(spec, train_state["params"], train_state["bn_state"],
                          output_checkpoints_path, step=epoch)
             save_train_state(state_path, train_state, optimizer, step=epoch)
@@ -473,7 +528,7 @@ class Train:
         # device fetch per epoch, never a per-step wait
         tb_writer = None
         tb_conf = kwargs.get("tensorboard")
-        if tb_conf:
+        if tb_conf and is_main:
             from ..utils.tb import SummaryWriter
 
             tb_writer = SummaryWriter(tb_conf if isinstance(tb_conf, str) else "tb_logs")
@@ -509,9 +564,11 @@ class Train:
                     # sequence across an interrupted+resumed run
                     epoch_iter = DevicePrefetcher(
                         batched(epoch_ds, batch_size, shuffle_buffer=shuffle_buffer or None,
-                                seed=seed * 1000003 + epoch, num_workers=stream_workers), dev)
+                                seed=seed * 1000003 + epoch, num_workers=stream_workers), dev,
+                        rows=rows)
                 ms_used = {}
-                with trace(profile_trace_dir if epoch == start_epoch else None) as trace_path:
+                with trace(profile_trace_dir if epoch == start_epoch and is_main
+                           else None) as trace_path:
                     for bi, (images, labels) in enumerate(epoch_iter):
                         step_fn, resize = epoch_step, ms_resize
                         if ms_per_step:
@@ -562,7 +619,7 @@ class Train:
                            if ema_conf and ema_conf.get("use_for_validation") else train_state)
                 val_losses = []
                 val_iter = (dd_val.batches(None) if dd_val is not None else DevicePrefetcher(
-                    batched(ds_val, batch_size, num_workers=stream_workers), dev))
+                    batched(ds_val, batch_size, num_workers=stream_workers), dev, rows=rows))
                 for batch_i, (images, labels) in enumerate(val_iter):
                     metrics = eval_step(val_src["params"], val_src["bn_state"], images, labels)
                     # keep the per-batch loss on the device: one stacked fetch

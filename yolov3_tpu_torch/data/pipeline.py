@@ -256,14 +256,18 @@ class DevicePrefetcher:
     copy's event before it uses the batch, so a batch's transfer overlaps the
     previous step's kernels. At most ``buffer_size`` (2) batches are in flight.
     For the CPU the batches become tensors that share the numpy memory.
+    ``rows`` (a slice): keep only those rows of every batch, before the copy
+    — a data-parallel rank's ``local_batch_slice`` of the global batch that
+    every rank iterates alike (the JAX trainer's ``put``).
     """
 
-    def __init__(self, iterable, device, buffer_size: int = 2):
+    def __init__(self, iterable, device, buffer_size: int = 2, rows=None):
         import torch
 
         self.iterable = iterable
         self.buffer_size = buffer_size
         self.device = torch.device(device)
+        self.rows = slice(None) if rows is None else rows
 
     def __iter__(self):
         import torch
@@ -288,7 +292,7 @@ class DevicePrefetcher:
             return False
 
         def to_device(batch):
-            tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
+            tensors = [torch.from_numpy(np.ascontiguousarray(a[self.rows])) for a in batch]
             if not on_card:
                 return tuple(tensors), None
             with torch.cuda.stream(copy_stream):

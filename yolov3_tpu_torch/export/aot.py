@@ -16,7 +16,9 @@ Artifact format: one zip file holding
                           parameters, quantize tier, the torch and format
                           versions, the platforms (the JAX manifest's keys,
                           with ``framework: "yolov3_tpu_torch"`` and
-                          ``torch_version`` in place of ``jax_version``);
+                          ``torch_version`` in place of ``jax_version``),
+                          and ``fp32_precision: "ieee"``, which the loader
+                          applies (``device.pin_fp32_ieee``);
   ``module.<platform>.pt2``  one ``torch.export.save`` program per platform
                           (``cpu``, ``cuda``): a program bakes its device
                           into ops such as ``arange`` and ``zeros``, so each
@@ -40,7 +42,7 @@ import zipfile
 
 import torch
 
-from ..device import resolve_device
+from ..device import pin_fp32_ieee, resolve_device
 from ..ops import cuda as _kernels  # noqa: F401  (registers the yolov3_torch ops)
 
 MANIFEST_NAME = "manifest.json"
@@ -102,6 +104,7 @@ def save_detector_artifact(path: str, exported: dict, manifest: dict) -> dict:
     manifest.setdefault("torch_version", torch.__version__)
     manifest.setdefault("platforms", list(exported))
     manifest.setdefault("created_unix", int(time.time()))
+    manifest.setdefault("fp32_precision", "ieee")
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(MANIFEST_NAME, json.dumps(manifest, indent=2, sort_keys=True))
         for platform, program in exported.items():
@@ -121,9 +124,11 @@ def load_detector_artifact(path: str, device=None):
     ``manifest["image_size"]`` resize, /255; letterboxed when
     ``manifest["letterbox"]``) and returns the ``yolo_nms`` tuple, as
     ``make_predictor``'s predictor does (``as_predict``). One program serves
-    every batch size; its weights live in the program. Raises for a JAX
-    artifact, for a newer ``format_version`` and for an artifact with no
-    program for the device."""
+    every batch size; its weights live in the program. The manifest's
+    ``fp32_precision`` is applied before the program is loaded (an artifact
+    written before the key existed is ``"ieee"``, the only value). Raises
+    for a JAX artifact, for a newer ``format_version``, for another
+    ``fp32_precision`` and for an artifact with no program for the device."""
     dev = resolve_device(device)
     with zipfile.ZipFile(path, "r") as zf:
         names = set(zf.namelist())
@@ -142,5 +147,10 @@ def load_detector_artifact(path: str, device=None):
         if member not in names:
             raise ValueError(f"artifact {path} has no program for {dev.type} (it holds "
                              f"{manifest.get('platforms')}); export it with that platform")
+        precision = manifest.get("fp32_precision", "ieee")
+        if precision != "ieee":
+            raise ValueError(f"artifact {path} asks for fp32_precision {precision!r}; this "
+                             "loader runs fp32 as IEEE fp32 only")
+        pin_fp32_ieee(dev)
         program = torch.export.load(io.BytesIO(zf.read(member)))
     return as_predict(program.module(), dev), manifest

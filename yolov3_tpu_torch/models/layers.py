@@ -89,7 +89,7 @@ def _subsampled(x, stride: int):
 
 
 def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM, eps=BN_EPS,
-               phases: int = 1, stats_subsample: int = 1):
+               phases: int = 1, stats_subsample: int = 1, group=None):
     """Functional BatchNorm over channel axis 1. Returns ``(y, new_state)``.
 
     In training mode the statistics are the batch's mean and biased variance
@@ -111,10 +111,18 @@ def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM
     of the activation (``_subsampled``); the normalization, the gradient
     through the statistics and the running-average update all use that
     estimate.
+
+    ``group`` (training only): a ``torch.distributed`` process group whose
+    ranks each hold a shard of the batch; the statistics are the global
+    batch's (sync-BN, ``bn_moments``). The phase view and the subsample are
+    per image, so they compose with it: the global count is the sum of the
+    ranks' counts.
     """
     if train:
         xs = _subsampled(x, stats_subsample) if stats_subsample > 1 else x
-        mean, var = bn_moments(_phase_view(xs, phases) if phases > 1 else xs)
+        xs = _phase_view(xs, phases) if phases > 1 else xs
+        # unsynced, the call stays bn_moments(x): the seam a float64 referee replaces
+        mean, var = bn_moments(xs) if group is None else bn_moments(xs, group=group)
         new_state = {
             "mean": (momentum * bn_state["mean"] + (1.0 - momentum) * mean).detach(),
             "var": (momentum * bn_state["var"] + (1.0 - momentum) * var).detach(),

@@ -126,13 +126,13 @@ def pack_fused_stages(spec: ModelSpec, params):
     return packed
 
 
-def _conv_tail(x, p, bn_state, bn_train, phases, stats_subsample, leaky):
+def _conv_tail(x, p, bn_state, bn_train, phases, stats_subsample, leaky, bn_group=None):
     """What follows an fp conv: BatchNorm (or the bias), then LeakyReLU →
     (y, the BN layer's new state or None)."""
     layer_state = None
     if "bn" in p:
         x, layer_state = L.batch_norm(x, p["bn"], bn_state, bn_train, phases=phases,
-                                      stats_subsample=stats_subsample)
+                                      stats_subsample=stats_subsample, group=bn_group)
     elif "bias" in p:
         x = x + p["bias"].to(x.dtype).view(1, -1, 1, 1)
     if leaky:
@@ -143,11 +143,12 @@ def _conv_tail(x, p, bn_state, bn_train, phases, stats_subsample, leaky):
 def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                      nclasses: int, fp_dtype, conv_observer=None, out_observer=None,
                      bn_train: bool = False, new_state=None, conv_input_transform=None,
-                     bn_stats_subsample: int = 1, remat_tail: bool = False):
+                     bn_stats_subsample: int = 1, remat_tail: bool = False, bn_group=None):
     """Run one sub-model's layer list; returns its selected outputs.
 
     ``bn_train`` runs every BatchNorm on the batch's statistics (from a
-    ``bn_stats_subsample`` spatial subsample, see ``layers.batch_norm``);
+    ``bn_stats_subsample`` spatial subsample, synced over ``bn_group``, see
+    ``layers.batch_norm``);
     each BN layer's new running statistics go into the dict ``new_state``
     (when one is given) under the layer's key.
 
@@ -207,7 +208,7 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                 tail = functools.partial(
                     _conv_tail, p=p, bn_state=sm_state.get(key), bn_train=bn_train,
                     phases=4 if s2d == "conv0" else 1, stats_subsample=bn_stats_subsample,
-                    leaky=leaky)
+                    leaky=leaky, bn_group=bn_group)
                 if remat_tail and "bn" in p:
                     x, layer_state = torch.utils.checkpoint.checkpoint(
                         tail, x, use_reentrant=False, preserve_rng_state=False)
@@ -254,7 +255,8 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
 
 def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
                 out_observer=None, train: bool = False, bn_frozen: tuple = (),
-                remat=False, conv_input_transform=None, bn_stats_subsample: int = 1):
+                remat=False, conv_input_transform=None, bn_stats_subsample: int = 1,
+                bn_group=None):
     """Forward pass. ``images``: (B, H, W, 3) float tensor.
 
     Returns the list of head outputs ``(B, g, g, 3, 5+nc)`` in the order of
@@ -279,6 +281,9 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
     ``conv_input_transform``: see ``_apply_sub_model`` (activation QAT).
     ``bn_stats_subsample``: the stride of the spatial subsample training-mode
     BatchNorm takes its statistics from (1: every pixel).
+    ``bn_group``: a ``torch.distributed`` process group over which
+    training-mode BatchNorm takes the global batch's statistics (sync-BN, as
+    the JAX package's SPMD step does); frozen layers do not sync.
     """
     x = images.permute(0, 3, 1, 2)
     produced = {}
@@ -298,7 +303,7 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
                                     bn_train=_bn, new_state=sm_new_state,
                                     conv_input_transform=conv_input_transform,
                                     bn_stats_subsample=bn_stats_subsample,
-                                    remat_tail=train and remat == "conv")
+                                    remat_tail=train and remat == "conv", bn_group=bn_group)
             return outs, sm_new_state
 
         if remat and remat != "conv" and train:

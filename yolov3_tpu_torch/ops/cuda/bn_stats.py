@@ -37,6 +37,19 @@ The forward's sums are taken in another order than the plain version's, so
 those are held to a tolerance: ``SUM_RTOL`` of Σ|x| and of Σx² against a
 float64 reference. Two launches on one input give the same bits (no atomics
 on floats; every order is fixed by the shape).
+
+Sync-BN (``group``, a ``torch.distributed`` process group): the statistics of
+the *global* batch, as the JAX package's SPMD step reduces them. Every rank
+computes its local sums (one launch), the stacked (2, C) f32 sums are
+all-reduced over the group, and mean and var follow from them by the same
+finishing expression over the global count n = n_local · world size (every
+rank holds an equal shard of the batch, as the data-parallel step slices
+it). The backward all-reduces the stacked (dmean, dvar) before the dx
+launch, whose scalars come from that global n. One all-reduce each way a
+call, counted in ``bn_sums.sync_launches`` and
+``bn_moments_dx.sync_launches``. The count stays a Python number, so the
+division is the expression the unsynced path evaluates on each device: with
+a group of one process the result is the unsynced one, bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import build
 
@@ -159,6 +173,7 @@ def bn_sums(x):
 
 
 bn_sums.launches = 0
+bn_sums.sync_launches = 0  # forward all-reduces of sync-BN (any device)
 
 
 def _scalars(n: int):
@@ -166,23 +181,25 @@ def _scalars(n: int):
     return float(np.float32(1.0 / n)), float(np.float32(2.0 / n))
 
 
-def bn_moments_dx_plain(x, mean, dmean, dvar):
+def bn_moments_dx_plain(x, mean, dmean, dvar, n=None):
     """Plain PyTorch version of the backward: ``a·x + b`` per channel, each
-    op rounded once in f32, then cast to x's dtype."""
-    inv_n, two_inv_n = _scalars(x.numel() // x.shape[1])
+    op rounded once in f32, then cast to x's dtype. ``n``: the count the
+    statistics were taken over (sync-BN's global one; default x's own)."""
+    inv_n, two_inv_n = _scalars(x.numel() // x.shape[1] if n is None else n)
     a = dvar * two_inv_n
     b = dmean * inv_n - a * mean
     shape = (1, -1, 1, 1)
     return (a.view(shape) * x.float() + b.view(shape)).to(x.dtype)
 
 
-def bn_moments_dx(x, mean, dmean, dvar):
+def bn_moments_dx(x, mean, dmean, dvar, n=None):
     """Gradient of (mean, var) w.r.t. x: x (B, C, H, W); mean, dmean, dvar
-    (C,) f32 → dx like x (same dtype and memory format). CPU tensors take the
-    plain version; CUDA tensors launch ``bn_dx_kernel`` (counted in
-    ``bn_moments_dx.launches``) or raise."""
+    (C,) f32 → dx like x (same dtype and memory format). ``n``: the count the
+    statistics were taken over (sync-BN's global one; default B·H·W of x).
+    CPU tensors take the plain version; CUDA tensors launch ``bn_dx_kernel``
+    (counted in ``bn_moments_dx.launches``) or raise."""
     if x.device.type == "cpu":
-        return bn_moments_dx_plain(x, mean, dmean, dvar)
+        return bn_moments_dx_plain(x, mean, dmean, dvar, n)
     if x.device.type != "cuda":
         raise ValueError(f"bn_moments_dx: unsupported device {x.device}")
     channels_last, b, c, hw = _check_activation("bn_moments_dx", x)
@@ -198,7 +215,7 @@ def bn_moments_dx(x, mean, dmean, dvar):
     per_vector = 16 // x.element_size()
     vec = (x.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0
            and (c if channels_last else hw) % per_vector == 0)
-    inv_n, two_inv_n = _scalars(b * hw)
+    inv_n, two_inv_n = _scalars(b * hw if n is None else n)
     build.launch(build.function("bn_stats", "bn_moments_dx_launch"), x.device, "bn_moments_dx",
                  x.data_ptr(), vectors[1].data_ptr(), vectors[2].data_ptr(),
                  vectors[0].data_ptr(), dx.data_ptr(), x.dtype == torch.bfloat16, channels_last,
@@ -208,16 +225,27 @@ def bn_moments_dx(x, mean, dmean, dvar):
 
 
 bn_moments_dx.launches = 0
+bn_moments_dx.sync_launches = 0  # backward all-reduces of sync-BN (any device)
 
 
 class _BnMoments(torch.autograd.Function):
     """(mean, biased var) over axes (0, 2, 3) with the analytic backward of
-    the TPU kernel's custom VJP. ``plain`` forces the plain versions."""
+    the TPU kernel's custom VJP. ``plain`` forces the plain versions;
+    ``group`` syncs the statistics over a process group (see the module's
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, x, plain: bool):
-        if plain or x.device.type == "cpu":
-            n = x.numel() // x.shape[1]
+    def forward(ctx, x, plain: bool, group):
+        n = x.numel() // x.shape[1]
+        on_cpu = plain or x.device.type == "cpu"
+        if group is not None:
+            sums = torch.stack(bn_sums_plain(x) if on_cpu else bn_sums(x))
+            dist.all_reduce(sums, group=group)
+            bn_sums.sync_launches += 1
+            n *= dist.get_world_size(group)
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        elif on_cpu:
             s, s2 = bn_sums_plain(x)
             mean = s / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
@@ -226,23 +254,30 @@ class _BnMoments(torch.autograd.Function):
         else:
             raise ValueError(f"bn_moments: unsupported device {x.device}")
         ctx.save_for_backward(x, mean)
-        ctx.plain = plain
+        ctx.plain, ctx.group, ctx.n = plain, group, n
         return mean, var
 
     @staticmethod
     def backward(ctx, dmean, dvar):
         x, mean = ctx.saved_tensors
-        dx = (bn_moments_dx_plain if ctx.plain else bn_moments_dx)(x, mean, dmean, dvar)
-        return dx, None
+        if ctx.group is not None:
+            grads = torch.stack([dmean, dvar])
+            dist.all_reduce(grads, group=ctx.group)
+            bn_moments_dx.sync_launches += 1
+            dmean, dvar = grads.unbind(0)
+        dx = (bn_moments_dx_plain if ctx.plain else bn_moments_dx)(x, mean, dmean, dvar, ctx.n)
+        return dx, None, None
 
 
-def bn_moments(x):
+def bn_moments(x, group=None):
     """x (B, C, H, W) → (mean, var), two (C,) f32 tensors, differentiable in
     x. On a CUDA tensor the forward is one launch (counted in
-    ``bn_sums.launches``) and no other op, and the backward one launch."""
-    return _BnMoments.apply(x, False)
+    ``bn_sums.launches``) and, unsynced, no other op; the backward one launch.
+    ``group``: a process group to take the global batch's statistics over
+    (sync-BN), or None."""
+    return _BnMoments.apply(x, False, group)
 
 
-def bn_moments_plain(x):
+def bn_moments_plain(x, group=None):
     """The same function through the plain versions on any device."""
-    return _BnMoments.apply(x, True)
+    return _BnMoments.apply(x, True, group)

@@ -42,7 +42,9 @@ def yolo_decode(model_output_grids, anchors_table, nclasses: int):
                                   indexing="ij")
         offsets = torch.stack([col, row], dim=-1)[None, :, :, None, :]  # (1,g,g,1,2)
 
-        grid_dims = torch.tensor([gw, gh], dtype=torch.float32, device=device)
+        # (gw, gh) computed on the device, exactly: a tensor from a Python
+        # list, or an item set from one, is a copy the host waits on
+        grid_dims = torch.arange(2, dtype=torch.float32, device=device) * (gh - gw) + gw
         center = (xy + offsets) / grid_dims
         wh = torch.exp(wh_l) * anchors
         boxes = torch.cat([center - wh / 2.0, center + wh / 2.0], dim=-1)

@@ -1,1 +1,1 @@
-"""Train and eval steps of the port (one device)."""
+"""Train and eval steps of the port, and the data-parallel mesh they run on."""

@@ -1,10 +1,21 @@
 """Train / eval steps: assignment + forward + loss + gradients + update.
 
-Counterpart of ``yolov3_tpu/parallel/train_step.py`` for one device
-(``mesh=None``). What the JAX package compiles into one jit runs eagerly
-here: target assignment on the device, the forward (training-mode BatchNorm
-through the K5 kernels on the card), the 4-term loss, L2 regularization,
-``torch.autograd.grad``, and the optimizer update.
+Counterpart of ``yolov3_tpu/parallel/train_step.py``. What the JAX package
+compiles into one jit runs eagerly here: target assignment on the device, the
+forward (training-mode BatchNorm through the K5 kernels on the card), the
+4-term loss, L2 regularization, ``torch.autograd.grad``, and the optimizer
+update. fp32 (no ``compute_dtype``) runs in IEEE fp32 on the card
+(``device.pin_fp32_ieee``).
+
+With a ``mesh`` (``parallel/mesh.py``: one process per card, joined by a
+process group) each rank steps on its shard of the global batch and the step
+computes what the JAX package's SPMD step computes over the whole batch:
+BatchNorm's statistics are the global batch's (sync-BN through K5), each
+rank's loss is ``Σ terms_local / b_local + L2`` and the gradients are
+averaged over the ranks by one coalesced all-reduce, so L2 counts once and
+the terms are divided by the global batch; the trainable mask, the clip, the
+optimizer and the EMA then run on every rank on the same averaged gradients,
+which keeps every rank's state identical. The metrics are averaged too.
 
 The optimizer is the port's own small functional one over the param dicts,
 because three details of the JAX package's optimizers differ from
@@ -27,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import pin_fp32_ieee
 from ..models.network import apply_model, l2_regularization
 from ..ops.assign import assign_targets
 from ..ops.augment import apply_augment, draw_augment, step_generator
@@ -226,9 +238,10 @@ def ema_update(ema, new, decay, step, warmup: bool = True):
 
 def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, grid_sizes,
                       batch_size, bn_frozen, train, compute_dtype=None, remat=False, qat=False,
-                      qat_min_k2cin=0, bn_stats_subsample=1):
+                      qat_min_k2cin=0, bn_stats_subsample=1, bn_group=None):
     """→ ``(total, (new_bn_state, metrics))``; total = Σ terms / batch + L2
-    on the master weights, everything after the heads in f32.
+    on the master weights, everything after the heads in f32. ``bn_group``:
+    sync-BN's process group (``apply_model``).
 
     ``qat``: 'weights' (or True) fake-quants the conv kernels, 'activations'
     the conv inputs, 'full' both (``ops/quantize.py``), before the
@@ -253,7 +266,7 @@ def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, gri
         outputs, new_bn = apply_model(spec, params_c, bn_state, images, train=True,
                                       bn_frozen=bn_frozen, remat=remat,
                                       conv_input_transform=act_transform,
-                                      bn_stats_subsample=bn_stats_subsample)
+                                      bn_stats_subsample=bn_stats_subsample, bn_group=bn_group)
     else:
         outputs, new_bn = apply_model(spec, params_c, bn_state, images), bn_state
     terms = torch.stack([
@@ -273,7 +286,7 @@ def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, gri
 
 def loss_and_grads(spec, params, bn_state, images, labels, anchors_table, grid_sizes,
                    batch_size, bn_frozen=(), compute_dtype=None, remat=False, qat=False,
-                   qat_min_k2cin=0, bn_stats_subsample=1):
+                   qat_min_k2cin=0, bn_stats_subsample=1, bn_group=None):
     """One training forward and backward → ``(grads, new_bn_state, metrics)``:
     the gradient of the total loss w.r.t. every leaf of ``params`` (a tree
     like ``params``, f32 at the f32 masters), the BatchNorm state after this
@@ -282,16 +295,32 @@ def loss_and_grads(spec, params, bn_state, images, labels, anchors_table, grid_s
     total, (new_bn, metrics) = _loss_and_metrics(
         spec, tree_unflatten(params, leaves), bn_state, images, labels, anchors_table,
         tuple(int(g) for g in grid_sizes), batch_size, tuple(bn_frozen), True,
-        compute_dtype, remat, qat, qat_min_k2cin, bn_stats_subsample)
+        compute_dtype, remat, qat, qat_min_k2cin, bn_stats_subsample, bn_group)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
     return (tree_unflatten(params, grads), new_bn,
             tree_map(lambda m: m.detach(), metrics))
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh: not ported yet (a later slice of the port)")
+def _local_batch(batch_size: int, mesh):
+    """This rank's share of the global ``batch_size`` under ``mesh`` (None:
+    the whole batch); raises for a mesh the step cannot run on."""
+    if mesh is None:
+        return batch_size
+    if len(mesh.devices) != 1:
+        raise ValueError(
+            f"data-parallel training runs one process per device; this mesh holds "
+            f"{len(mesh.devices)} devices of one process (a serving mesh)")
+    if batch_size % mesh.world_size:
+        raise ValueError(f"batch_size ({batch_size}) must divide over the data axis "
+                         f"({mesh.world_size} processes)")
+    return batch_size // mesh.world_size
+
+
+def _check_local(images, local: int, mesh):
+    if mesh is not None and images.shape[0] != local:
+        raise ValueError(f"this rank's batch has {images.shape[0]} images; its shard of the "
+                         f"global batch is {local}")
 
 
 def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Optimizer,
@@ -317,18 +346,28 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     tier skips at ``qat_min_k2cin``. ``ema_decay``: keep
     ``train_state["ema"]`` (``init_train_state(ema=True)``).
     ``bn_stats_subsample``: see ``layers.batch_norm``. The metrics are
-    detached tensors on the device. ``mesh`` belongs to a later slice of the
-    port and raises.
+    detached tensors on the device.
+
+    ``mesh`` (``parallel/mesh.py::make_mesh`` under a process group): data
+    parallelism, see the module's docstring. ``batch_size`` stays the global
+    batch; each rank passes its ``local_batch_slice`` of it. Augmentation
+    draws once for the global batch and each rank takes its slice of the
+    draws (mosaic, whose composites mix images across the batch, augments
+    the gathered global batch and keeps the rank's slice). ``accum_steps``
+    must divide the local batch, so that microbatch k of every rank together
+    is the global microbatch k.
     """
-    _no_mesh(mesh)
     aug_options = None if augment is None else dict(augment)
     if aug_options is not None:
         draw_augment(batch_size, step_generator(seed, 0), **aug_options)  # options checked now
     grid_sizes = tuple(int(g) for g in grid_sizes)
     bn_frozen = tuple(bn_frozen)
-    if accum_steps > 1 and batch_size % accum_steps:
-        raise ValueError(f"batch {batch_size} not divisible by accum_steps {accum_steps}")
-    micro = batch_size // accum_steps
+    local = _local_batch(batch_size, mesh)
+    group = None if mesh is None else mesh.group
+    if accum_steps > 1 and local % accum_steps:
+        raise ValueError(f"batch {local} not divisible by accum_steps {accum_steps}"
+                         + (f" (this rank's shard of {batch_size})" if mesh is not None else ""))
+    micro = local // accum_steps
     mask_leaves = (None if trainable_mask is None
                    else [float(bool(m)) for m in tree_leaves(trainable_mask)])
 
@@ -336,18 +375,33 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
         grads, new_bn, metrics = loss_and_grads(
             spec, params, bn_state, images, labels, anchors, grid_sizes, divisor,
             bn_frozen=bn_frozen, compute_dtype=compute_dtype, remat=remat, qat=qat,
-            qat_min_k2cin=qat_min_k2cin, bn_stats_subsample=bn_stats_subsample)
+            qat_min_k2cin=qat_min_k2cin, bn_stats_subsample=bn_stats_subsample,
+            bn_group=group)
         return tree_leaves(grads), new_bn, metrics
+
+    def augmented(images, labels, step_index):
+        gen = step_generator(seed, step_index)
+        if mesh is None:
+            return apply_augment(images, labels, draw_augment(images.shape[0], gen,
+                                                              **aug_options))
+        draws = draw_augment(batch_size, gen, **aug_options)
+        rows = mesh.local_slice(batch_size)
+        if "mosaic_take" in draws:
+            images, labels = apply_augment(mesh.all_gather_batch(images),
+                                           mesh.all_gather_batch(labels), draws)
+            return images[rows], labels[rows]
+        return apply_augment(images, labels, {k: v[rows] for k, v in draws.items()})
 
     anchors_np = np.asarray(anchors_table, np.float32)
 
     def step(train_state, images, labels):
+        _check_local(images, local, mesh)
+        if compute_dtype is None:
+            pin_fp32_ieee(images.device)
         params = train_state["params"]
         anchors = torch.as_tensor(anchors_np, device=images.device)
         if aug_options is not None:
-            draws = draw_augment(images.shape[0],
-                                 step_generator(seed, int(train_state["step"])), **aug_options)
-            images, labels = apply_augment(images, labels, draws)
+            images, labels = augmented(images, labels, int(train_state["step"]))
         if accum_steps > 1:
             bn, grads, metrics = train_state["bn_state"], None, None
             for k in range(accum_steps):
@@ -360,7 +414,10 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
             new_bn = bn
         else:
             grads, new_bn, metrics = grads_of(params, train_state["bn_state"], images, labels,
-                                              anchors, batch_size)
+                                              anchors, local)
+        if mesh is not None:
+            grads = mesh.all_reduce_mean(grads)
+            metrics = tree_unflatten(metrics, mesh.all_reduce_mean(tree_leaves(metrics)))
         if mask_leaves is not None:
             grads = [g * m for g, m in zip(grads, mask_leaves)]
         with torch.no_grad():
@@ -379,16 +436,20 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
 
 def make_eval_step(spec, anchors_table, grid_sizes, batch_size, mesh=None, bn_frozen=()):
     """Validation loss step (no update): ``step(params, bn_state, images,
-    labels) → metrics``."""
-    _no_mesh(mesh)
+    labels) → metrics``. With a ``mesh`` each rank passes its shard of the
+    global ``batch_size`` and the metrics are averaged over the ranks."""
+    local = _local_batch(batch_size, mesh)
     anchors_np = np.asarray(anchors_table, np.float32)
     grid_sizes = tuple(int(g) for g in grid_sizes)
 
     @torch.no_grad()
     def step(params, bn_state, images, labels):
+        _check_local(images, local, mesh)
         anchors = torch.as_tensor(anchors_np, device=images.device)
         _, (_, metrics) = _loss_and_metrics(spec, params, bn_state, images, labels, anchors,
-                                            grid_sizes, batch_size, tuple(bn_frozen), False)
+                                            grid_sizes, local, tuple(bn_frozen), False)
+        if mesh is not None:
+            metrics = tree_unflatten(metrics, mesh.all_reduce_mean(tree_leaves(metrics)))
         return metrics
 
     return step
