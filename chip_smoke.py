@@ -174,7 +174,26 @@ Phases (any failure exits non-zero):
      predictor (NMS index-exact, boxes 1e-5), K1, K3, K4, K6 launched, no
      host sync inside a sharded call, and ``Serve`` with
      ``data_parallel: true`` on one card logging the no-op and answering as
-     the plain server.
+     the plain server;
+ 25. the spatial axis (outputs under ``build/smoke_spatial/``), the bands of
+     a group on the one card: (a) the seeded 80-class YOLOv3-416 served over
+     S = 2 and 4 bands at B = 16 and 1 against the unsharded predictor (fp32
+     index-exact with boxes 1e-5 or a near-tie witness; ``int8`` and
+     ``int8_chain`` heads and detections bit-equal), K1, K3, K4 (23 a band,
+     every one a band-edge launch) and K6 counted, event-loop and
+     device-busy ms in turns, the halo traffic of a forward; K4 with its
+     halo flags against its plain version at 52² and 13² band heights
+     (bit-equal) and against the whole image's launch; K5 over two bands
+     against its plain version; (b) one YOLOv3-416 train step at B=16, S=2,
+     fp32 IEEE, against the unsharded step whose K5 sums are taken per band
+     (loss 1e-5, BN state 1e-4, every gradient leaf no farther from a
+     float64 step than the larger of 2e-4 of the leaf max and twice the
+     reference there), K5 144 launches each way, ms a step and peak GB
+     against the plain step; (c) data 2 × spatial 2, two gloo ranks on the
+     card (``--dp-worker gloo-spatial``), states bit-identical; (d) ``Serve``
+     with ``spatial_partitioning: 2`` answering as the plain server; (e)
+     ``evaluate`` of the trained tiny at 416 with S = 2 over [0.004, 0.5],
+     counters and APs equal to the unsharded run's, K2 launched.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -1103,6 +1122,7 @@ def phase_k4(models, resblock, chain, batch):
     from yolov3_tpu_torch.models import layers as L
     from yolov3_tpu_torch.models import network
     from yolov3_tpu_torch.models.spec import SubModelSpec
+    from yolov3_tpu_torch.parallel import spatial
 
     spec, q = chain
     sm = spec.sub_models[0]
@@ -1115,8 +1135,9 @@ def phase_k4(models, resblock, chain, batch):
                            outputs_layers=tuple(st[0] - 1 for st in stages),
                            input_shape=sm.input_shape)
     with torch.inference_mode():
-        inputs = network._apply_sub_model(feeders, sm_q, {}, batch.permute(0, 3, 1, 2),
-                                          spec.nclasses, torch.float32)
+        inputs = [out.parts[0] for out in network._apply_sub_model(
+            feeders, sm_q, {}, spatial.whole(batch.permute(0, 3, 1, 2)), spec.nclasses,
+            torch.float32)]
 
         def unfused(x, starts):
             for i in starts:
@@ -3238,11 +3259,13 @@ def dp_worker(mode, rank, world, port, inputs):
 
     rank, world = int(rank), int(world)
     initialize_multihost(f"127.0.0.1:{port}", world, rank,
-                         backend="gloo" if mode == "gloo" else "nccl")
+                         backend="nccl" if mode == "nccl" else "gloo")
     try:
         dev = resolve_device(None)
         pin_fp32_ieee(dev)
         spec, params, state, anchors, grids = dp_model(dev)
+        if mode == "gloo-spatial":  # phase 25 (c): this rank's images in two bands
+            return spatial_rank(spec, params, state, anchors, grids, dev, inputs, rank, world)
         mesh = make_mesh(devices=(dev,))
         rows = mesh.local_slice(DP_BATCH)
         data = np.load(inputs)
@@ -3326,6 +3349,30 @@ def dp_worker(mode, rank, world, port, inputs):
         print(json.dumps(row), flush=True)
     finally:
         dist.destroy_process_group()
+    return 0
+
+
+def spatial_rank(spec, params, state, anchors, grids, dev, inputs, rank, world):
+    """A rank of phase 25 (c): one Adam step of a (data ``world`` × spatial
+    2) mesh, this rank's 8 images in two bands on its card; prints the
+    state's digest and K5's counts as one JSON line."""
+    from yolov3_tpu_torch.parallel.mesh import make_mesh
+    from yolov3_tpu_torch.parallel.train_step import init_train_state, make_adam, make_train_step
+
+    mesh = make_mesh(devices=(dev, dev), spatial=2)
+    rows = mesh.local_slice(DP_BATCH)
+    data = np.load(inputs)
+    images = torch.from_numpy(data["images"][rows]).to(dev)
+    labels = torch.from_numpy(data["labels"][rows]).to(dev)
+    optimizer = make_adam(1e-3)
+    step = make_train_step(spec, anchors, grids, DP_BATCH, optimizer, mesh=mesh)
+    reset_k5_counts()
+    t0 = time.perf_counter()
+    new, m = step(init_train_state(params, state, optimizer), images, labels)
+    torch.cuda.synchronize()
+    print(json.dumps(dict(mode="gloo-spatial", rank=rank, world=world, mesh=mesh.shape,
+                          step_s=time.perf_counter() - t0, loss=float(m["total_loss"]),
+                          counts=k5_counts(), digest=state_digest(new))), flush=True)
     return 0
 
 
@@ -3613,6 +3660,482 @@ def phase_dp(inference_app, serve_app, nms_kernel, conv1x1, conv_int8, resblock,
     return row, k5, serve_launches
 
 
+SP_DIR = os.path.join(ROOT, "build", "smoke_spatial")
+
+
+class _BandMoments(torch.autograd.Function):
+    """K5 as a spatial split over ``bands`` bands of a 416² image computes
+    it, in one unsharded forward: each band's rows (their coarse rows of the
+    13-row grid, ``spatial.coarse_rows``) summed by one launch, the sums
+    added in band order, mean and var over the whole count, and K5's
+    backward with that count. Phase 25 (b)'s reference: BatchNorm's
+    one-pass variance makes the gradient depend on the order of the
+    statistics' sums, so the reference takes them in the bands' order."""
+
+    @staticmethod
+    def forward(ctx, x, bands=None):
+        from yolov3_tpu_torch.ops.cuda import bn_stats
+        from yolov3_tpu_torch.parallel import spatial as sp
+
+        unit = x.shape[2] // 13
+        rows = [r * unit for r in sp.coarse_rows(13, bands or SP_BANDS) if r]
+        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+               and not x.is_contiguous() else torch.contiguous_format)  # x's own, as a band's
+        sums = [torch.stack(bn_stats.bn_sums(part.contiguous(memory_format=fmt)))
+                for part in x.split(rows, 2)]
+        s, s2 = sum(sums[1:], sums[0])
+        n = x.numel() // x.shape[1]
+        mean = s / n
+        ctx.save_for_backward(x, mean)
+        ctx.n = n
+        return mean, torch.clamp(s2 / n - mean * mean, min=0.0)
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        from yolov3_tpu_torch.ops.cuda import bn_stats
+
+        x, mean = ctx.saved_tensors
+        return bn_stats.bn_moments_dx(x, mean, dmean, dvar, ctx.n), None
+
+
+SP_BANDS = 2  # phase 25 (b): the training split
+
+
+def sp_counts(wrappers, resblock):
+    return dict({k: w.launches for k, w in wrappers.items()},
+                resblock_int8_band_edge=resblock.fused_resblock.edge_launches)
+
+
+def spatial_train_check(bn_stats, resblock, wrappers, reset):
+    """Phase 25 (b): one training step of YOLOv3-416 (3 classes, B=16, fp32
+    IEEE) over ``SP_BANDS`` bands of the card, against the unsharded step
+    whose K5 sums are taken per band (``_BandMoments``): loss 1e-5 relative,
+    BN state 1e-4, and every gradient leaf no farther from the float64 step
+    than the larger of 2e-4 of its largest entry and twice the fp32 order
+    noise there: the farthest of three unsharded fp32 steps from float64,
+    K5's sums per band over the two bands, over four, and whole (the fp32
+    gradient at this init moves with the order of its sums, one sample of
+    which says little about a leaf); the float64 step over the same bands
+    (plain float64 statistics) within 2e-4 of the unsharded float64 step at
+    every leaf.
+    K5's launches each way; ms a step and peak GB of the spatial and the
+    plain step. → (row, the kernels' launches of the spatial step)."""
+    from yolov3_tpu_torch.models import layers
+    from yolov3_tpu_torch.parallel import spatial as sp
+    from yolov3_tpu_torch.parallel.mesh import make_mesh
+    from yolov3_tpu_torch.parallel.train_step import (init_train_state, loss_and_grads,
+                                                      make_adam, make_train_step)
+
+    cuda0 = torch.device("cuda", 0)
+    _, images_np, labels_np = dp_inputs()
+    spec, params, state, anchors, grids = dp_model("cuda")
+    images, labels = torch.from_numpy(images_np).cuda(), torch.from_numpy(labels_np).cuda()
+    bands = (cuda0,) * SP_BANDS
+    reset()
+    grads, bn, metrics = loss_and_grads(spec, params, state, images, labels, anchors, grids,
+                                        DP_BATCH, bands=bands)
+    torch.cuda.synchronize()
+    k5 = dict(forward=bn_stats.bn_sums.launches, backward=bn_stats.bn_moments_dx.launches)
+    counts = sp_counts(wrappers, resblock)
+    got = dict(grads={k: v.double().cpu() for k, v in tree_paths(grads)},
+               bn={k: v.cpu() for k, v in tree_paths(bn)},
+               loss=float(metrics["total_loss"]))
+    del grads, bn
+    noise = {}  # the unsharded fp32 step, K5's sums in three orders
+    kernel_moments = layers.bn_moments
+    for name, moments in (("bands2", lambda x, group=None: _BandMoments.apply(x, SP_BANDS)),
+                          ("bands4", lambda x, group=None: _BandMoments.apply(x, 4)),
+                          ("whole", kernel_moments)):
+        layers.bn_moments = moments
+        try:
+            grads, bn, metrics = loss_and_grads(spec, params, state, images, labels, anchors,
+                                                grids, DP_BATCH)
+        finally:
+            layers.bn_moments = kernel_moments
+        noise[name] = {k: v.double().cpu() for k, v in tree_paths(grads)}
+        if name == "bands2":
+            ref = dict(grads=noise[name], bn={k: v.cpu() for k, v in tree_paths(bn)},
+                       loss=float(metrics["total_loss"]))
+        del grads, bn
+
+    def leaf_errors(a, b):
+        return {k: float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-12)
+                for k in b}
+
+    # the referee, in float64 on the card with plain float64 statistics: the
+    # unsharded step, and the spatial step over the same two bands; the band
+    # math itself must hold there, where reordering costs nothing
+    def moments64(x, group=None):
+        mean = x.mean(dim=(0, 2, 3))
+        return mean, torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+
+    def band_moments64(xs, group=None):
+        n = sum(x.numel() // x.shape[1] for x in xs)
+        mean = sum(x.sum(dim=(0, 2, 3)) for x in xs) / n
+        return mean, torch.clamp(sum((x * x).sum(dim=(0, 2, 3)) for x in xs) / n
+                                 - mean * mean, min=0.0)
+
+    p64, s64 = dp_model("cuda", torch.float64)[1:3]
+    g64 = {}
+    kernel_moments, layers.bn_moments = layers.bn_moments, moments64
+    band_moments, sp.bn_moments_bands = sp.bn_moments_bands, band_moments64
+    try:
+        for name, kw in (("plain", {}), ("spatial", dict(bands=bands))):
+            g64[name] = {k: v.cpu() for k, v in tree_paths(loss_and_grads(
+                spec, p64, s64, images.double(), labels, anchors, grids, DP_BATCH, **kw)[0])}
+    finally:
+        layers.bn_moments, sp.bn_moments_bands = kernel_moments, band_moments
+    del p64, s64
+
+    def worst_median(e):
+        v = sorted(e.values())
+        return dict(worst=v[-1], median=v[len(v) // 2], worst_leaf=max(e, key=e.get))
+
+    errs = leaf_errors(got["grads"], ref["grads"])
+    spatial64 = leaf_errors(got["grads"], g64["plain"])
+    orders64 = {name: leaf_errors(g, g64["plain"]) for name, g in noise.items()}
+    envelope = {k: max(e[k] for e in orders64.values()) for k in spatial64}
+    float64_band_math = leaf_errors(g64["spatial"], g64["plain"])
+    # fp32: each leaf no farther from float64 than twice the unsharded
+    # steps' order noise there (the convolutions' own reductions over bands
+    # reorder fp32 sums as BatchNorm's order does, PERF.md §6); the band
+    # math exact in float64
+    margin = {k: spatial64[k] / max(2e-4, 2 * envelope[k]) for k in spatial64}
+    distances = dict(spatial_vs_reference=worst_median(errs),
+                     spatial_vs_float64=worst_median(spatial64),
+                     **{f"{name}_vs_float64": worst_median(e) for name, e in orders64.items()},
+                     float64_spatial_vs_float64=worst_median(float64_band_math),
+                     spatial64_over_its_bound=worst_median(margin),
+                     leaves_over_twice_bands2=sum(spatial64[k] > max(2e-4, 2 * orders64[
+                         "bands2"][k]) for k in spatial64))
+    worst_leaf = distances["spatial64_over_its_bound"]["worst_leaf"]
+    distances["at_that_leaf"] = dict(spatial_vs_float64=spatial64[worst_leaf],
+                                     **{f"{name}_vs_float64": e[worst_leaf]
+                                        for name, e in orders64.items()})
+    grads_ok = (distances["float64_spatial_vs_float64"]["worst"] <= 2e-4
+                and distances["spatial64_over_its_bound"]["worst"] <= 1.0)
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    bn_err = max(float(((got["bn"][k] - v).abs() / v.abs().clamp(min=1.0)).max())
+                 for k, v in ref["bn"].items())
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    train = dict(loss=got["loss"], loss_rel_err=loss_err, bn_state_max_rel_err=bn_err,
+                 grad_worst_leaves=worst[:3], grad_distances=distances, k5_launches=k5,
+                 leaves=len(errs))
+    os.makedirs(SP_DIR, exist_ok=True)
+    with open(os.path.join(SP_DIR, "train_leaves.json"), "w") as f:
+        json.dump(dict(spatial_vs_float64=spatial64, spatial_vs_reference=errs,
+                       float64_spatial_vs_float64=float64_band_math,
+                       **{f"{name}_vs_float64": e for name, e in orders64.items()}), f)
+    del got, ref, g64, noise
+    torch.cuda.empty_cache()
+    # ms a step and peak memory, the plain step and the spatial one in turns
+    optimizer = make_adam(1e-3)
+    steps = dict(plain=make_train_step(spec, anchors, grids, DP_BATCH, optimizer),
+                 spatial=make_train_step(spec, anchors, grids, DP_BATCH, optimizer,
+                                         mesh=make_mesh(devices=bands, spatial=SP_BANDS)))
+    start = init_train_state(params, state, optimizer)
+    turns = {k: dict(ms=[], peak_gb=[]) for k in steps}
+    for name in ("plain", "spatial", "spatial", "plain"):
+        steps[name](start, images, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps[name](start, images, labels)
+        torch.cuda.synchronize()
+        turns[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+        turns[name]["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+    train["turns"] = turns
+    log(f"spatial (b) train step {json.dumps(train)}")
+    if not (loss_err <= 1e-5 and bn_err <= 1e-4 and grads_ok
+            and k5 == dict(forward=72 * SP_BANDS, backward=72 * SP_BANDS)):
+        raise AssertionError(f"phase 25 (b): the spatial step disagrees: loss {loss_err}, BN "
+                             f"{bn_err}, gradients {distances}, K5 {k5}")
+    del steps, start, params, state
+    torch.cuda.empty_cache()
+    return train, counts
+
+
+def phase_spatial(inference_app, serve_app, evaluate_app, nms_kernel, round_sweep, conv1x1,
+                  conv_int8, resblock, bn_stats, bodies, smi):
+    """Phase 25: the spatial axis (``parallel/spatial.py``), the bands of a
+    group on the one card, ``("cuda:0",) * S``.
+
+    (a) serving: the seeded YOLOv3-416 (80 classes) built through
+    ``build_serving_predictor(mesh=make_data_parallel_mesh(B, S, …))`` at
+    S = 2 and 4 against the unsharded predictor at B = 16 and 1: fp32
+    detections index-exact with boxes within 1e-5 (or a near-tie witness),
+    ``int8`` and ``int8_chain`` heads and detections bit-equal (the heads of
+    the band forward against the whole-image forward of the same module);
+    K1, K3, K4 (its band-edge launches apart) and K6 launches of one B=16
+    call; event-loop ms (CUDA events) and device-busy ms (profiler) of both,
+    in turns; the halo traffic of one forward (slices moved, bytes); K4
+    with its halo flags against its plain version at the 52² and 13² band
+    heights (bit-equal) and one 52² block's two bands against the whole
+    image's launch (device µs). (b) training: YOLOv3-416, 3 classes, B=16,
+    fp32 IEEE, S = 2 (``spatial_train_check``). (c) data 2 × spatial 2: two
+    gloo ranks on the card (``--dp-worker gloo-spatial``), one step each on 8 images in two bands,
+    the ranks' states bit-identical (sha256). (d) ``Serve`` with
+    ``spatial_partitioning: 2`` answers as the plain server (trained tiny at
+    416). (e) ``evaluate`` of the trained tiny at 416 with S = 2 over
+    [0.004, 0.5]: counters and APs equal to the unsharded run's, K2
+    launched. → (row, launches of every kernel over the phase's runs)."""
+    import copy
+
+    from yolov3_tpu_torch.export.aot import as_predict
+    from yolov3_tpu_torch.models import apply_model, layers
+    from yolov3_tpu_torch.ops import nms as nms_mod
+    from yolov3_tpu_torch.ops.cuda.kernel_times import block_case, device_us
+    from yolov3_tpu_torch.parallel import spatial as sp
+    from yolov3_tpu_torch.parallel.mesh import make_data_parallel_mesh
+    from yolov3_tpu_torch.parallel.train_step import (init_train_state, loss_and_grads,
+                                                      make_adam, make_train_step)
+
+    os.makedirs(SP_DIR, exist_ok=True)
+    cuda0 = torch.device("cuda", 0)
+    wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant,
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8,
+                    round_sweep=round_sweep.round_sweep, bn_stats=bn_stats.bn_sums)
+    total = dict.fromkeys(wrappers, 0)
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        resblock.fused_resblock.edge_launches = 0
+        bn_stats.bn_moments_dx.launches = 0
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    row = dict(card=smi)
+    nms_kw = dict(max_boxes=100, iou_threshold=0.5, score_threshold=0.1)
+    model, names, anchors80 = ARTIFACT_MODEL
+    batch16 = torch.from_numpy(smoke_images(bodies, 16)).cuda()
+    serving = {}
+    for tier, quantize in (("fp32", None), ("int8", "int8"), ("int8_chain", "int8_chain")):
+        kw = dict(nms_score_threshold=0.1, quantize=quantize, seed=0,
+                  calibration_images_dir=CALIBRATION_DIR if quantize else None)
+        one = inference_app.build_serving_predictor(model, names, anchors80, None, 416, **kw)[0]
+        two = inference_app.build_serving_predictor(
+            model, names, anchors80, None, 416, **kw,
+            mesh=make_data_parallel_mesh(16, 2, (cuda0, cuda0)))[0]
+        for spatial in (2, 4):
+            if spatial == 4:  # the same params in four bands (no second calibration)
+                det = copy.deepcopy(two.module)
+                det.bands = (cuda0,) * 4
+                pred = as_predict(det, cuda0)
+            else:
+                pred = two
+            det = pred.module
+            for batch in (16, 1):
+                x = batch16[:batch]
+                key = f"{tier} S={spatial} B={batch}"
+                with torch.inference_mode():
+                    want = [t.cpu() for t in one(x)]
+                    pred(x)
+                    torch.cuda.synchronize()
+                    reset()
+                    got = pred(x)
+                    torch.cuda.synchronize()
+                    launches = sp_counts(wrappers, resblock)
+                    sp.reset_halo_counts()
+                    band_heads = apply_model(det.spec, det.tree("params"), {}, x,
+                                             devices=det.bands)
+                    halo = dict(sp.HALO)
+                    heads = apply_model(det.spec, det.tree("params"), {}, x)
+                    heads_equal = all(torch.equal(a, b) for a, b in zip(band_heads, heads))
+                    heads_err = max(max_abs(a, b) for a, b in zip(band_heads, heads))
+                    del band_heads, heads
+                got = [t.cpu() for t in got]
+                exact = all(torch.equal(a, b) for a, b in zip(got, want))
+                witnesses, box_err, _ = compare_detections(nms_mod, got, want, nms_kw)
+                r = dict(bit_equal=exact, heads_bit_equal=heads_equal, heads_max_abs=heads_err,
+                         nms_index_exact=torch.equal(got[3], want[3])
+                         and torch.equal(got[4], want[4]),
+                         boxes_max_abs_err=box_err, witnesses=witnesses,
+                         detections=int(want[4].sum()), launches=launches,
+                         halo_copies=halo["copies"], halo_bytes=halo["bytes"])
+                if tier != "int8" and batch == 16 or batch == 1 and tier == "fp32":
+                    times = {"plain": dict(ms=[], device_ms=[]),
+                             "spatial": dict(ms=[], device_ms=[])}
+                    for name in ("plain", "spatial", "spatial", "plain"):
+                        fn = (lambda: one(x)) if name == "plain" else (lambda: pred(x))
+                        times[name]["ms"].append(cuda_ms(fn, 5))
+                        profiled = device_time_by_kernel(fn)
+                        times[name]["device_ms"].append(profiled[0] if profiled else None)
+                        if profiled:  # where the device time goes: launches, top kernels
+                            times[name]["device_launches"] = profiled[2]
+                            times[name]["top_kernels_ms"] = sorted(
+                                ([k[:60], v] for k, v in profiled[1].items()),
+                                key=lambda kv: -kv[1])[:4]
+                    r["turns"] = times
+                serving[key] = r
+                log(f"spatial (a) {key} {json.dumps(r)}")
+                ok = exact if quantize else (
+                    (r["nms_index_exact"] and box_err <= 1e-5) or (
+                        witnesses and all(w["margin"] is not None and w["margin"] <= NEAR_TIE
+                                          for w in witnesses)))
+                if not ok or (quantize and not heads_equal):
+                    raise AssertionError(f"phase 25 (a) {key}: the spatial predictor disagrees "
+                                         f"with the unsharded one: {r}")
+                want_k4 = 23 * spatial if tier == "int8_chain" else 0
+                if (launches["resblock_int8"] != want_k4
+                        or (tier == "int8_chain" and launches["resblock_int8_band_edge"]
+                            != 23 * spatial) or launches["nms_sweep"] == 0
+                        or (quantize and min(launches["conv1x1_int8"],
+                                             launches["conv_int8"]) == 0)):
+                    raise AssertionError(f"phase 25 (a) {key}: launches {launches}")
+                add(launches)
+            del pred, det
+        del one, two
+        torch.cuda.empty_cache()
+    row["a_serving"] = serving
+
+    # K4 with its halo flags against its plain version, and a 52² block's
+    # two bands (28 + 24 rows) against the whole image's launch
+    k4_edges = []
+    for hw, c, cuts in ((52, 256, (28, 24)), (13, 1024, (7, 6))):
+        q, squeeze, expand, shortcut = block_case(16, hw, c)
+        kwargs, _ = resblock.block_args(squeeze, expand, shortcut, q.scale)
+        padded = torch.nn.functional.pad(q.q, (0, 0, 1, 1, 1, 1))
+        whole = resblock.to_halo(q.q)
+        bands, equal = [], True
+        for j, (a, e) in enumerate(zip((0, cuts[0]), (cuts[0], hw))):
+            xp = padded[:, a:e + 2].reshape(-1, c).contiguous()
+            flags = dict(b=16, h=e - a, w=hw, halo_top=j > 0, halo_bottom=j == 0)
+            got = resblock.fused_resblock(xp, **kwargs, **flags)
+            equal &= torch.equal(got, resblock.fused_resblock_plain(xp, **kwargs, **flags))
+            bands.append((xp, flags))
+        torch.cuda.synchronize()
+        whole_us = device_us(lambda: resblock.fused_resblock(whole, **kwargs, b=16, h=hw, w=hw))
+        bands_us = device_us(lambda: [resblock.fused_resblock(xp, **kwargs, **f)
+                                      for xp, f in bands])
+        k4_edges.append(dict(stage=f"{hw}^2 C={c} B=16", band_rows=list(cuts),
+                             equal_to_plain=equal, whole_device_us=whole_us,
+                             two_bands_device_us=bands_us,
+                             plans=[resblock.plan(16, f["h"], hw, c, c // 2)["band_rows"]
+                                    for _, f in bands]))
+        log(f"spatial K4 band edges {json.dumps(k4_edges[-1])}")
+        if not equal:
+            raise AssertionError(f"phase 25: K4 with halo flags differs from its plain version "
+                                 f"{k4_edges[-1]}")
+    row["k4_band_edges"] = k4_edges
+    del q, padded, whole, bands
+    # K5 over bands (bn_moments_bands) against its plain version: a B=16
+    # 52² activation of C=256 in two bands, channels-last as the convs give it
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy((rng.randn(16, 256, 52, 52) * 2 + rng.randn(1, 256, 1, 1) * 3)
+                         .astype(np.float32)).cuda().contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.randn(2, 256).astype(np.float32)).cuda()
+    k5_bands = {}
+    for name, fn in (("kernel", bn_stats.bn_moments_bands),
+                     ("plain", bn_stats.bn_moments_bands_plain)):
+        parts = [p.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+                 for p in x.split((28, 24), dim=2)]
+        reset()
+        mean, var = fn(parts)
+        (mean @ w[0] + var @ w[1]).backward()
+        torch.cuda.synchronize()
+        k5_bands[name] = dict(mean=mean.detach(), var=var.detach(), dx=[p.grad for p in parts],
+                              parts=[p.detach() for p in parts],
+                              launches=(bn_stats.bn_sums.launches,
+                                        bn_stats.bn_moments_dx.launches))
+    scale = float((x * x).mean())
+    x64 = x.double()
+    mean64 = x64.mean(dim=(0, 2, 3))
+    k5_row = dict(shape=[16, 256, 52, 52], band_rows=[28, 24],
+                  launches=k5_bands["kernel"]["launches"],
+                  mean_err=max_abs(k5_bands["kernel"]["mean"], k5_bands["plain"]["mean"]),
+                  var_err=max_abs(k5_bands["kernel"]["var"], k5_bands["plain"]["var"]),
+                  mean_err_float64=max_abs(k5_bands["kernel"]["mean"].double(), mean64),
+                  # dx: the plain backward at the kernel's own mean and the bands' count
+                  dx_equal=all(torch.equal(g, bn_stats.bn_moments_dx_plain(
+                      p, k5_bands["kernel"]["mean"], w[0], w[1], x.numel() // 256))
+                      for g, p in zip(k5_bands["kernel"]["dx"], k5_bands["kernel"]["parts"])))
+    row["k5_bands"] = k5_row
+    log(f"spatial K5 over bands {json.dumps(k5_row)}")
+    if not (k5_row["launches"] == (2, 2) and k5_row["dx_equal"]
+            and k5_row["mean_err"] <= bn_stats.SUM_RTOL * 10 * scale ** 0.5
+            and k5_row["var_err"] <= bn_stats.SUM_RTOL * 10 * scale):
+        raise AssertionError(f"phase 25: K5 over bands against its plain version {k5_row}")
+    del x, x64, k5_bands
+    torch.cuda.empty_cache()
+
+    # (b) one training step of YOLOv3-416, B=16, S=2, against the per-band sums
+    row["b_training"], counts = spatial_train_check(bn_stats, resblock, wrappers, reset)
+    add(counts)
+    inputs = dp_inputs()[0]
+
+    # (c) data 2 × spatial 2: two gloo ranks on the card
+    t0 = time.monotonic()
+    ranks = run_dp_ranks("gloo-spatial", 2, inputs)
+    row["c_data2_spatial2"] = dict(ranks=ranks, seconds=time.monotonic() - t0,
+                                   ranks_bit_identical=ranks[0]["digest"] == ranks[1]["digest"])
+    log(f"spatial (c) data 2 x spatial 2 {json.dumps(row['c_data2_spatial2'])}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError(f"phase 25 (c): the ranks' states differ {ranks}")
+    for r in ranks:
+        if r["counts"]["forward"] != 72 * 2 or r["counts"]["sync_forward"] != 72:
+            raise AssertionError(f"phase 25 (c): rank {r['rank']} K5 counts {r['counts']}")
+        total["bn_stats"] += r["counts"]["forward"]
+
+    # (d) Serve with spatial_partitioning: 2 on the one card
+    cfg = dict(model_config_file=os.path.join(ROOT, "config/models/yolov3_tiny/model.yaml"),
+               classes_name_file=os.path.join(ROOT, "datasets/shapes_toy/class.names"),
+               anchors_file=os.path.join(ROOT, "datasets/shapes_toy/anchors/anchors_tiny.txt"),
+               input_weights_path=os.path.join(ROOT, "checkpoints/output/yolov3_train_tiny.tf"),
+               image_size=416, nms_score_threshold=0.1, port=0, batch_buckets=(1, 4),
+               serve_forever=False, warmup=False)
+    answers = []
+    for spatial in (1, 2):
+        reset()
+        httpd, app = serve_app.Serve()(**cfg, spatial_partitioning=spatial)
+        try:
+            answers.append(app.detect(bodies[0])["detections"])
+        finally:
+            app.shutdown()
+            httpd.server_close()
+        if spatial == 2:
+            serve_launches = sp_counts(wrappers, resblock)
+    same = (len(answers[0]) == len(answers[1]) > 0 and all(
+        a["class_id"] == b["class_id"] and abs(a["score"] - b["score"]) <= 1e-5
+        and max(abs(u - v) for u, v in zip(a["box_normalized"], b["box_normalized"])) <= 1e-5
+        for a, b in zip(*answers)))
+    row["d_serve"] = dict(answers_equal=same, detections=len(answers[0]),
+                          launches=serve_launches)
+    log(f"spatial (d) serve {json.dumps(row['d_serve'])}")
+    if not same or serve_launches["nms_sweep"] == 0:
+        raise AssertionError(f"phase 25 (d): serve with spatial_partitioning 2 {row['d_serve']}")
+    add(serve_launches)
+
+    # (e) evaluate the trained tiny at 416 with S = 2 against the unsharded run
+    sweep = {"evaluate_nms_score_thresholds": [0.004, 0.5]}
+    work = os.path.join(SP_DIR, "eval")
+    runs = {}
+    for spatial in (1, 2):
+        reset()
+        cfg = tiny_detect_config(tfrecords_dir=os.path.join(TOY_TFRECORDS, "val"),
+                                 spatial_partitioning=spatial)
+        runs[spatial] = quietly(os.path.join(work, f"s{spatial}"), evaluate_app.evaluate,
+                                sweep, cfg)
+        if spatial == 2:
+            eval_launches = sp_counts(wrappers, resblock)
+    same = all(a["counters"] == b["counters"] and a["counters_oneclass"] == b["counters_oneclass"]
+               and a["map50"] == b["map50"]
+               and np.array_equal(np.asarray(a["ap_per_class"], dtype=float),
+                                  np.asarray(b["ap_per_class"], dtype=float), equal_nan=True)
+               for a, b in zip(runs[2][0], runs[1][0]))
+    row["e_evaluate"] = dict(equal=same, map50=[r["map50"] for r in runs[2][0]],
+                             launches=eval_launches, seconds=dict(s1=runs[1][2], s2=runs[2][2]))
+    log(f"spatial (e) evaluate {json.dumps(row['e_evaluate'])}")
+    if not same or eval_launches["round_sweep"] == 0:
+        raise AssertionError(f"phase 25 (e): evaluate with spatial_partitioning 2 "
+                             f"{row['e_evaluate']}")
+    add(eval_launches)
+    return row, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -3756,6 +4279,17 @@ def main() -> int:
     for name, count in dp_serve_launches.items():
         launches[name] += count
 
+    # the spatial axis: every count set to 0 just before each of its runs
+    # ((a)'s B=16 and B=1 calls, (b)'s step, (c)'s ranks, (d)'s request,
+    # (e)'s sweep) and read just after
+    torch.cuda.empty_cache()
+    spatial_row, spatial_launches = timed("spatial", phase_spatial, inference_app, serve_app,
+                                          evaluate_app, nms_kernel, round_sweep, conv1x1,
+                                          conv_int8, resblock, bn_stats, bodies, smi)
+    for name, count in spatial_launches.items():
+        launches[name] += count
+    k5_launches[1] += spatial_row["b_training"]["k5_launches"]["backward"]
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -3804,7 +4338,7 @@ def main() -> int:
                     "inference": infer_row, "offline_launches": offline,
                     "train_extras": extras, "convert": convert_row,
                     "recalibrate": recal_row, "artifact": artifact_row,
-                    "data_parallel": dp_row, "card": smi}))
+                    "data_parallel": dp_row, "spatial": spatial_row, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

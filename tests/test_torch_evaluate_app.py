@@ -226,23 +226,30 @@ def test_coco_export_matches(runs):
 
 
 def test_data_parallel_keys_raise(tmp_path, monkeypatch):
-    """``spatial_partitioning`` raises by name. ``data_parallel`` is ported:
-    on one device (the CPU) a no-op, and over two devices (two CPU replicas
-    standing in for two cards) the batch of 8 shards 4 + 4; both answer as
-    the plain sweep, counters and mAP equal."""
+    """Both keys are ported. ``data_parallel``: on one device (the CPU) a
+    no-op, and over two devices (two CPU replicas standing in for two cards)
+    the batch of 8 shards 4 + 4. ``spatial_partitioning: 2``: each image's
+    rows in two bands, sharing the one device or one band a device. Every
+    run answers as the plain sweep, counters and mAP equal; a factor that
+    does not divide the devices raises the JAX package's message."""
     monkeypatch.chdir(tmp_path)  # the .npy histograms land in the working directory
     sweep = {"evaluate_nms_score_thresholds": [0.1]}
-    with pytest.raises(NotImplementedError, match="spatial_partitioning"):
-        port_app.evaluate(sweep, dict(_detect_config(128), spatial_partitioning=2), device="cpu")
     plain = port_app.evaluate(sweep, _detect_config(128), max_eval_images=8, device="cpu")
-    one = port_app.evaluate(sweep, dict(_detect_config(128), data_parallel=True),
-                            max_eval_images=8, device="cpu")
-    monkeypatch.setattr(inference_app, "local_devices", lambda kind: (torch.device(kind),) * 2)
-    two = port_app.evaluate(sweep, dict(_detect_config(128), data_parallel=True),
-                            max_eval_images=8, device="cpu")
-    for got in (one, two):
+    runs = []
+    for devices in (1, 2):
+        if devices == 2:
+            monkeypatch.setattr(inference_app, "local_devices",
+                                lambda kind: (torch.device(kind),) * 2)
+        for key in ({"data_parallel": True}, {"spatial_partitioning": 2}):
+            runs.append(port_app.evaluate(sweep, dict(_detect_config(128), **key),
+                                          max_eval_images=8, device="cpu"))
+    for got in runs:
         for a, b in zip(got, plain):
             assert a["counters"] == b["counters"] and a["map50"] == b["map50"]
+    with pytest.raises(ValueError, match=r"spatial_partitioning \(3\) must divide the device "
+                                         r"count \(2\)"):
+        port_app.evaluate(sweep, dict(_detect_config(128), spatial_partitioning=3),
+                          device="cpu")
 
 
 def test_evaluate_command_on_cpu(tmp_path, capsys):

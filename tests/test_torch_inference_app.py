@@ -180,19 +180,25 @@ def test_inference_video_mode(tmp_path):
 
 @pytest.mark.parametrize("key,value", [("data_parallel", True), ("spatial_partitioning", 2)])
 def test_parallel_keys_raise(tmp_path, key, value, monkeypatch):
-    """``spatial_partitioning`` raises by name. ``data_parallel`` keeps the
-    JAX package's rules: an image source that predicts one image at a time
-    raises its ``ValueError``; over tfrecords it is a no-op on one device
-    (the CPU) and shards the batch over two (two CPU replicas standing in
-    for two cards, a batch of 4 as 2 + 2); both write the plain run's
-    ``detect.txt``."""
+    """Both keys keep the JAX package's rules. ``data_parallel`` with an
+    image source that predicts one image at a time raises its
+    ``ValueError``; ``spatial_partitioning`` alone is valid there (the data
+    axis collapses to 1) and writes the plain run's ``detect.txt``. Over
+    tfrecords each key runs on one device (the CPU: ``data_parallel`` a
+    no-op, the two bands sharing it) and over two (two CPU replicas
+    standing in for two cards: a batch of 4 as 2 + 2, or each image's rows
+    as two bands), and writes the plain run's ``detect.txt``."""
     if key == "spatial_partitioning":
-        with pytest.raises(NotImplementedError, match=key):
-            Inference()(**_detect_config(tmp_path, device="cpu", **{key: value}))
-        return
-    with pytest.raises(ValueError, match="data_parallel requires a batched input_data_source"):
-        Inference()(**_detect_config(tmp_path, device="cpu", input_data_source="images_dir",
-                                     **{key: value}))
+        per_image = dict(device="cpu", input_data_source="images_dir", image_size=96)
+        Inference()(**_detect_config(tmp_path / "dir_plain", **per_image))
+        Inference()(**_detect_config(tmp_path / "dir", **per_image, **{key: value}))
+        _assert_same_detections(_detect_lines(tmp_path / "dir"),
+                                _detect_lines(tmp_path / "dir_plain"))
+    else:
+        with pytest.raises(ValueError,
+                           match="data_parallel requires a batched input_data_source"):
+            Inference()(**_detect_config(tmp_path, device="cpu", input_data_source="images_dir",
+                                         **{key: value}))
     cfg = dict(image_size=96, batch_size=4, input_data_source="tfrecords", device="cpu")
     Inference()(**_detect_config(tmp_path / "plain", **cfg))
     Inference()(**_detect_config(tmp_path / "one", **cfg, **{key: value}))
@@ -201,7 +207,21 @@ def test_parallel_keys_raise(tmp_path, key, value, monkeypatch):
     monkeypatch.setattr(inference_app, "local_devices", lambda kind: (torch.device(kind),) * 2)
     Inference()(**_detect_config(tmp_path / "two", **cfg, **{key: value}))
     want = _detect_lines(tmp_path / "plain")
-    assert want and _detect_lines(tmp_path / "one") == want == _detect_lines(tmp_path / "two")
+    if key == "data_parallel":
+        assert want and _detect_lines(tmp_path / "one") == want == _detect_lines(tmp_path / "two")
+    for run in ("one", "two"):
+        _assert_same_detections(_detect_lines(tmp_path / run), want)
+
+
+def _assert_same_detections(got, want):
+    """detect.txt lines of two runs: the same labels in the same order, the
+    boxes within 1e-5 of the 256-pixel source images (a band or a shard is
+    another shape for the CPU's convolutions)."""
+    assert want and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert [d[0] for d in g] == [d[0] for d in w]
+        np.testing.assert_allclose([d[1:] for d in g], [d[1:] for d in w], rtol=0,
+                                   atol=256 * 1e-5)
 
 
 def test_inference_command(tmp_path):

@@ -37,6 +37,7 @@ from yolov3_tpu_torch.models import network as tnet
 from yolov3_tpu_torch.models.convert import params_from_jax, qparams_from_jax
 from yolov3_tpu_torch.models.spec import parse_model_config
 from yolov3_tpu_torch.ops.s2d import s2d_stem
+from yolov3_tpu_torch.parallel import spatial
 
 from .conftest import REPO
 from .test_torch_layers_network import SYNTHETIC, _random_bn
@@ -120,8 +121,8 @@ def test_fused_stage_equals_the_interpreters_unfused_chain(synthetic):
                        outputs_layers=(2, 5), input_shape=sm.input_shape)
     images = torch.from_numpy(np.random.RandomState(4).rand(2, SIZE, SIZE, 3)
                               .astype(np.float32))
-    x, want = tnet._apply_sub_model(cut, tq[sm.name], {}, images.permute(0, 3, 1, 2), 2,
-                                    torch.float32)
+    x, want = (out.parts[0] for out in tnet._apply_sub_model(
+        cut, tq[sm.name], {}, spatial.whole(images.permute(0, 3, 1, 2)), 2, torch.float32))
     assert isinstance(x, TL.QAct) and isinstance(want, TL.QAct)
     q, scale = resblock.fused_stage((x.q, x.scale), tq[sm.name], [3])
     assert float(scale) == float(want.scale) and len(torch.unique(q)) > 20

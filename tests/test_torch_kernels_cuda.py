@@ -345,6 +345,58 @@ def test_cuda_fused_resblock_darknet_stages_equal_plain(cuda_device, hw, c, b):
                                    cuda_device), b, hw, hw)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,rows", [(52, 256, 28), (52, 256, 24), (13, 1024, 7),
+                                       (13, 1024, 6), (208, 64, 112)])
+@pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True)])
+def test_cuda_fused_resblock_band_edges_equal_plain(cuda_device, hw, c, rows, flags):
+    """K4 on one band of a spatial split (``rows`` of an ``hw``-row stage at
+    416², B = 2) whose top / bottom halo row holds a neighbour's pixels
+    (``halo_top``, ``halo_bottom``): bit-equal to the plain version with the
+    same flags, and the flags change the output (the band's edge rows read
+    the neighbour's squeeze). Tolerance: none."""
+    b, top, bottom = 2, *flags
+    args = _resblock_args(np.random.RandomState(c + rows), b, rows, hw, c, c // 2, cuda_device)
+    before = resblock.fused_resblock.launches
+    got = resblock.fused_resblock(*args, b=b, h=rows, w=hw, halo_top=top, halo_bottom=bottom)
+    torch.cuda.synchronize()
+    assert resblock.fused_resblock.launches == before + 1
+    want = resblock.fused_resblock_plain(*args, b=b, h=rows, w=hw, halo_top=top,
+                                         halo_bottom=bottom)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, resblock.fused_resblock_plain(*args, b=b, h=rows, w=hw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cuts", [((2, 64, 52, 52), (28, 24)), ((4, 256, 13, 13), (7, 6)),
+                                        ((2, 32, 96, 20), (32, 32, 32))])
+def test_cuda_bn_moments_over_bands_equal_plain(cuda_device, shape, cuts):
+    """K5 over the bands of one activation (``bn_moments_bands``): one
+    launch a band forward and one backward; mean and var within K5's sum
+    tolerance of the plain band version (``SUM_RTOL`` of the moments'
+    scale), dx bit-equal to the plain dx at the same mean and count."""
+    x = _activation(7, shape, torch.float32, False, cuda_device)
+    bands = [part.contiguous().requires_grad_(True) for part in x.split(cuts, dim=2)]
+    before = (bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches)
+    mean, var = bn_stats.bn_moments_bands(bands)
+    w = torch.from_numpy(np.random.RandomState(3).randn(2, shape[1]).astype(np.float32))
+    (mean @ w[0].to(cuda_device) + var @ w[1].to(cuda_device)).backward()
+    torch.cuda.synchronize()
+    assert (bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches) == (
+        before[0] + len(cuts), before[1] + len(cuts))
+    plain = [part.detach().clone().requires_grad_(True) for part in bands]
+    pm, pv = bn_stats.bn_moments_bands_plain(plain)
+    (pm @ w[0].to(cuda_device) + pv @ w[1].to(cuda_device)).backward()
+    scale = float((x.float() ** 2).mean())
+    assert float((mean - pm).abs().max()) <= bn_stats.SUM_RTOL * scale ** 0.5 * 10
+    assert float((var - pv).abs().max()) <= bn_stats.SUM_RTOL * scale * 10
+    n = x.numel() // shape[1]
+    for band in bands:  # d(loss)/d(mean, var) = w[0], w[1]
+        want = bn_stats.bn_moments_dx_plain(band.detach(), mean.detach(), w[0].to(cuda_device),
+                                            w[1].to(cuda_device), n)
+        assert torch.equal(band.grad, want)
+
+
 def _activation(seed, shape, dtype, channels_last, device):
     """A (B, C, H, W) activation with a mean well off zero in some channels
     and one constant channel, in the asked memory format."""

@@ -180,7 +180,33 @@ def digest(tree) -> str:
     return h.hexdigest()
 
 
-SCENARIOS = {"dp_step": dp_step}
+def dsp_step(rank, world, workdir):
+    """One train step of a (data ``world`` × spatial 2) mesh: this rank's
+    shard of the case that tests/test_torch_spatial.py wrote to
+    ``dsp_case.pt``, its images' rows in two bands on this process's CPU.
+    Writes ``rank<r>.pt``: the state's digest, the metrics and, on rank 0,
+    the new params and BN state."""
+    from yolov3_tpu_torch.models.spec import parse_model_config
+    from yolov3_tpu_torch.parallel import train_step as tts
+    from yolov3_tpu_torch.parallel.mesh import make_mesh
+
+    case = torch.load(os.path.join(workdir, "dsp_case.pt"))
+    spec = parse_model_config(case["model"], case["nclasses"])
+    mesh = make_mesh(devices=("cpu", "cpu"), spatial=2)
+    assert mesh.shape == {"data": world, "spatial": 2} and mesh.world_size == world
+    rows = mesh.local_slice(case["batch"])
+    optimizer = tts.make_adam(1e-3)
+    step = tts.make_train_step(spec, case["anchors"], case["grids"], case["batch"], optimizer,
+                               mesh=mesh)
+    state, metrics = step(tts.init_train_state(case["params"], case["state"], optimizer),
+                          case["images"][rows], case["labels"][rows])
+    out = {"digest": digest(state), "metrics": metrics}
+    if rank == 0:
+        out.update(params=state["params"], bn_state=state["bn_state"])
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+SCENARIOS = {"dp_step": dp_step, "dsp_step": dsp_step}
 
 
 def _worker(scenario, rank, world, port, workdir):
@@ -291,8 +317,8 @@ def test_train_cli_multihost(tmp_path):
 
 def test_local_batch_slice_and_mesh_checks(tmp_path):
     """``local_batch_slice`` and ``make_mesh`` / ``make_data_parallel_mesh``
-    with the JAX module's checks and messages; the spatial axis raises by
-    name."""
+    with the JAX module's checks and messages; a lone device holds every band
+    of a spatial axis."""
     from yolov3_tpu_torch.parallel import mesh as tmesh
 
     assert tmesh.local_batch_slice(8) == slice(0, 8)  # no group: this process is all of it
@@ -304,18 +330,22 @@ def test_local_batch_slice_and_mesh_checks(tmp_path):
     m = tmesh.Mesh((torch.device("cpu"),) * 2, rank=1, world_size=4)
     assert m.local_slice(16) == slice(4, 8) and m.size == 8
     assert tmesh.make_data_parallel_mesh(8, devices=("cpu",)) is None
-    with pytest.raises(ValueError, match="spatial_partitioning needs more than one device"):
-        tmesh.make_data_parallel_mesh(8, spatial=2, devices=("cpu",))
+    lone = tmesh.make_data_parallel_mesh(8, spatial=2, devices=("cpu",))  # both bands on it
+    assert lone.shape == {"data": 1, "spatial": 2}
+    assert lone.replicas == ((torch.device("cpu"),) * 2,)
     with pytest.raises(ValueError, match=r"batch_size \(6\) divisible by the data-axis size "
                                          r"\(4 = 4 devices / spatial 1\)"):
         tmesh.make_data_parallel_mesh(6, devices=("cpu",) * 4)
     with pytest.raises(ValueError, match=r"spatial_partitioning \(3\) must divide the device "
                                          r"count \(4\)"):
         tmesh.make_data_parallel_mesh(8, spatial=3, devices=("cpu",) * 4)
-    with pytest.raises(NotImplementedError, match="spatial_partitioning"):
-        tmesh.make_data_parallel_mesh(8, spatial=2, devices=("cpu",) * 4)
-    with pytest.raises(NotImplementedError, match="spatial_partitioning"):
-        tmesh.make_mesh(devices=("cpu",) * 2, spatial=2)
+    cpu = torch.device("cpu")
+    sp = tmesh.make_data_parallel_mesh(8, spatial=2, devices=("cpu",) * 4)
+    assert (sp.shape, sp.axis_names, sp.size) == ({"data": 2, "spatial": 2},
+                                                  ("data", "spatial"), 4)
+    assert sp.replicas == ((cpu, cpu), (cpu, cpu)) and sp.group is None
+    bands = tmesh.make_mesh(devices=("cpu",) * 2, spatial=2)
+    assert (bands.shape, bands.replicas) == ({"data": 1, "spatial": 2}, ((cpu, cpu),))
     with pytest.raises(ValueError, match=r"mesh axes \{'data': 3\} need 3 devices, got 2"):
         tmesh.make_mesh(devices=("cpu",) * 2, axes={"data": 3})
     two = tmesh.make_data_parallel_mesh(4, devices=("cpu", "cpu"))

@@ -157,18 +157,16 @@ def test_serve_int8_tier_on_cpu():
 
 @pytest.mark.parametrize("extra", [{"data_parallel": True}, {"spatial_partitioning": 2}])
 def test_later_slices_raise(extra, monkeypatch):
-    """``spatial_partitioning`` raises by name. ``data_parallel`` is ported
-    with the JAX package's semantics: a no-op on one device (the CPU), and
-    over two devices (two CPU replicas standing in for two cards) every
-    bucket must divide by them; the sharded server answers as the plain one
-    (the same detections, boxes and scores within 1e-5: a shard is another
-    batch size for the CPU's convolutions)."""
+    """Both keys are ported with the JAX package's semantics.
+    ``data_parallel`` is a no-op on one device (the CPU); over two devices
+    (two CPU replicas standing in for two cards) every bucket must divide by
+    them. ``spatial_partitioning: 2`` splits each image's rows in two bands,
+    sharing the one device or one a device; the image size must divide by
+    it. Each sharded server answers as the plain one (the same detections,
+    boxes and scores within 1e-5: a shard is another shape for the CPU's
+    convolutions)."""
     cfg = _serve_cfg()
     cfg.update(serve_forever=False, device="cpu", port=0, warmup=False, batch_buckets=[2, 4])
-    if "spatial_partitioning" in extra:
-        with pytest.raises(NotImplementedError, match="spatial_partitioning"):
-            Serve()(**cfg, **extra)
-        return
     body = open(_image_files(1)[0], "rb").read()
     answers = []
     for devices in (1, 2):
@@ -177,7 +175,7 @@ def test_later_slices_raise(extra, monkeypatch):
 
             monkeypatch.setattr(tmesh, "local_devices", lambda kind: (torch.device(kind),) * 2)
         for parallel in (False, True):
-            httpd, app = Serve()(**cfg, data_parallel=parallel)
+            httpd, app = Serve()(**cfg, **(extra if parallel else {}))
             try:
                 answers.append(app.detect(body)["detections"])
             finally:
@@ -189,9 +187,18 @@ def test_later_slices_raise(extra, monkeypatch):
         for key in ("score", "box_normalized"):
             np.testing.assert_allclose([d[key] for d in got], [d[key] for d in answers[0]],
                                        rtol=0, atol=1e-5)
-    with pytest.raises(ValueError, match=r"batch_buckets \[1\] not divisible by the data-axis "
-                                         r"size \(2 = 2 devices / spatial 1\)"):
-        Serve()(**dict(cfg, batch_buckets=[1, 2]), data_parallel=True)
+    if "data_parallel" in extra:
+        with pytest.raises(ValueError, match=r"batch_buckets \[1\] not divisible by the "
+                                             r"data-axis size \(2 = 2 devices / spatial 1\)"):
+            Serve()(**dict(cfg, batch_buckets=[1, 2]), data_parallel=True)
+    else:
+        with pytest.raises(ValueError, match=r"spatial_partitioning \(3\) must divide the "
+                                             r"device count \(2\)"):
+            Serve()(**dict(cfg, spatial_partitioning=3))
+        monkeypatch.setattr(tmesh, "local_devices", lambda kind: (torch.device(kind),))
+        with pytest.raises(ValueError, match=r"image_size \(128\) must be divisible by "
+                                             r"spatial_partitioning \(3\)"):
+            Serve()(**dict(cfg, spatial_partitioning=3))
 
 
 def test_port_imports_no_jax():
@@ -211,7 +218,8 @@ def test_port_imports_no_jax():
             "yolov3_tpu_torch.tools.average_checkpoints, "
             "yolov3_tpu_torch.tools.convert_tf_checkpoint, yolov3_tpu_torch.tools.export_tfjs, "
             "yolov3_tpu_torch.export.aot, yolov3_tpu_torch.apps.export_app, "
-            "yolov3_tpu_torch.parallel.mesh, yolov3_tpu_torch.device; "
+            "yolov3_tpu_torch.parallel.mesh, yolov3_tpu_torch.parallel.spatial, "
+            "yolov3_tpu_torch.device; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'yolov3_tpu' or m.startswith('yolov3_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

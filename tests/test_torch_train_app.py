@@ -7,9 +7,8 @@ CPU: YOLOv3-tiny on the in-repo shapes_toy TFRecords at 96 px.
     (every leaf bit-equal), and the port resumes a state the JAX trainer
     wrote;
   * lr_schedule, transfer learning with a frozen backbone;
-  * the config key of a later slice (spatial_partitioning) raises
-    ``NotImplementedError`` by name; ``multihost`` over a group of one
-    process is the plain trainer.
+  * ``spatial_partitioning`` keeps the JAX trainer's checks and trains;
+    ``multihost`` over a group of one process is the plain trainer.
 
 Tolerance: none — checkpoints carry bits."""
 
@@ -30,7 +29,7 @@ from yolov3_tpu.models import network as jnet
 from yolov3_tpu.models.spec import parse_model_config as jax_parse
 from yolov3_tpu.parallel import train_step as jts
 from yolov3_tpu_torch.apps import cli
-from yolov3_tpu_torch.apps.train_app import DEFERRED_KEYS, Train
+from yolov3_tpu_torch.apps.train_app import Train
 from yolov3_tpu_torch.io.checkpoint import checkpoint_keys, load_train_state
 from yolov3_tpu_torch.io.resolve import load_weights
 from yolov3_tpu_torch.models import network as tnet
@@ -219,15 +218,20 @@ def test_transfer_learning_freezes_the_backbone(port_run, tmp_path):
 
 @pytest.mark.parametrize("key", ["multihost", "spatial_partitioning"])
 def test_keys_of_later_slices_raise_by_name(tmp_path, key):
-    """``spatial_partitioning`` still raises ``NotImplementedError`` by name
-    (``DEFERRED_KEYS``) and writes nothing. ``multihost`` is ported: the
-    ``multihost`` dict joins a process group, and a group of one process is
-    the plain trainer (as a one-device mesh is in the JAX package), bit for
-    bit; the data-parallel run itself is tests/test_torch_multihost.py's."""
-    if key in DEFERRED_KEYS:
-        with pytest.raises(NotImplementedError, match=key):
-            Train()(**_config(tmp_path, device="cpu", **{key: 2}))
+    """Both keys are ported. ``spatial_partitioning``: a factor that does
+    not divide the image size raises the JAX trainer's message and writes
+    nothing, and ``spatial_partitioning: 2`` trains (its math is
+    tests/test_torch_spatial.py's). ``multihost``: the ``multihost`` dict
+    joins a process group, and a group of one process is the plain trainer
+    (as a one-device mesh is in the JAX package), bit for bit; the
+    data-parallel run itself is tests/test_torch_multihost.py's."""
+    if key == "spatial_partitioning":
+        with pytest.raises(ValueError, match=r"image sizes \[96\] not divisible by "
+                                             r"spatial_partitioning \(5\)"):
+            Train()(**_config(tmp_path, device="cpu", **{key: 5}))
         assert not os.path.exists(os.path.join(str(tmp_path), "tiny.tf.npz"))
+        Train()(**_config(tmp_path, device="cpu", ema=None, max_dataset_examples=8, **{key: 2}))
+        assert os.path.exists(os.path.join(str(tmp_path), "tiny.tf.npz"))
         return
     import torch.distributed as dist
 

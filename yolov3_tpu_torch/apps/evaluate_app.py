@@ -38,7 +38,6 @@ from ..models import apply_model, fold_batch_norm, init_model, parse_model_confi
 from ..models.network import to_device
 from ..ops.decode import yolo_decode
 from ..ops.nms import DEFAULT_NUM_CANDIDATES, next_escalation_k, nms_inexact_mask, yolo_nms
-from ..parallel.mesh import check_spatial
 from .inference_app import data_parallel_mesh
 
 log = logging.getLogger(__name__)
@@ -52,20 +51,24 @@ def make_sweepable_predictor(spec, params, bn_state, anchors_table, nclasses,
     NMS, the thresholds plain arguments.
     ``nms_per_class``: per-class suppression (extension; the reference — and
     the default — is class-agnostic). ``mesh``: data-parallel evaluation, a
-    copy of the params on each device of ``mesh.devices`` (then ``device`` is
-    not read), the batch split evenly over them and the answers gathered in
-    batch order on the first (``inference_app.make_predictor``)."""
-    devices = ([resolve_device(device)] if mesh is None
-               else [resolve_device(d) for d in mesh.devices])
+    copy of the params on the first device of each data replica of the mesh
+    (then ``device`` is not read), the batch split evenly over them and the
+    answers gathered in batch order on the first; with a spatial axis each
+    replica's forward runs in bands of rows over its band devices
+    (``inference_app.make_predictor``)."""
+    groups = ([(resolve_device(device),)] if mesh is None
+              else [tuple(resolve_device(d) for d in bands) for bands in mesh.replicas])
     folded = fold_batch_norm(params, bn_state)
     replicas = []
-    for dev in devices:
-        pin_fp32_ieee(dev)
-        replicas.append((to_device(folded, dev), torch.as_tensor(
-            np.asarray(anchors_table), dtype=torch.float32, device=dev)))
+    for bands in groups:
+        for dev in bands:
+            pin_fp32_ieee(dev)
+        replicas.append((to_device(folded, bands[0]), torch.as_tensor(
+            np.asarray(anchors_table), dtype=torch.float32, device=bands[0]),
+            bands if len(bands) > 1 else None))
 
-    def run(x, run_params, anchors, iou_threshold, score_threshold, num_candidates):
-        outputs = apply_model(spec, run_params, {}, x)
+    def run(x, run_params, anchors, bands, iou_threshold, score_threshold, num_candidates):
+        outputs = apply_model(spec, run_params, {}, x, devices=bands)
         boxes, conf, probs = yolo_decode(outputs, anchors, nclasses)
         return yolo_nms(boxes, conf, probs, max_boxes=yolo_max_boxes,
                         iou_threshold=iou_threshold, score_threshold=score_threshold,
@@ -75,7 +78,7 @@ def make_sweepable_predictor(spec, params, bn_state, anchors_table, nclasses,
     def predict(images, iou_threshold, score_threshold,
                 num_candidates=DEFAULT_NUM_CANDIDATES):
         if mesh is None:
-            x = torch.as_tensor(images, device=devices[0]).float()
+            x = torch.as_tensor(images, device=groups[0][0]).float()
             return run(x, *replicas[0], iou_threshold, score_threshold, num_candidates)
         parts = mesh.shard_batch(torch.as_tensor(images).float())
         outs = [run(x, *replica, iou_threshold, score_threshold, num_candidates)
@@ -113,7 +116,6 @@ def evaluate(evaluate_config: dict, detect_config: dict, max_eval_images=None,
     """Run the sweep; returns one result dict per threshold (recall,
     precision, wall_seconds, images_per_sec, counters, counters_oneclass,
     and ap_per_class / map50 [/ map50_95] unless ``compute_map`` is off)."""
-    check_spatial(int(detect_config.get("spatial_partitioning") or 1))
     if detect_config.get("compilation_cache"):
         log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
     dev = resolve_device(device if device is not None else detect_config.get("device"))
@@ -135,8 +137,10 @@ def evaluate(evaluate_config: dict, detect_config: dict, max_eval_images=None,
     spec = parse_model_config(detect_config["model_config_file"], nclasses)
     params, bn_state = init_model(spec, torch.Generator().manual_seed(0))
     params, bn_state = load_weights(spec, params, bn_state, detect_config["input_weights_path"])
-    # data_parallel: the batch shards over every local device (a no-op on one)
-    mesh = data_parallel_mesh(detect_config.get("data_parallel"), batch_size, dev)
+    # data_parallel: the batch shards over every local device (a no-op on
+    # one); spatial_partitioning: each image's rows split into bands
+    mesh = data_parallel_mesh(detect_config.get("data_parallel"), batch_size, dev,
+                              detect_config.get("spatial_partitioning"))
     predict = make_sweepable_predictor(
         spec, params, bn_state, anchors_table, nclasses, yolo_max_boxes,
         nms_per_class=bool(detect_config.get("nms_per_class")), device=dev, mesh=mesh)

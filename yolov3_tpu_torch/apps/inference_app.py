@@ -36,7 +36,8 @@ from ..ops.decode import yolo_decode
 from ..ops.nms import yolo_nms
 from ..ops.quantize import calibrate_scales, quantize_params
 from ..ops.s2d import s2d_stem
-from ..parallel.mesh import check_spatial, local_devices, make_data_parallel_mesh
+from ..parallel.mesh import local_devices, make_data_parallel_mesh
+from ..parallel.spatial import band_starts, total_stride
 from ..utils.render import render_text_annotated_bboxes
 
 log = logging.getLogger(__name__)
@@ -61,7 +62,11 @@ class Detector(torch.nn.Module):
     params tree over the buffers. ``make_predictor`` calls it under ``inference_mode`` and
     ``export/aot.py`` exports it under ``no_grad``.
     ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the images for the
-    forward; decode and NMS run in float32."""
+    forward; decode and NMS run in float32. ``bands``: the band devices of a
+    spatial split (``apply_model``'s ``devices``; the heads come
+    back whole on the first), or None."""
+
+    bands = None
 
     def __init__(self, spec, params, state, anchors, nclasses, max_boxes, iou_threshold,
                  score_threshold, per_class=False, compute_dtype=None):
@@ -97,7 +102,8 @@ class Detector(torch.nn.Module):
 
     def forward(self, images):
         x = images if self.compute_dtype is None else images.to(self.compute_dtype)
-        outputs = apply_model(self.spec, self.tree("params"), self.tree("state"), x)
+        outputs = apply_model(self.spec, self.tree("params"), self.tree("state"), x,
+                              devices=self.bands)
         boxes, conf, probs = yolo_decode(outputs, self.anchors, self.nclasses)
         return yolo_nms(boxes, conf, probs, **self.nms)
 
@@ -129,12 +135,17 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
     to IEEE on the card (``device.pin_fp32_ieee``).
 
     ``mesh`` (``parallel/mesh.py::make_data_parallel_mesh``): data-parallel
-    serving, one replica per device of ``mesh.devices`` (then ``device`` is
-    not read). The first device builds the predictor (and calibrates an int8
-    tier), the others get copies of its params, as the JAX package
-    replicates them; a call splits the batch evenly over the replicas (it
-    must divide), runs each slice on its device and gathers the answers in
-    batch order on the first device.
+    serving, one replica per data replica of the mesh, on its first device
+    (then ``device`` is not read). The first device builds the predictor
+    (and calibrates an int8 tier, unsharded), the other replicas get copies
+    of its params, as the JAX package replicates them; a call splits the
+    batch evenly over the replicas (it must divide), runs each slice and
+    gathers the answers in batch order on the first device. With a spatial
+    axis (``mesh.spatial`` > 1) each replica runs its slice in bands of
+    image rows over its band devices (``Detector.bands``), gathers the heads
+    and decodes and suppresses them as unsharded. ``image_size`` (when
+    given) must then split into bands: a multiple of the model's total
+    stride.
     """
     if mesh is not None and mesh.world_size > 1:
         raise ValueError("make_predictor: data-parallel serving shards over one process's "
@@ -145,6 +156,8 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
     if compute_dtype is None or quantize in ("int8", "int8_chain"):
         for d in devices:
             pin_fp32_ieee(d)
+    if mesh is not None and mesh.spatial > 1 and image_size is not None:
+        band_starts(int(image_size), mesh.spatial, total_stride(spec, int(image_size)))
     run_params = fold_batch_norm(params, bn_state) if fold_bn else params
     run_state = {} if fold_bn else to_device(bn_state, dev)
     if quantize in ("int8", "int8_chain"):
@@ -170,14 +183,18 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
                         nms_iou_threshold, nms_score_threshold, nms_per_class, compute_dtype)
     if mesh is None:
         return as_predict(detector, dev)
-    replicas = [detector] + [copy.deepcopy(detector).to(d) for d in devices[1:]]
+    firsts = [bands[0] for bands in mesh.replicas]
+    replicas = [detector] + [copy.deepcopy(detector).to(d) for d in firsts[1:]]
+    if mesh.spatial > 1:
+        for replica, bands in zip(replicas, mesh.replicas):
+            replica.bands = tuple(bands)
     return sharded_predict(replicas, mesh)
 
 
 def sharded_predict(replicas, mesh):
-    """``predict(images)`` over one ``Detector`` replica per device of
+    """``predict(images)`` over one ``Detector`` replica per data replica of
     ``mesh``: the batch split evenly (``mesh.shard_batch``), each slice
-    answered on its device, the ``yolo_nms`` tuple gathered in batch order
+    answered on its devices, the ``yolo_nms`` tuple gathered in batch order
     on the first device (``mesh.gather_batch``). The replicas are called one
     after another from this thread; nothing in a call waits for the device,
     so each replica's launches queue on its own device without waiting for
@@ -253,18 +270,23 @@ def build_serving_predictor(model_config_file, classes_name_file, anchors_file,
     return predictor, class_names, model_name
 
 
-def data_parallel_mesh(data_parallel, batch_size: int, device):
-    """The ``data_parallel`` key → the serving mesh over every local device
-    of ``device``'s kind (``parallel/mesh.py::make_data_parallel_mesh``), or
-    None: off, or one device, where it is a no-op (logged), as in the JAX
-    package."""
-    if not data_parallel:
+def data_parallel_mesh(data_parallel, batch_size: int, device, spatial=1):
+    """The ``data_parallel`` and ``spatial_partitioning`` keys → the serving
+    mesh over every local device of ``device``'s kind
+    (``parallel/mesh.py::make_data_parallel_mesh``, with its checks), or
+    None: both off, or ``data_parallel`` alone on one device, where it is a
+    no-op (logged), as in the JAX package. With ``spatial`` > 1 on one device
+    (the CPU, or one card) the bands share it (``mesh.spatial_devices``)."""
+    spatial = int(spatial or 1)
+    if not data_parallel and spatial == 1:
         return None
-    mesh = make_data_parallel_mesh(batch_size, devices=local_devices(device.type))
+    mesh = make_data_parallel_mesh(batch_size, spatial=spatial,
+                                   devices=local_devices(device.type))
     if mesh is None:
         log.info(f"data_parallel: one {device.type} device, a no-op")
     else:
-        log.info(f"data_parallel: batch {batch_size} over {mesh.size} devices {mesh.devices}")
+        log.info(f"sharded: batch {batch_size} over {mesh.size} devices {mesh.devices} "
+                 f"(mesh {mesh.shape})")
     return mesh
 
 
@@ -312,8 +334,10 @@ class Inference:
     calibrate on up to 8 images of the input source. ``data_parallel: true``
     shards each batch over every visible card (``make_predictor(mesh=)``; a
     no-op on one device; a source that predicts one image at a time raises,
-    as in the JAX package); ``spatial_partitioning`` is not ported and
-    raises. Runs on the card unless ``device: cpu``."""
+    as in the JAX package); ``spatial_partitioning: S`` splits each image
+    into S bands of rows (alone it is valid for every source: the data axis
+    collapses to 1 for a source that predicts one image at a time). Runs on
+    the card unless ``device: cpu``."""
 
     def __call__(
         self,
@@ -345,7 +369,6 @@ class Inference:
         device=None,
         **kwargs,
     ):
-        check_spatial(int(spatial_partitioning or 1))
         batched_sources = ("tfrecords", "video_file")
         if data_parallel and input_data_source not in batched_sources:
             # image_file / images_dir predict one image at a time
@@ -356,7 +379,8 @@ class Inference:
         if kwargs.get("compilation_cache"):
             log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
         dev = resolve_device(device)
-        mesh = data_parallel_mesh(data_parallel, batch_size, dev)
+        eff_batch = batch_size if input_data_source in batched_sources else 1
+        mesh = data_parallel_mesh(data_parallel, eff_batch, dev, spatial_partitioning)
         os.makedirs(output_dir, exist_ok=True)
         detect_txt = f"{output_dir}/detect.txt"
         if os.path.exists(detect_txt):

@@ -399,9 +399,12 @@ class Serve:
     ``data_parallel: true`` serves one replica of the predictor per visible
     device of ``device``'s kind (``inference_app.make_predictor(mesh=)``):
     every bucket must divide by the device count, and on one device it is a
-    no-op (logged), as in the JAX package. ``spatial_partitioning`` belongs
-    to a later slice of the port and raises ``NotImplementedError``; beside
-    ``artifact`` either key raises ``ValueError``, as in the JAX package.
+    no-op (logged), as in the JAX package. ``spatial_partitioning: S``
+    splits each image into S bands of rows (``parallel/spatial.py``) over the
+    visible devices, which the data axis then counts S to one; every bucket
+    must divide by the data axis and ``image_size`` by S, the JAX package's
+    checks; on one device the bands share it. Beside ``artifact`` either key
+    raises ``ValueError``, as in the JAX package.
     """
 
     def __call__(
@@ -431,9 +434,9 @@ class Serve:
         device=None,
         **kwargs,
     ):
+        spatial = int(spatial_partitioning or 1)
         parallel = [k for k, v in (("data_parallel", data_parallel),
-                                   ("spatial_partitioning", int(spatial_partitioning or 1) > 1))
-                    if v]
+                                   ("spatial_partitioning", spatial > 1)) if v]
         if artifact:
             if parallel:
                 raise ValueError(
@@ -452,27 +455,33 @@ class Serve:
             letterbox = letterbox or bool(manifest.get("letterbox"))
         else:
             from ..device import resolve_device
-            from ..parallel.mesh import check_spatial, local_devices, make_data_parallel_mesh
+            from ..parallel.mesh import local_devices, make_mesh
             from .inference_app import build_serving_predictor
 
-            check_spatial(int(spatial_partitioning or 1))
             # sharded serving (the inference CLI's semantics): the batch
-            # shards over the devices, so EVERY bucket must divide by them
+            # shards over the data axis, so EVERY bucket must divide by it,
+            # and spatial_partitioning splits each image's rows into bands
             mesh = None
-            if data_parallel:
+            if data_parallel or spatial > 1:
                 dev = resolve_device(device)
                 devices = local_devices(dev.type)
-                if len(devices) <= 1:
+                if len(devices) <= 1 and spatial == 1:
                     log.info("data_parallel: one %s device, a no-op", dev.type)
                 else:
-                    bad = [b for b in batch_buckets if int(b) % len(devices)]
+                    mesh = make_mesh(devices=devices, spatial=spatial)  # the device checks
+                    data_size = mesh.shape["data"]
+                    bad = [b for b in batch_buckets if int(b) % data_size]
                     if bad:
                         raise ValueError(
                             f"batch_buckets {bad} not divisible by the "
-                            f"data-axis size ({len(devices)} = {len(devices)} devices / "
-                            f"spatial 1)")
-                    mesh = make_data_parallel_mesh(int(batch_buckets[0]), devices=devices)
-                    log.info("sharded serving over %d devices %s", mesh.size, mesh.devices)
+                            f"data-axis size ({data_size} = {mesh.size} devices / "
+                            f"spatial {spatial})")
+                    if image_size and int(image_size) % spatial:
+                        raise ValueError(
+                            f"image_size ({image_size}) must be divisible by "
+                            f"spatial_partitioning ({spatial})")
+                    log.info("sharded serving over %d devices %s (mesh %s)", mesh.size,
+                             mesh.devices, mesh.shape)
 
             missing = [k for k, v in [("model_config_file", model_config_file),
                                       ("classes_name_file", classes_name_file),

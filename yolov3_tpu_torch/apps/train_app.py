@@ -12,8 +12,9 @@ weights, and the JAX trainer's extensions: ``augmentation`` (on the device,
 ``stem_s2d`` (``ops/s2d.py::s2d_stem_train``), ``multi_scale`` (per epoch or
 per N steps, cycle or random), ``device_dataset`` (f32 or uint8),
 ``bn_stats_subsample``, ``remat: conv``, ``tensorboard`` scalars, a
-``profile_trace_dir`` trace of the first epoch, and data parallelism over
-processes (``multihost``, ``parallel/mesh.py``).
+``profile_trace_dir`` trace of the first epoch, data parallelism over
+processes (``multihost``, ``parallel/mesh.py``) and the spatial split of
+image rows (``spatial_partitioning``, ``parallel/spatial.py``).
 
 Differences, by design:
   * the step runs eagerly; one process drives one device — the card unless
@@ -27,8 +28,11 @@ Differences, by design:
     (summary, checkpoints, train state, TensorBoard, profiler trace);
   * checkpoints are the JAX package's native ``.npz`` files, so either
     package loads the other's weights and resumes the other's train state;
-  * keys that belong to later slices of the port raise ``NotImplementedError``
-    by name (``DEFERRED_KEYS``); none is silently ignored;
+  * ``spatial_partitioning: S`` splits each image into S bands of rows
+    inside the process, on S cards from the process's own when it is alone
+    and they exist, else all on its device (one card, or the CPU); the JAX
+    package's checks and messages, and its single-host rule for a process
+    group that spans hosts;
   * ``bn_stats_subsample`` is an argument threaded down to ``batch_norm``,
     not a process-wide setting, and the profiler trace is ``torch.profiler``'s.
 """
@@ -54,6 +58,7 @@ from ..models.transfer import trainable_mask as make_trainable_mask
 from ..ops.image import resize_antialiased
 from ..ops.s2d import s2d_stem_train
 from ..parallel.mesh import initialize_multihost, make_mesh
+from ..parallel.spatial import band_starts, total_stride
 from ..parallel.train_step import (epoch_learning_rate, init_train_state, make_adam,
                                    make_adam_scheduled, make_eval_step, make_train_step)
 from ..tree import tree_map
@@ -61,8 +66,13 @@ from ..utils.profiling import StepTimer, trace
 
 log = logging.getLogger(__name__)
 
-# config keys of later slices of the port: a true value raises by name
-DEFERRED_KEYS = ("spatial_partitioning",)
+def band_cards(dev, spatial: int, alone: bool):
+    """The devices a training process lays its bands on: ``spatial`` cards
+    from ``dev``'s when the process is ``alone`` (no process group) and they
+    exist, else ``dev`` (which then holds every band, ``mesh.spatial_devices``)."""
+    if alone and dev.type == "cuda" and (dev.index or 0) + spatial <= torch.cuda.device_count():
+        return tuple(torch.device("cuda", (dev.index or 0) + k) for k in range(spatial))
+    return (dev,)
 
 
 def parse_qat_mode(qat_conf):
@@ -231,11 +241,6 @@ class Train:
         device=None,
         **kwargs,
     ):
-        for key in DEFERRED_KEYS:
-            if kwargs.get(key):
-                raise NotImplementedError(
-                    f"{key}: not ported yet (a later slice of the port); remove the key "
-                    "or train with the JAX package")
         if remat not in (False, True, "conv", None):
             raise ValueError(
                 f"remat must be false, true, or 'conv' "
@@ -267,23 +272,42 @@ class Train:
         world = torch.distributed.get_world_size() if multihost else 1
         is_main = not multihost or torch.distributed.get_rank() == 0
         mesh = None
-        if world > 1:
-            if batch_size % world:
-                raise ValueError(
-                    f"multihost training needs batch_size ({batch_size}) divisible "
-                    f"by the global device count ({world})")
-            mesh = make_mesh(devices=(dev,))
-            log.info(f"data-parallel over {world} processes: rank {mesh.rank} on {dev}, "
-                     f"{batch_size // world} of each batch of {batch_size}")
-        elif dev.type == "cuda" and torch.cuda.device_count() > 1:
-            log.info(f"{torch.cuda.device_count()} cards visible; training on {dev} "
-                     "(data parallelism runs one process per card: multihost)")
+        spatial = int(kwargs.get("spatial_partitioning") or 1)
+        if world > 1 and batch_size % world:
+            raise ValueError(
+                f"multihost training needs batch_size ({batch_size}) divisible "
+                f"by the global device count ({world})")
         seed = int(kwargs.get("seed", 0))
 
         anchors_table = get_anchors(anchors_file)
         nclasses = count_file_lines(classes_name_file)
 
         spec = parse_model_config(model_config_file, nclasses)
+        if spatial > 1:
+            # the JAX trainer's checks and messages (the device count is
+            # world × spatial here, so it divides), and the band unit
+            ms = kwargs.get("multi_scale")
+            ms_sizes = ms.get("sizes", []) if isinstance(ms, dict) else (ms or [])
+            sizes = [image_size] + [int(v) for v in ms_sizes]
+            bad = [v for v in sizes if v % spatial]
+            if bad:
+                raise ValueError(
+                    f"image sizes {bad} not divisible by spatial_partitioning "
+                    f"({spatial}) — row shards must be equal")
+            for v in sizes:
+                band_starts(v, spatial, total_stride(spec, v))
+            mesh = make_mesh(devices=band_cards(dev, spatial, world == 1), spatial=spatial)
+            log.info(f"data×spatial parallel: {world} process(es) × {spatial} bands on "
+                     f"{[str(d) for d in mesh.devices]} (mesh {mesh.shape})")
+        elif world > 1:
+            mesh = make_mesh(devices=(dev,))
+        if world > 1:
+            log.info(f"data-parallel over {world} processes: rank {mesh.rank} on {dev}, "
+                     f"{batch_size // world} of each batch of {batch_size}")
+        elif dev.type == "cuda" and torch.cuda.device_count() > 1 and spatial == 1:
+            log.info(f"{torch.cuda.device_count()} cards visible; training on {dev} "
+                     "(data parallelism runs one process per card: multihost)")
+        dp = mesh if world > 1 else None  # the process group's mesh, when there is one
         params, bn_state = init_model(spec, torch.Generator().manual_seed(seed))
 
         if is_main:
@@ -387,7 +411,7 @@ class Train:
                                    batch_size, mesh=mesh, bn_frozen=bn_frozen)
         # every process iterates the same deterministic dataset and keeps
         # only its slice of each global batch (the JAX trainer's `put`)
-        rows = None if mesh is None else mesh.local_slice(batch_size)
+        rows = None if dp is None else dp.local_slice(batch_size)
 
         # multi-scale: one size per epoch, or per N steps with device_dataset;
         # validation stays at image_size so val_loss compares across epochs
@@ -455,7 +479,7 @@ class Train:
                     "image_size and smaller sizes run as device-side "
                     "bilinear downscales (staging per size would multiply "
                     "HBM). Raise image_size to the largest scale wanted.")
-            if mesh is not None:
+            if dp is not None:
                 raise ValueError(
                     "device_dataset + multihost is not supported "
                     "(each process would need its own local-shard staging)")
@@ -481,7 +505,7 @@ class Train:
         # and the restored state both come from rank 0 (per-process
         # os.path.exists could diverge without a shared filesystem)
         do_resume = resume and is_main and os.path.exists(state_path)
-        if mesh is not None:
+        if dp is not None:
             flag = torch.tensor([int(do_resume)], device=dev)
             torch.distributed.broadcast(flag, src=0)
             do_resume = bool(flag.item())
@@ -502,10 +526,10 @@ class Train:
                          "seeded EMA from the restored weights")
             train_state = restored
             start_epoch = int(saved_epoch or 0) + 1
-        if do_resume and mesh is not None:
+        if do_resume and dp is not None:
             # the other ranks receive rank 0's restored state and epoch
-            train_state = mesh.broadcast_state(train_state)
-            start_epoch = int(mesh.broadcast_state(torch.tensor(start_epoch)))
+            train_state = dp.broadcast_state(train_state)
+            start_epoch = int(dp.broadcast_state(torch.tensor(start_epoch)))
         if do_resume:
             log.info(f"resumed full train state from {state_path} at epoch {start_epoch}")
 

@@ -52,10 +52,15 @@ def conv_padding(ksize: int, stride: int, pad: int, explicit_pad=None):
     return (0, 0), (0, 0)
 
 
-def conv2d(x, kernel, stride: int, pad: int, explicit_pad=None):
-    """Darknet-style conv. x: (B, C, H, W); kernel: (cout, cin, kh, kw)."""
+def conv2d(x, kernel, stride: int, pad: int, explicit_pad=None, rows=None):
+    """Darknet-style conv. x: (B, C, H, W); kernel: (cout, cin, kh, kw).
+    ``rows`` (top, bottom) replaces the row padding: a band of the spatial
+    split (``parallel/spatial.py``) comes with its halo rows, and pads only
+    at the image's own edge."""
     (top, bottom), (left, right) = conv_padding(kernel.shape[2], stride, pad,
                                                 explicit_pad)
+    if rows is not None:
+        top, bottom = rows
     if top == bottom and left == right:
         return F.conv2d(x, kernel.to(x.dtype), stride=stride, padding=(top, left))
     x = F.pad(x, (left, right, top, bottom))
@@ -78,18 +83,27 @@ def _phase_view(x, phases: int):
                      f"shape {tuple(x.shape)} strides {x.stride()}")
 
 
-def _subsampled(x, stride: int):
+def _subsampled(x, stride: int, row0: int = 0):
     """The stride-``stride`` spatial subsample of ``x`` as a dense copy in
     ``x``'s memory format (1/stride² of its bytes): the statistics kernel
-    reads dense activations only."""
+    reads dense activations only. ``row0``: the image row ``x``'s first row
+    is (a band of the spatial split); the subsample keeps the image's rows
+    0, stride, 2·stride, … whichever band holds them."""
     fmt = (torch.channels_last
            if x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
            else torch.contiguous_format)
-    return x[:, :, ::stride, ::stride].contiguous(memory_format=fmt)
+    return x[:, :, (-row0) % stride::stride, ::stride].contiguous(memory_format=fmt)
+
+
+def stats_view(x, phases: int = 1, stats_subsample: int = 1, row0: int = 0):
+    """What training-mode BatchNorm takes its statistics over: the
+    subsample (``_subsampled``), then the phase view (``_phase_view``)."""
+    xs = _subsampled(x, stats_subsample, row0) if stats_subsample > 1 else x
+    return _phase_view(xs, phases) if phases > 1 else xs
 
 
 def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM, eps=BN_EPS,
-               phases: int = 1, stats_subsample: int = 1, group=None):
+               phases: int = 1, stats_subsample: int = 1, group=None, moments=None):
     """Functional BatchNorm over channel axis 1. Returns ``(y, new_state)``.
 
     In training mode the statistics are the batch's mean and biased variance
@@ -117,12 +131,19 @@ def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM
     batch's (sync-BN, ``bn_moments``). The phase view and the subsample are
     per image, so they compose with it: the global count is the sum of the
     ranks' counts.
+
+    ``moments`` (training only): the batch's (mean, var), taken elsewhere
+    over the bands of a spatial split (``parallel/spatial.py``), on ``x``'s
+    device; this call then normalizes ``x``, one band, with them.
     """
     if train:
-        xs = _subsampled(x, stats_subsample) if stats_subsample > 1 else x
-        xs = _phase_view(xs, phases) if phases > 1 else xs
-        # unsynced, the call stays bn_moments(x): the seam a float64 referee replaces
-        mean, var = bn_moments(xs) if group is None else bn_moments(xs, group=group)
+        if moments is not None:
+            mean, var = moments
+        elif group is None:
+            # unsynced, the call stays bn_moments(x): the seam a float64 referee replaces
+            mean, var = bn_moments(stats_view(x, phases, stats_subsample))
+        else:
+            mean, var = bn_moments(stats_view(x, phases, stats_subsample), group=group)
         new_state = {
             "mean": (momentum * bn_state["mean"] + (1.0 - momentum) * mean).detach(),
             "var": (momentum * bn_state["var"] + (1.0 - momentum) * var).detach(),
@@ -213,7 +234,7 @@ def quantize_input(x, in_scale):
 
 
 def conv2d_int8(x, qparams, stride: int, pad: int, leaky: bool = False,
-                fp_dtype=torch.float32, explicit_pad=None):
+                fp_dtype=torch.float32, explicit_pad=None, rows=None):
     """Quantized conv: int8 weights × int8 activations, int32 sums, rescale.
 
     qparams: ``kernel_q`` int8 (cout, kh, kw, cin); ``w_scale`` (cout,) f32;
@@ -226,7 +247,8 @@ def conv2d_int8(x, qparams, stride: int, pad: int, leaky: bool = False,
     fp NHWC in ``x.dtype``) or a ``QAct`` (consumed as it is). A 1×1 stride-1
     conv goes to the fused matmul kernel (``ops/cuda/conv1x1.py``), every
     other shape to the implicit-GEMM kernel (``ops/cuda/conv_int8.py``); on
-    CPU tensors both wrappers run their plain versions.
+    CPU tensors both wrappers run their plain versions. ``rows``: see
+    ``conv2d`` (K6 takes the per-side padding as it is).
     """
     if isinstance(x, QAct):
         xq, in_scale = x.q, x.scale
@@ -246,9 +268,11 @@ def conv2d_int8(x, qparams, stride: int, pad: int, leaky: bool = False,
                                  qparams["bias"], inv, leaky=leaky,
                                  out_dtype=out_dtype).reshape(b, h, w, cout)
     else:
-        y = conv_int8(xq, kq, scale, qparams["bias"], inv, stride=stride,
-                      padding=conv_padding(kh, stride, pad, explicit_pad), leaky=leaky,
-                      out_dtype=out_dtype)
+        padding = conv_padding(kh, stride, pad, explicit_pad)
+        if rows is not None:
+            padding = (tuple(rows), padding[1])
+        y = conv_int8(xq, kq, scale, qparams["bias"], inv, stride=stride, padding=padding,
+                      leaky=leaky, out_dtype=out_dtype)
     if out_scale is not None:
         return QAct(y, out_scale)
     return y.to(fp_dtype)
@@ -263,9 +287,14 @@ def _pool_same_pads(hw, size_xy, stride_xy):
     return pads
 
 
-def max_pool(x, size_xy, stride_xy, padding: str):
-    if padding.lower() == "same":
-        (top, bottom), (left, right) = _pool_same_pads(x.shape[2:4], size_xy, stride_xy)
+def max_pool(x, size_xy, stride_xy, padding: str, pads=None):
+    """Keras MaxPooling2D over (B, C, H, W). ``pads`` ((top, bottom),
+    (left, right)) replaces the 'same' padding: a band of the spatial split
+    pads −inf only at the image's own edge."""
+    if pads is None and padding.lower() == "same":
+        pads = _pool_same_pads(x.shape[2:4], size_xy, stride_xy)
+    if pads is not None and any(pads[0] + pads[1]):
+        (top, bottom), (left, right) = pads
         x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
     return F.max_pool2d(x, tuple(size_xy), tuple(stride_xy))
 

@@ -28,6 +28,11 @@ layout change in and one out, instead of K3 → K6 → ``add_requant`` a block.
 It computes the same bits. A forward with an observer runs every layer
 unfused, so the observer sees them all. ``pack_fused_stages`` computes the
 fused blocks' constant kernel arguments once, ahead of the forwards.
+
+One interpreter serves the unsharded forward and the spatial split of
+image rows (``parallel/spatial.py``): every activation is a
+``spatial.Bands``, the unsharded one a single band, and every layer runs
+band by band, a windowed one on its band's rows with their halo rows.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..ops.cuda import resblock
+from ..parallel import spatial as sp
 from . import layers as L
 from .spec import LayerSpec, ModelSpec, SubModelSpec
 
@@ -50,9 +56,10 @@ def _deq(x, fp_dtype):
 
 
 def _route_sources(layer: LayerSpec, inputs_entry, layer_outs, fp_dtype):
-    """Reference core/parse_model.py:102-140 route semantics. Quantized
-    sources of a concat are dequantized: int8 tensors with different scales
-    have no single-scale concatenation."""
+    """Reference core/parse_model.py:102-140 route semantics, band by band
+    (the sources' bands agree: rows owned on the coarsest grid, see
+    ``parallel/spatial.py``). Quantized sources of a concat are dequantized:
+    int8 tensors with different scales have no single-scale concatenation."""
     source = dict(layer["source"])
     selected = []
     if "layers" in source:
@@ -64,15 +71,20 @@ def _route_sources(layer: LayerSpec, inputs_entry, layer_outs, fp_dtype):
             selected.append(inputs_entry)
     if len(selected) == 1:
         return selected[0]
-    if len(selected) == 2:
-        return torch.cat([_deq(s, fp_dtype) for s in selected], dim=1)
-    raise ValueError(f"Invalid number of route sources: {len(selected)}")
+    if len(selected) != 2:
+        raise ValueError(f"Invalid number of route sources: {len(selected)}")
+    a, b = selected
+    if a.starts != b.starts:
+        raise ValueError(f"spatial: a route joins bands {a.starts} and {b.starts}")
+    return a.with_parts([None if pa is None else torch.cat([_deq(pa, fp_dtype),
+                                                            _deq(pb, fp_dtype)], dim=1)
+                         for pa, pb in zip(a.parts, b.parts)])
 
 
-def _pool_int8(q, size_xy, stride_xy, padding):
+def _pool_int8(q, size_xy, stride_xy, padding, pads=None):
     """Max-pool of an NHWC int8 tensor. ``max_pool2d`` has no int8 kernel on
     CUDA, so the values go through float32 and back, which is exact."""
-    y = L.max_pool(q.permute(0, 3, 1, 2).to(torch.float32), size_xy, stride_xy, padding)
+    y = L.max_pool(q.permute(0, 3, 1, 2).to(torch.float32), size_xy, stride_xy, padding, pads)
     return y.permute(0, 2, 3, 1).to(torch.int8).contiguous()
 
 
@@ -126,42 +138,73 @@ def pack_fused_stages(spec: ModelSpec, params):
     return packed
 
 
-def _conv_tail(x, p, bn_state, bn_train, phases, stats_subsample, leaky, bn_group=None):
-    """What follows an fp conv: BatchNorm (or the bias), then LeakyReLU →
-    (y, the BN layer's new state or None)."""
-    layer_state = None
-    if "bn" in p:
-        x, layer_state = L.batch_norm(x, p["bn"], bn_state, bn_train, phases=phases,
-                                      stats_subsample=stats_subsample, group=bn_group)
-    elif "bias" in p:
-        x = x + p["bias"].to(x.dtype).view(1, -1, 1, 1)
-    if leaky:
-        x = L.leaky_relu(x)
-    return x, layer_state
+def _params_on(sm_params, devices):
+    """``on(device)`` → the sub-model's params on a band's device (as they
+    are when every band shares one device)."""
+    if len(set(devices)) == 1:
+        return lambda dev: sm_params
+    return functools.lru_cache(maxsize=None)(lambda dev: to_device(sm_params, dev))
+
+
+def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, leaky, bn_group=None):
+    """What follows an fp conv, band by band: BatchNorm (or the bias), then
+    LeakyReLU → (y, the BN layer's new state or None). Training-mode
+    BatchNorm over more than one band normalizes every band with the
+    statistics of all of them (``spatial.band_moments``)."""
+    moments = None
+    if "bn" in on(x.devices[0])[key] and bn_train and len(x.parts) > 1:
+        moments = sp.band_moments(x, phases, stats_subsample, bn_group)
+    states = []
+
+    def tail(j, part):
+        dev = x.devices[j]
+        p = on(dev)[key]
+        if "bn" in p:
+            part, st = L.batch_norm(
+                part, p["bn"], None if bn_state is None else to_device(bn_state, dev),
+                bn_train, phases=phases, stats_subsample=stats_subsample, group=bn_group,
+                moments=None if moments is None else tuple(m.to(dev) for m in moments))
+            states.append(st)
+        elif "bias" in p:
+            part = part + p["bias"].to(part.dtype).view(1, -1, 1, 1)
+        return L.leaky_relu(part) if leaky else part
+
+    x = x.map(tail)
+    return x, (states[0] if states else None)
 
 
 def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                      nclasses: int, fp_dtype, conv_observer=None, out_observer=None,
                      bn_train: bool = False, new_state=None, conv_input_transform=None,
                      bn_stats_subsample: int = 1, remat_tail: bool = False, bn_group=None):
-    """Run one sub-model's layer list; returns its selected outputs.
+    """Run one sub-model's layer list over the bands of its input (a
+    ``spatial.Bands``, or a list of them; the unsharded forward is one
+    band); returns its selected outputs, as ``Bands``.
+
+    Every windowed layer (conv, max-pool) runs per band on the band's rows
+    with their halo rows (``spatial.window``); 1×1 convs, shortcuts,
+    upsamples, routes and heads per band as they are; a fused residual stage
+    through K4 per band (``spatial.fused_stage_bands``). Each band uses the
+    params on its own device.
 
     ``bn_train`` runs every BatchNorm on the batch's statistics (from a
     ``bn_stats_subsample`` spatial subsample, synced over ``bn_group``, see
-    ``layers.batch_norm``);
+    ``layers.batch_norm``; over every band, see ``_conv_tail``);
     each BN layer's new running statistics go into the dict ``new_state``
     (when one is given) under the layer's key.
 
     ``conv_input_transform(sm_name, layer_key, x)`` replaces the input of
     every fp conv (one without ``kernel_q``: a quantized conv consumes its
-    QAct as it is) — the hook of activation QAT.
+    QAct as it is) — the hook of activation QAT; over more than one band
+    ``x`` is the list of the non-empty bands and it returns one.
 
     ``remat_tail`` checkpoints each BN conv's tail (``_conv_tail``): the
     conv's output is kept, the tail recomputes in the backward pass.
 
     ``conv_observer(sm_name, layer_key, x)`` is called with each conv's
     input and ``out_observer(sm_name, layer_key, x)`` with each layer's
-    output, both as fp tensors — used by int8 calibration.
+    output, both as fp tensors — used by int8 calibration, which runs
+    unsharded (one band).
 
     Activations may flow as ``layers.QAct`` between quantized convs: a conv
     whose entry carries ``out_scale`` emits one; a shortcut of two QActs
@@ -170,32 +213,45 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
     lattice); routes, fp convs and ``yolo`` dequantize.
     """
     x = inputs_entry if not isinstance(inputs_entry, (list, tuple)) else inputs_entry[0]
-    fusable = ({} if conv_observer is not None or out_observer is not None
-               else _fusable_stages(sm, sm_params))
+    observed = conv_observer is not None or out_observer is not None
+    if observed and len(x.parts) > 1:
+        raise ValueError("the observers (int8 calibration) run unsharded, on one band")
+    on = _params_on(sm_params, x.devices)
+    fusable = {} if observed else _fusable_stages(sm, sm_params)
     layer_outs = []
     for i, layer in enumerate(sm.layers):
         if i < len(layer_outs):
             continue  # inside a stage that ran fused
         key = f"layer{i}"
         starts = fusable.get(i)
-        if starts and isinstance(x, L.QAct):
-            x = L.QAct(*resblock.fused_stage((x.q, x.scale), sm_params, starts))
+        if starts and all(isinstance(p, L.QAct) for p in x.parts if p is not None):
+            x = sp.fused_stage_bands(x, on, starts)
             layer_outs.extend([None] * (starts[-1] + 2 - i) + [x])
             continue
         if layer.kind == "convolutional":
             p = sm_params[key]
             if conv_observer is not None:
-                conv_observer(sm.name, key, _deq(x, fp_dtype))
+                conv_observer(sm.name, key, _deq(x.parts[0], fp_dtype))
             if conv_input_transform is not None and "kernel_q" not in p:
-                x = conv_input_transform(sm.name, key, _deq(x, fp_dtype))
+                fp = [_deq(part, fp_dtype) for part in x.parts if part is not None]
+                done = conv_input_transform(sm.name, key, fp[0] if len(fp) == 1 else fp)
+                done = iter([done] if len(fp) == 1 else done)
+                x = x.with_parts([None if part is None else next(done) for part in x.parts])
+            stride, pad, explicit = layer["stride"], layer.get("pad", 1), layer.get("explicit_pad")
             leaky = layer.get("activation") == "leaky"
             if "kernel_q" in p:
-                if not isinstance(x, L.QAct):
-                    x = x.permute(0, 2, 3, 1)  # NHWC; a view when channels-last
-                x = L.conv2d_int8(x, p, layer["stride"], layer.get("pad", 1), leaky=leaky,
-                                  fp_dtype=fp_dtype, explicit_pad=layer.get("explicit_pad"))
-                if not isinstance(x, L.QAct):
-                    x = x.permute(0, 3, 1, 2)
+                k = p["kernel_q"].shape[1]
+
+                def conv_q(dev, xb, rows, key=key, stride=stride, pad=pad, explicit=explicit,
+                           leaky=leaky):
+                    fp_in = not isinstance(xb, L.QAct)
+                    if fp_in:
+                        xb = xb.permute(0, 2, 3, 1)  # NHWC; a view when channels-last
+                    y = L.conv2d_int8(xb, on(dev)[key], stride, pad, leaky=leaky,
+                                      fp_dtype=fp_dtype, explicit_pad=explicit, rows=rows)
+                    return y if isinstance(y, L.QAct) else y.permute(0, 3, 1, 2)
+
+                x = sp.window(x, k, stride, L.conv_padding(k, stride, pad, explicit)[0], conv_q)
             else:
                 # s2d_phase layers (ops/s2d.py::s2d_stem_train) carry the
                 # ORIGINAL 3×3 kernels; the phase kernel is built in the graph
@@ -203,10 +259,14 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                 kernel = (L.s2d_phase_kernel_conv0(p["kernel"]) if s2d == "conv0"
                           else L.s2d_phase_kernel_conv1(p["kernel"]) if s2d == "conv1"
                           else p["kernel"])
-                x = L.conv2d(_deq(x, fp_dtype), kernel, layer["stride"],
-                             layer.get("pad", 1), explicit_pad=layer.get("explicit_pad"))
+                k = kernel.shape[2]
+                x = sp.window(x, k, stride, L.conv_padding(k, stride, pad, explicit)[0],
+                              lambda dev, xb, rows, kernel=kernel, stride=stride, pad=pad,
+                              explicit=explicit: L.conv2d(
+                                  _deq(xb, fp_dtype), kernel.to(dev), stride, pad,
+                                  explicit_pad=explicit, rows=rows))
                 tail = functools.partial(
-                    _conv_tail, p=p, bn_state=sm_state.get(key), bn_train=bn_train,
+                    _conv_tail, on=on, key=key, bn_state=sm_state.get(key), bn_train=bn_train,
                     phases=4 if s2d == "conv0" else 1, stats_subsample=bn_stats_subsample,
                     leaky=leaky, bn_group=bn_group)
                 if remat_tail and "bn" in p:
@@ -218,37 +278,55 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                     new_state[key] = layer_state
         elif layer.kind == "shortcut":
             other = layer_outs[layer["from"]]
-            qentry = sm_params.get(key)
-            if (isinstance(x, L.QAct) and isinstance(other, L.QAct)
-                    and qentry is not None and "out_scale" in qentry):
-                x = L.add_requant(other, x, qentry["out_scale"])
-            else:
-                x = _deq(other, fp_dtype) + _deq(x, fp_dtype)
+            quantized = "out_scale" in sm_params.get(key, {})
+
+            def add(j, part, other=other, key=key, quantized=quantized):
+                o = other.parts[j]
+                if quantized and isinstance(part, L.QAct) and isinstance(o, L.QAct):
+                    return L.add_requant(o, part, on(x.devices[j])[key]["out_scale"])
+                return _deq(o, fp_dtype) + _deq(part, fp_dtype)
+
+            x = x.map(add)
         elif layer.kind == "route":
             x = _route_sources(layer, inputs_entry, layer_outs, fp_dtype)
         elif layer.kind == "upsample":
-            if isinstance(x, L.QAct):
-                s = layer["stride"]
-                x = L.QAct(x.q.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2),
-                           x.scale)
-            else:
-                x = L.upsample_nearest(x, layer["stride"])
+            s = layer["stride"]
+            x = x.map(lambda j, part, s=s: L.QAct(
+                part.q.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2), part.scale)
+                if isinstance(part, L.QAct) else L.upsample_nearest(part, s))
         elif layer.kind == "maxpool":
-            args = (list(layer["size_xy"]), list(layer["stride_xy"]), layer["padding"])
-            if isinstance(x, L.QAct):
-                x = L.QAct(_pool_int8(x.q, *args), x.scale)
+            size, stride, padding = (list(layer["size_xy"]), list(layer["stride_xy"]),
+                                     layer["padding"])
+            part = next(p for p in x.parts if p is not None)
+            width = part.q.shape[2] if isinstance(part, L.QAct) else part.shape[3]
+            if padding.lower() == "same":
+                pads = L._pool_same_pads((x.height, width), size, stride)
+            elif size[0] == stride[0] or len(x.parts) == 1:
+                pads = ((0, 0), (0, 0))
             else:
-                x = L.max_pool(x, *args)
+                raise ValueError(f"spatial: a 'valid' max-pool of {size} at stride {stride} "
+                                 "does not split over bands")
+
+            def pool(dev, xb, rows, size=size, stride=stride, padding=padding, pads=pads):
+                band_pads = (rows, pads[1])
+                if isinstance(xb, L.QAct):
+                    return L.QAct(_pool_int8(xb.q, size, stride, padding, band_pads), xb.scale)
+                return L.max_pool(xb, size, stride, padding, band_pads)
+
+            x = sp.window(x, size[0], stride[0], pads[0], pool)
         elif layer.kind == "yolo":
             # raw logits, no activation (reference parse_model.py:209-211);
             # NHWC before the reshape keeps JAX's channel→(anchor, field) map
-            x = _deq(x, fp_dtype)
-            b, c, h, w = x.shape
-            x = x.permute(0, 2, 3, 1).reshape(b, h, w, 3, 5 + nclasses)
+            def head(j, part):
+                part = _deq(part, fp_dtype)
+                b, c, h, w = part.shape
+                return part.permute(0, 2, 3, 1).reshape(b, h, w, 3, 5 + nclasses)
+
+            x = x.map(head, nhwc=True)
         else:
             raise ValueError(f"unknown layer kind {layer.kind}")
         if out_observer is not None:
-            out_observer(sm.name, key, _deq(x, fp_dtype))
+            out_observer(sm.name, key, _deq(x.parts[0], fp_dtype))
         layer_outs.append(x)
     return [layer_outs[i] for i in sm.outputs_layers]
 
@@ -256,7 +334,7 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
 def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
                 out_observer=None, train: bool = False, bn_frozen: tuple = (),
                 remat=False, conv_input_transform=None, bn_stats_subsample: int = 1,
-                bn_group=None):
+                bn_group=None, devices=None):
     """Forward pass. ``images``: (B, H, W, 3) float tensor.
 
     Returns the list of head outputs ``(B, g, g, 3, 5+nc)`` in the order of
@@ -265,6 +343,13 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
     ``(outputs, new_state)``, the BatchNorm running statistics after this
     batch, as the JAX package's ``apply_model`` does. The observers see every
     conv's input and every layer's output (int8 calibration).
+
+    ``devices``: the band devices of a spatial split (``parallel/spatial.py``):
+    each image's rows split into ``len(devices)`` bands, once, on the
+    devices; ``images`` may also arrive as their ``spatial.Bands``
+    (``mesh.image_sharding``). ``params`` / ``state`` live on the first band's
+    device, each band uses them moved to its own, and the heads come back
+    whole on the first band's device. None: one band, the unsharded forward.
 
     ``bn_frozen``: substrings of sub-model names whose BN layers keep their
     running statistics during training (transfer learning's
@@ -285,7 +370,14 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
     training-mode BatchNorm takes the global batch's statistics (sync-BN, as
     the JAX package's SPMD step does); frozen layers do not sync.
     """
-    x = images.permute(0, 3, 1, 2)
+    if isinstance(images, sp.Bands):
+        x = images
+    elif devices is not None and len(devices) > 1:
+        x = sp.split_rows(images, devices, sp.total_stride(spec, images.shape[1]))
+    else:
+        x = sp.whole(images, nhwc=True)
+    fp_dtype = next(p for p in x.parts if p is not None).dtype
+    x = x.map(lambda j, part: part.permute(0, 3, 1, 2))
     produced = {}
     new_state = {}
     for sm in spec.sub_models:
@@ -299,7 +391,7 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
         def run(sm_params, sm_state, inputs, _sm=sm, _bn=bn_train):
             sm_new_state = {}
             outs = _apply_sub_model(_sm, sm_params, sm_state, inputs, spec.nclasses,
-                                    images.dtype, conv_observer, out_observer,
+                                    fp_dtype, conv_observer, out_observer,
                                     bn_train=_bn, new_state=sm_new_state,
                                     conv_input_transform=conv_input_transform,
                                     bn_stats_subsample=bn_stats_subsample,
@@ -315,9 +407,7 @@ def apply_model(spec: ModelSpec, params, state, images, conv_observer=None,
         produced[sm.name] = outs
         if sm_new_state:
             new_state[sm.name] = sm_new_state
-    outputs = []
-    for sm in spec.output_sub_models:
-        outputs.extend(produced[sm.name])
+    outputs = [sp.gather_rows(out) for sm in spec.output_sub_models for out in produced[sm.name]]
     return (outputs, new_state) if train else outputs
 
 

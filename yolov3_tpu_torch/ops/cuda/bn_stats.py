@@ -50,6 +50,14 @@ call, counted in ``bn_sums.sync_launches`` and
 ``bn_moments_dx.sync_launches``. The count stays a Python number, so the
 division is the expression the unsynced path evaluates on each device: with
 a group of one process the result is the unsynced one, bit for bit.
+
+Over bands (``bn_moments_bands``: the spatial split of image rows,
+``parallel/spatial.py``): every band launches K5 once on its own rows and
+device, the (2, C) sums are added in band order on the first band's device
+(then all-reduced over the process group, when there is one), and mean and
+var follow over the summed true count of the bands' rows, uneven as they
+are. The backward launches K5's dx once a band with that count. An empty
+band is not passed in, so it launches nothing.
 """
 
 from __future__ import annotations
@@ -281,3 +289,53 @@ def bn_moments(x, group=None):
 def bn_moments_plain(x, group=None):
     """The same function through the plain versions on any device."""
     return _BnMoments.apply(x, True, group)
+
+
+class _BandMoments(torch.autograd.Function):
+    """(mean, biased var) over the bands ``xs`` of one activation, split
+    over image rows (see the module's docstring): the sums per band in band
+    order, the count the bands' total. ``group``: sync-BN's process group
+    (every rank holds the same band layout of an equal shard of the batch)."""
+
+    @staticmethod
+    def forward(ctx, plain: bool, group, *xs):
+        dev = xs[0].device
+        sums = [torch.stack(bn_sums_plain(x) if plain or x.device.type == "cpu"
+                            else bn_sums(x)).to(dev) for x in xs]
+        total = functools.reduce(torch.add, sums)
+        n = sum(x.numel() // x.shape[1] for x in xs)
+        if group is not None:
+            dist.all_reduce(total, group=group)
+            bn_sums.sync_launches += 1
+            n *= dist.get_world_size(group)
+        mean = total[0] / n
+        var = torch.clamp(total[1] / n - mean * mean, min=0.0)
+        ctx.save_for_backward(mean, *xs)
+        ctx.plain, ctx.group, ctx.n = plain, group, n
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        mean, *xs = ctx.saved_tensors
+        if ctx.group is not None:
+            grads = torch.stack([dmean, dvar])
+            dist.all_reduce(grads, group=ctx.group)
+            bn_moments_dx.sync_launches += 1
+            dmean, dvar = grads.unbind(0)
+        dx = bn_moments_dx_plain if ctx.plain else bn_moments_dx
+        return (None, None) + tuple(
+            dx(x, *(t.to(x.device) for t in (mean, dmean, dvar)), ctx.n) for x in xs)
+
+
+def bn_moments_bands(xs, group=None):
+    """The bands ``xs`` (each (B, C, h_j, W), on its own device, none
+    empty) of one activation → (mean, var) of the whole, two (C,) f32
+    tensors on the first band's device, differentiable in every band. One
+    K5 launch a band forward and one backward on CUDA tensors; ``group``:
+    sync-BN's process group, or None."""
+    return _BandMoments.apply(False, group, *xs)
+
+
+def bn_moments_bands_plain(xs, group=None):
+    """The same function through the plain versions on any device."""
+    return _BandMoments.apply(True, group, *xs)

@@ -50,7 +50,7 @@ SIGNATURES = {
     "round_sweep": {"round_sweep_launch": [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P]},
     "conv1x1_int8": {"conv1x1_int8_launch": [_P] * 6 + [_I] * 5 + [_P]},
     "conv_int8": {"conv_int8_launch": [_P] * 6 + [_I] * 13 + [_P]},
-    "resblock_int8": {"resblock_int8_launch": [_P] * 13 + [_I] * 9 + [_P]},
+    "resblock_int8": {"resblock_int8_launch": [_P] * 13 + [_I] * 11 + [_P]},
     "bn_stats": {"bn_moments_launch": [_P] * 3 + [_I] * 9 + [_F] + [_P],
                  "bn_moments_dx_launch": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P]},
 }

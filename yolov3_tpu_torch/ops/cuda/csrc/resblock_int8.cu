@@ -6,7 +6,9 @@
 // a matrix (B * (H+2) * (W+2), C) s8 whose rows are pixels of the image
 // padded by a ring of zeros. Per block:
 //   q1  = requant(leaky(acc1 * scale1 + bias1), inv_s1)   1x1 squeeze C -> Cm
-//   q1  = 0 on the halo ring
+//   q1  = 0 on the halo ring, except on a halo row that holds a
+//         neighbouring band's pixels (halo_top / halo_bottom: a band of the
+//         spatial split, parallel/spatial.py), where it is the row's squeeze
 //   q2  = requant(leaky(acc2 * scale2 + bias2), inv_s2)   3x3 expand Cm -> C,
 //         as 9 products over q1 shifted by (dy-1)*(W+2) + (dx-1) rows
 //   out = requant(x * s_x + q2 * s2, inv_out)             shortcut add
@@ -88,6 +90,7 @@ struct Block {
   int slice_cols;   // output channels of a slice (a multiple of BN2, or C)
   int bands, slices, items;
   int ldq;          // row pitch of the q1 band buffer, bytes
+  int q1_lo, q1_hi; // halo-coordinate rows whose q1 is computed: 1 - halo_top .. h + halo_bottom
 };
 
 // One work item: image, band, channel slice.
@@ -282,7 +285,7 @@ __device__ __forceinline__ void squeeze(uint32_t ring, int8_t* q1, const Block& 
       const int jr = mt + 64 * wgi + 16 * warp + g + 8 * hh;
       const int idx = it.f1 + jr, i = idx / wp, jj = idx - i * wp;
       valid[hh] = jr < it.m1;
-      inside[hh] = i >= 1 && i <= p.h && jj >= 1 && jj <= p.w;
+      inside[hh] = i >= p.q1_lo && i <= p.q1_hi && jj >= 1 && jj <= p.w;
     }
 #pragma unroll
     for (int j = 0; j < BN1 / 8; ++j) {
@@ -546,7 +549,8 @@ int launch(const void* const* ptrs, void* out, const Block& p, cudaStream_t stre
 // widths (bn1 over Cm for the squeeze, bn2 over C for the expand) one of the
 // pairs Darknet-53's blocks take: 32 x 64 (C = 64, Cm = 32), 64 x 128
 // (C = 128, Cm = 64) or 128 x 128 (C >= 256), and slice_cols a multiple of
-// bn2 or C itself. The grid is one block
+// bn2 or C itself. halo_top / halo_bottom (0 or 1): that halo row holds a
+// neighbouring band's pixels, whose q1 the expand reads. The grid is one block
 // an SM (132) or one a work item, if fewer. Launches on `stream`; returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int resblock_int8_launch(const void* xp, const void* w1, const void* w2,
@@ -555,13 +559,14 @@ extern "C" int resblock_int8_launch(const void* xp, const void* w1, const void* 
                                     const void* s2, const void* s_x, const void* inv_out,
                                     void* out, int batch, int h, int w, int c, int cm,
                                     int band_rows, int slice_cols, int bn1, int bn2,
-                                    void* stream) {
+                                    int halo_top, int halo_bottom, void* stream) {
   if (batch == 0) return 0;
-  if (c % 32 || cm % 16 || band_rows < 1 || slice_cols < 1 ||
+  if (c % 32 || cm % 16 || band_rows < 1 || slice_cols < 1 || (halo_top | halo_bottom) & ~1 ||
       (slice_cols != c && slice_cols % bn2) ||
       (((uintptr_t)xp | (uintptr_t)w1 | (uintptr_t)w2 | (uintptr_t)out) % 16))
     return (int)cudaErrorInvalidValue;
-  Block p{batch, h, w, c, cm, band_rows, slice_cols, 0, 0, 0, (cm + 31) / 32 * 32 + 16};
+  Block p{batch, h, w, c, cm, band_rows, slice_cols, 0, 0, 0, (cm + 31) / 32 * 32 + 16,
+          1 - halo_top, h + halo_bottom};
   p.bands = (h + band_rows - 1) / band_rows;
   p.slices = (c + slice_cols - 1) / slice_cols;
   p.items = batch * p.bands * p.slices;

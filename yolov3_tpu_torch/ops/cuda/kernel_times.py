@@ -441,7 +441,7 @@ def main(argv) -> int:
             for name, fn in launchers.items():
                 def call(fn=fn):
                     err = fn(*(t.data_ptr() for t in ptrs), b, hw, hw, c, c // 2,
-                             pl["band_rows"], pl["slice_cols"], pl["bn1"], pl["bn2"],
+                             pl["band_rows"], pl["slice_cols"], pl["bn1"], pl["bn2"], 0, 0,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"k4parts: {name} failed with cudaError_t {err}")

@@ -22,6 +22,15 @@ residual stage whose shape the kernel takes (``supports``) through
 ``fused_stage`` (``models/network.py``). The kernel is reached only through
 the ``yolov3_torch::fused_resblock`` op (CPU kernel: the plain version; see
 ``nms_kernel.py``), which makes its operands contiguous.
+
+A band of the spatial split (``parallel/spatial.py``) is a (rows × W) image
+whose top or bottom halo row may hold a neighbouring band's pixels and not
+zero padding. ``halo_top`` / ``halo_bottom`` say so: the squeeze output q1
+of that row is then computed from the row (the 3×3 expand of the band's edge
+row reads it), where it is zero at an image edge. The output's halo rows
+stay zero either way; ``fused_stage_bands`` refreshes them from the
+neighbours before the next block. Both flags false is the image contract,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -72,10 +81,12 @@ def smem_bytes(w: int, cm: int, band_rows: int, bn1: int, bn2: int) -> int:
     return ring + _BM * (bn2 + 16) + ((band_rows + 2) * (w + 2) + 2) * ldq
 
 
-def halo_mask(h: int, w: int) -> np.ndarray:
-    """(Hp·Wp,) int8 mask: 1 on interior pixels, 0 on the halo ring."""
+def halo_mask(h: int, w: int, halo_top: bool = False, halo_bottom: bool = False) -> np.ndarray:
+    """(Hp·Wp,) int8 mask: 1 on interior pixels, 0 on the halo ring; 1 also
+    on the interior columns of a halo row that holds a neighbour's pixels
+    (``halo_top`` / ``halo_bottom``)."""
     m = np.zeros((h + 2, w + 2), np.int8)
-    m[1:h + 1, 1:w + 1] = 1
+    m[1 - int(halo_top):h + 1 + int(halo_bottom), 1:w + 1] = 1
     return m.reshape(-1)
 
 
@@ -168,7 +179,8 @@ def fused_stage(x, sm_params, starts):
 
 
 def fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x,
-                         inv_out, *, b: int, h: int, w: int):
+                         inv_out, *, b: int, h: int, w: int, halo_top: bool = False,
+                         halo_bottom: bool = False):
     """Plain PyTorch version, exact on the CPU and on the card: both products
     run in float64 (exact for these sums) and are rounded to float32 once,
     then the epilogues in float32 in the kernel's order."""
@@ -176,7 +188,8 @@ def fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s
     x4 = xp.reshape(b, h + 2, w + 2, c)
     acc1 = (x4.to(torch.float64) @ w1.to(torch.float64).t()).to(torch.float32)
     q1 = requant_clip(leaky(acc1 * scale1 + bias1), inv_s1)
-    mask = torch.from_numpy(halo_mask(h, w)).to(xp.device).reshape(1, h + 2, w + 2, 1)
+    mask = torch.from_numpy(halo_mask(h, w, halo_top, halo_bottom)).to(xp.device).reshape(
+        1, h + 2, w + 2, 1)
     q1 = torch.where(mask != 0, q1, torch.zeros_like(q1))
     # the zero halo is the 3×3 conv's SAME padding: a VALID conv over it
     weight = w2.reshape(3, 3, c, cm).permute(2, 3, 0, 1).to(torch.float64)
@@ -234,7 +247,7 @@ def plan(b: int, h: int, w: int, c: int, cm: int, sms: int = _SMS):
 
 
 def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
-                   *, b: int, h: int, w: int):
+                   *, b: int, h: int, w: int, halo_top: bool = False, halo_bottom: bool = False):
     """One residual block over the flat zero-halo layout, through the
     ``yolov3_torch::fused_resblock`` op.
 
@@ -242,28 +255,34 @@ def fused_resblock(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
     scale1/bias1 (Cm,) f32 with scale1 = w1_scale·s_x; scale2/bias2 (C,) f32
     with scale2 = w2_scale·s1; the five scalars 0-d f32 tensors (the f32
     reciprocals and scales of the unfused chain). Returns the same-shape
-    halo matrix at scale 1/inv_out. CPU tensors take the plain version; CUDA
-    tensors launch ``resblock_int8_kernel`` (counted in
-    ``fused_resblock.launches``) or raise."""
+    halo matrix at scale 1/inv_out. ``halo_top`` / ``halo_bottom``: that
+    halo row holds a neighbouring band's pixels (see the module's
+    docstring). CPU tensors take the plain version; CUDA tensors launch
+    ``resblock_int8_kernel`` (counted in ``fused_resblock.launches``) or
+    raise."""
     return torch.ops.yolov3_torch.fused_resblock.default(
-        xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out, b, h, w)
+        xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out, b, h, w,
+        halo_top, halo_bottom)
 
 
 fused_resblock.launches = 0
+fused_resblock.edge_launches = 0  # of them, launches on a band with a neighbour's halo row
 
 
 @torch.library.custom_op("yolov3_torch::fused_resblock", mutates_args=(), device_types="cpu")
 def _resblock_op(xp: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, scale1: torch.Tensor,
                  bias1: torch.Tensor, inv_s1: torch.Tensor, scale2: torch.Tensor,
                  bias2: torch.Tensor, inv_s2: torch.Tensor, s2: torch.Tensor, s_x: torch.Tensor,
-                 inv_out: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+                 inv_out: torch.Tensor, b: int, h: int, w: int, halo_top: bool = False,
+                 halo_bottom: bool = False) -> torch.Tensor:
     return fused_resblock_plain(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
-                                s_x, inv_out, b=b, h=h, w=w)
+                                s_x, inv_out, b=b, h=h, w=w, halo_top=halo_top,
+                                halo_bottom=halo_bottom)
 
 
 @_resblock_op.register_kernel("cuda")
 def _resblock_cuda(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
-                   b, h, w):
+                   b, h, w, halo_top=False, halo_bottom=False):
     c, cm = xp.shape[1], w1.shape[0]
     if (xp.dim() != 2 or xp.shape[0] != b * (h + 2) * (w + 2) or tuple(w1.shape) != (cm, c)
             or tuple(w2.shape) != (9, c, cm)):
@@ -296,12 +315,13 @@ def _resblock_cuda(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2,
                  "resblock_int8", xp.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                  scale1.data_ptr(), bias1.data_ptr(), scale2.data_ptr(), bias2.data_ptr(),
                  *(t.data_ptr() for t in scalars), out.data_ptr(), b, h, w, c, cm, pl["band_rows"],
-                 pl["slice_cols"], pl["bn1"], pl["bn2"])
+                 pl["slice_cols"], pl["bn1"], pl["bn2"], int(halo_top), int(halo_bottom))
     fused_resblock.launches += 1
+    fused_resblock.edge_launches += bool(halo_top or halo_bottom)
     return out
 
 
 @_resblock_op.register_fake
 def _resblock_fake(xp, w1, w2, scale1, bias1, inv_s1, scale2, bias2, inv_s2, s2, s_x, inv_out,
-                   b, h, w):
+                   b, h, w, halo_top=False, halo_bottom=False):
     return torch.empty_like(xp)

@@ -200,14 +200,17 @@ def fake_quant_kernel(kernel):
     return kernel + (q.to(kernel.dtype) - kernel).detach()
 
 
-def fake_quant_activation(x):
+def fake_quant_activation(x, absmax=None):
     """STE fake-quant of one activation on the serving int8 lattice: one
     per-tensor scale, the batch's absmax / 127 (serving uses the calibrated
     absmax; training adapts to the rounding), round half to even, clip ±127,
     the scale math in f32 whatever ``x``'s dtype (absmax · f32(1/127), as
-    ``fake_quant_kernel``). Backward: identity."""
+    ``fake_quant_kernel``). Backward: identity. ``absmax``: the whole
+    activation's, when ``x`` is one band of it (``parallel/spatial.py``)."""
     x32 = x.to(torch.float32)
-    scale = torch.clamp(x32.abs().amax(), min=1e-12) * _INV_127
+    if absmax is None:
+        absmax = x32.abs().amax()
+    scale = torch.clamp(absmax, min=1e-12) * _INV_127
     q = torch.clamp(torch.round(x32 / scale), -127, 127) * scale
     return x + (q.to(x.dtype) - x).detach()
 
@@ -215,12 +218,19 @@ def fake_quant_activation(x):
 def make_activation_fake_quant(spec, skip_final_convs: bool = True, min_k2cin: int = 0):
     """→ ``transform(sm_name, layer_key, x)`` for ``apply_model``'s
     ``conv_input_transform``: fake-quants the input of every conv the int8
-    serving tier quantizes; the skipped convs' inputs pass through."""
+    serving tier quantizes; the skipped convs' inputs pass through. ``x``
+    may be the list of an activation's bands (``parallel/spatial.py``): one
+    scale, from the absmax over them all, quantizes each."""
     skips = quantized_conv_skips(spec, skip_final_convs, min_k2cin)
 
     def transform(sm_name, layer_key, x):
         if (sm_name, layer_key) in skips:
             return x
+        if isinstance(x, list):
+            dev = x[0].device
+            absmax = torch.stack([part.to(torch.float32).abs().amax().to(dev)
+                                  for part in x]).amax()
+            return [fake_quant_activation(part, absmax.to(part.device)) for part in x]
         return fake_quant_activation(x)
 
     return transform

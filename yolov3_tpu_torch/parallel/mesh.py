@@ -20,9 +20,18 @@ same math runs eagerly, in one of two shapes:
     splits evenly over them (``shard_batch``) and the answers come back in
     batch order on the first (``gather_batch``).
 
-``Mesh.size`` is the data axis: processes × devices per process. The
-``spatial`` axis (a conv split over image rows with halo exchanges) is not
-ported: asking for it raises ``NotImplementedError`` by name.
+The ``spatial`` axis splits each image's rows into bands, one per device of
+a spatial group of ``spatial`` devices *inside one process*, as the JAX
+package's GSPMD program splits them over the local devices (single-host
+only): ``parallel/spatial.py`` runs every layer band by band with the halo
+rows taken from the neighbouring bands. A (data × spatial) mesh is then
+``world_size`` processes × (devices of this process / ``spatial``) data
+replicas, each over ``spatial`` band devices. The bands of a group may share
+a device (``("cpu",) * S``, or one card): the layout and the math are the
+same, the bands queue on one stream.
+
+``Mesh.size`` counts every device of every process; ``Mesh.shape`` is
+``{"data": size / spatial, "spatial": spatial}`` as in the JAX ``Mesh``.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import socket
 
 import torch
 import torch.distributed as dist
@@ -42,12 +52,24 @@ DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
 
 
-def check_spatial(spatial: int):
-    """Raise ``NotImplementedError`` by name for ``spatial_partitioning`` > 1."""
-    if spatial > 1:
-        raise NotImplementedError(
-            f"spatial_partitioning ({spatial}): the (data × spatial) mesh is not ported yet "
-            "(a later slice of the port); only the data axis is")
+SINGLE_HOST = "spatial_partitioning is single-host (ICI) only"
+
+
+def check_single_host(group=None):
+    """Raise the JAX package's single-host message when the process group
+    (default: the initialized one) spans more than one host: the spatial
+    axis lives inside one process, its data axis on one host. One
+    ``all_gather_object`` of the host names."""
+    if group is None:
+        group, _, world = _process_group()
+    else:
+        world = dist.get_world_size(group)
+    if group is None or world == 1:
+        return
+    names = [None] * world
+    dist.all_gather_object(names, socket.gethostname(), group=group)
+    if len(set(names)) > 1:
+        raise ValueError(SINGLE_HOST)
 
 
 def initialize_multihost(coordinator_address=None, num_processes=None, process_id=None,
@@ -100,30 +122,63 @@ def local_devices(device_type: str = "cuda"):
     return (torch.device(device_type),)
 
 
+def spatial_devices(devices, spatial: int) -> tuple:
+    """The devices of this process's part of a mesh with ``spatial`` bands
+    to a data replica: ``devices``, whose count ``spatial`` must divide (the
+    JAX package's check and message), or a lone device once per band. The
+    JAX package needs a device per band; here the bands of a group may share
+    one, where they queue on its stream: the split's layout and math, slower
+    than the unsharded forward, which a warning says."""
+    devices = tuple(torch.device(d) for d in devices)
+    spatial = int(spatial)
+    if spatial > 1 and len(devices) == 1:
+        devices = devices * spatial
+    if spatial < 1 or len(devices) % spatial:
+        raise ValueError(f"spatial_partitioning ({spatial}) must divide the device "
+                         f"count ({len(devices)})")
+    if spatial > 1 and len(set(devices)) < len(devices):
+        log.warning(f"spatial_partitioning ({spatial}): bands share a device "
+                    f"({sorted({str(d) for d in devices})}) and queue on it, slower than the "
+                    "unsharded forward")
+    return devices
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D data mesh: ``devices`` are this process's (one per process when
-    training, the replicas' when serving), ``group`` the process group (None:
-    this process alone), ``rank`` and ``world_size`` this process's place in
-    it."""
+    """A (data × spatial) mesh. ``devices`` are this process's, data-major:
+    ``spatial`` band devices for each of its data replicas (one replica per
+    process when training, one per device or spatial group when serving);
+    ``group`` the process group (None: this process alone), ``rank`` and
+    ``world_size`` this process's place in it."""
 
     devices: tuple
     group: object = None
     rank: int = 0
     world_size: int = 1
+    spatial: int = 1
 
     @property
     def size(self) -> int:
-        """The data axis: every device of every process."""
+        """Every device of every process."""
         return self.world_size * len(self.devices)
 
     @property
+    def replicas(self) -> tuple:
+        """This process's devices shaped (data, spatial): one tuple of band
+        devices per data replica."""
+        s = self.spatial
+        return tuple(self.devices[i:i + s] for i in range(0, len(self.devices), s))
+
+    @property
     def axis_names(self):
-        return (DATA_AXIS,)
+        return (DATA_AXIS, SPATIAL_AXIS) if self.spatial > 1 else (DATA_AXIS,)
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.size}
+        shape = {DATA_AXIS: self.size // self.spatial}
+        if self.spatial > 1:
+            shape[SPATIAL_AXIS] = self.spatial
+        return shape
 
     def local_slice(self, global_batch: int):
         """This process's rows of a global batch."""
@@ -131,15 +186,16 @@ class Mesh:
         return slice(self.rank * per, (self.rank + 1) * per)
 
     def shard_batch(self, x):
-        """Split this process's batch ``x`` evenly over ``devices`` → one
-        shard per device, in batch order (a batch that does not divide
-        raises, with the JAX package's message)."""
-        n = len(self.devices)
+        """Split this process's batch ``x`` evenly over its data replicas →
+        one shard per replica, on the replica's first device, in batch order
+        (a batch that does not divide raises, with the JAX package's
+        message)."""
+        n = len(self.replicas)
         if x.shape[0] % n:
             raise ValueError(f"data-sharded serving needs batch_size ({x.shape[0]}) divisible "
                              f"by the data-axis size ({n} devices)")
-        return tuple(part.to(dev, non_blocking=True)
-                     for part, dev in zip(x.split(x.shape[0] // n), self.devices))
+        return tuple(part.to(bands[0], non_blocking=True)
+                     for part, bands in zip(x.split(x.shape[0] // n), self.replicas))
 
     def gather_batch(self, parts):
         """The shards back in batch order, on the first device."""
@@ -181,24 +237,24 @@ def make_mesh(devices=None, axes: dict | None = None, spatial: int = 1) -> Mesh:
     process's card (or the CPU) on every rank of the group; else every local
     device of this process.
 
-    ``spatial`` > 1 (or a ``spatial`` entry in ``axes``) asks for the (data ×
-    spatial) mesh, which is not ported and raises ``NotImplementedError``
-    once the JAX function's checks pass."""
+    ``spatial`` > 1 (or a ``spatial`` entry in ``axes``) builds the (data ×
+    spatial) mesh over this process's ``spatial_devices``: the spatial
+    groups lie inside the process (a lone device holds every band). A
+    process group that spans hosts raises the JAX package's single-host
+    message."""
     group, rank, world = _process_group()
+    if axes is not None:
+        spatial = int(axes.get(SPATIAL_AXIS, 1))
+    spatial = int(spatial)
     if devices is None:
         if group is not None:
             devices = (torch.device("cuda", local_rank()) if torch.cuda.is_available()
                        else torch.device("cpu"),)
         else:
             devices = local_devices("cuda" if torch.cuda.is_available() else "cpu")
-    devices = tuple(torch.device(d) for d in devices)
+    devices = spatial_devices(devices, spatial)
     count = world * len(devices)
     if axes is None:
-        spatial = int(spatial)
-        if spatial < 1 or count % spatial:
-            raise ValueError(
-                f"spatial_partitioning ({spatial}) must divide the device "
-                f"count ({count})")
         axes = {DATA_AXIS: count // spatial}
         if spatial > 1:
             axes[SPATIAL_AXIS] = spatial
@@ -209,34 +265,29 @@ def make_mesh(devices=None, axes: dict | None = None, spatial: int = 1) -> Mesh:
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)}: only {DATA_AXIS!r} and "
                          f"{SPATIAL_AXIS!r} exist")
-    check_spatial(int(axes.get(SPATIAL_AXIS, 1)))
-    return Mesh(devices, group, rank, world)
+    if spatial > 1:
+        check_single_host(group)
+    return Mesh(devices, group, rank, world, spatial)
 
 
 def make_data_parallel_mesh(batch_size: int, spatial: int = 1, devices=None) -> Mesh | None:
     """Mesh over this process's devices (default: every visible card) for
     sharded serving/evaluation, or None on a single device; in-process, so
     it has no process group. The batch must divide evenly over the data
-    axis; ``spatial`` > 1 raises (not ported) once the JAX function's checks
-    pass."""
-    devices = tuple(local_devices() if devices is None else devices)
+    axis, ``device count // spatial``: e.g. 8 cards, ``spatial: 8``, batch 1
+    is the single-image latency configuration. The JAX function's checks and
+    messages over ``spatial_devices`` (a lone device holds every band)."""
+    devices = spatial_devices(local_devices() if devices is None else devices, spatial)
     count = len(devices)
     if count <= 1:
-        if int(spatial) > 1:
-            raise ValueError("spatial_partitioning needs more than one device")
         return None
-    if int(spatial) < 1 or count % int(spatial):
-        raise ValueError(
-            f"spatial_partitioning ({spatial}) must divide the device "
-            f"count ({count})")
     data_size = count // int(spatial)
     if batch_size % data_size:
         raise ValueError(
             f"data-sharded serving needs batch_size ({batch_size}) divisible "
             f"by the data-axis size ({data_size} = {count} "
             f"devices / spatial {spatial})")
-    check_spatial(int(spatial))
-    return Mesh(tuple(torch.device(d) for d in devices))
+    return Mesh(devices, spatial=int(spatial))
 
 
 def batch_sharding(mesh: Mesh):
@@ -244,10 +295,20 @@ def batch_sharding(mesh: Mesh):
     return mesh.shard_batch
 
 
-def image_sharding(mesh: Mesh):
-    """Sharding for an NHWC image batch: over the data axis, as the batch
-    (image height over a spatial axis is not ported)."""
-    return mesh.shard_batch
+def image_sharding(mesh: Mesh, stride: int = 32):
+    """Sharding for an NHWC image batch: over the data axis, as the batch,
+    and, when the mesh has a spatial axis, image rows over its bands →
+    one ``spatial.Bands`` per data replica. ``stride``: the model's total
+    stride, the unit of the band layout (``spatial.band_starts``)."""
+    if mesh.spatial == 1:
+        return mesh.shard_batch
+    from . import spatial as sp
+
+    def shard(x):
+        return tuple(sp.split_rows(part, bands, stride)
+                     for part, bands in zip(mesh.shard_batch(x), mesh.replicas))
+
+    return shard
 
 
 def replicated_sharding(mesh: Mesh):

@@ -17,6 +17,15 @@ the terms are divided by the global batch; the trainable mask, the clip, the
 optimizer and the EMA then run on every rank on the same averaged gradients,
 which keeps every rank's state identical. The metrics are averaged too.
 
+With a spatial axis (``mesh.spatial`` > 1: this process's ``spatial`` band
+devices, ``parallel/spatial.py``) each image of the rank's shard is split
+into bands of rows once, on the device, after augmentation and the
+microbatch split; the forward runs band by band with halo exchanges,
+BatchNorm's statistics add every band's K5 sums (and all-reduce over the
+process group), and the heads are gathered on the first band's device, so
+assignment and loss run on whole grids as unsharded. Autograd sums each
+weight's gradient over the bands; the ranks' average follows as above.
+
 The optimizer is the port's own small functional one over the param dicts,
 because three details of the JAX package's optimizers differ from
 ``torch.optim`` / ``torch.nn.utils``: Adam adds ``eps=1e-7`` outside the
@@ -238,10 +247,11 @@ def ema_update(ema, new, decay, step, warmup: bool = True):
 
 def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, grid_sizes,
                       batch_size, bn_frozen, train, compute_dtype=None, remat=False, qat=False,
-                      qat_min_k2cin=0, bn_stats_subsample=1, bn_group=None):
+                      qat_min_k2cin=0, bn_stats_subsample=1, bn_group=None, bands=None):
     """→ ``(total, (new_bn_state, metrics))``; total = Σ terms / batch + L2
     on the master weights, everything after the heads in f32. ``bn_group``:
-    sync-BN's process group (``apply_model``).
+    sync-BN's process group (``apply_model``). ``bands``: the band devices
+    of a spatial split (``apply_model``'s ``devices``), or None.
 
     ``qat``: 'weights' (or True) fake-quants the conv kernels, 'activations'
     the conv inputs, 'full' both (``ops/quantize.py``), before the
@@ -266,9 +276,10 @@ def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, gri
         outputs, new_bn = apply_model(spec, params_c, bn_state, images, train=True,
                                       bn_frozen=bn_frozen, remat=remat,
                                       conv_input_transform=act_transform,
-                                      bn_stats_subsample=bn_stats_subsample, bn_group=bn_group)
+                                      bn_stats_subsample=bn_stats_subsample, bn_group=bn_group,
+                                      devices=bands)
     else:
-        outputs, new_bn = apply_model(spec, params_c, bn_state, images), bn_state
+        outputs, new_bn = apply_model(spec, params_c, bn_state, images, devices=bands), bn_state
     terms = torch.stack([
         yolo_loss_terms(t, p, anchors_table[i], spec.nclasses) / batch_size
         for i, (t, p) in enumerate(zip(y_true, outputs))])  # (nscales, 4) [xy, wh, obj, class]
@@ -286,16 +297,16 @@ def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, gri
 
 def loss_and_grads(spec, params, bn_state, images, labels, anchors_table, grid_sizes,
                    batch_size, bn_frozen=(), compute_dtype=None, remat=False, qat=False,
-                   qat_min_k2cin=0, bn_stats_subsample=1, bn_group=None):
+                   qat_min_k2cin=0, bn_stats_subsample=1, bn_group=None, bands=None):
     """One training forward and backward → ``(grads, new_bn_state, metrics)``:
     the gradient of the total loss w.r.t. every leaf of ``params`` (a tree
     like ``params``, f32 at the f32 masters), the BatchNorm state after this
-    batch, and the detached metrics."""
+    batch, and the detached metrics. ``bands``: see ``_loss_and_metrics``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     total, (new_bn, metrics) = _loss_and_metrics(
         spec, tree_unflatten(params, leaves), bn_state, images, labels, anchors_table,
         tuple(int(g) for g in grid_sizes), batch_size, tuple(bn_frozen), True,
-        compute_dtype, remat, qat, qat_min_k2cin, bn_stats_subsample, bn_group)
+        compute_dtype, remat, qat, qat_min_k2cin, bn_stats_subsample, bn_group, bands)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
     return (tree_unflatten(params, grads), new_bn,
@@ -307,14 +318,25 @@ def _local_batch(batch_size: int, mesh):
     the whole batch); raises for a mesh the step cannot run on."""
     if mesh is None:
         return batch_size
-    if len(mesh.devices) != 1:
+    if len(mesh.devices) != mesh.spatial:
         raise ValueError(
-            f"data-parallel training runs one process per device; this mesh holds "
-            f"{len(mesh.devices)} devices of one process (a serving mesh)")
+            f"data-parallel training runs one process per device (one spatial group of "
+            f"{mesh.spatial}); this mesh holds {len(mesh.devices)} devices of one process "
+            "(a serving mesh)")
     if batch_size % mesh.world_size:
         raise ValueError(f"batch_size ({batch_size}) must divide over the data axis "
                          f"({mesh.world_size} processes)")
     return batch_size // mesh.world_size
+
+
+def _split(mesh):
+    """(data-parallel mesh or None, band devices or None) of a step's mesh:
+    the first when it has a process group, the second when it has a spatial
+    axis."""
+    if mesh is None:
+        return None, None
+    return (mesh if mesh.group is not None else None,
+            mesh.replicas[0] if mesh.spatial > 1 else None)
 
 
 def _check_local(images, local: int, mesh):
@@ -348,8 +370,9 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     ``bn_stats_subsample``: see ``layers.batch_norm``. The metrics are
     detached tensors on the device.
 
-    ``mesh`` (``parallel/mesh.py::make_mesh`` under a process group): data
-    parallelism, see the module's docstring. ``batch_size`` stays the global
+    ``mesh`` (``parallel/mesh.py::make_mesh``): data parallelism under a
+    process group, and a spatial split over ``mesh.spatial`` band devices of
+    this process, see the module's docstring. ``batch_size`` stays the global
     batch; each rank passes its ``local_batch_slice`` of it. Augmentation
     draws once for the global batch and each rank takes its slice of the
     draws (mosaic, whose composites mix images across the batch, augments
@@ -363,10 +386,11 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     grid_sizes = tuple(int(g) for g in grid_sizes)
     bn_frozen = tuple(bn_frozen)
     local = _local_batch(batch_size, mesh)
-    group = None if mesh is None else mesh.group
+    dp, bands = _split(mesh)
+    group = None if dp is None else dp.group
     if accum_steps > 1 and local % accum_steps:
         raise ValueError(f"batch {local} not divisible by accum_steps {accum_steps}"
-                         + (f" (this rank's shard of {batch_size})" if mesh is not None else ""))
+                         + (f" (this rank's shard of {batch_size})" if dp is not None else ""))
     micro = local // accum_steps
     mask_leaves = (None if trainable_mask is None
                    else [float(bool(m)) for m in tree_leaves(trainable_mask)])
@@ -376,19 +400,19 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
             spec, params, bn_state, images, labels, anchors, grid_sizes, divisor,
             bn_frozen=bn_frozen, compute_dtype=compute_dtype, remat=remat, qat=qat,
             qat_min_k2cin=qat_min_k2cin, bn_stats_subsample=bn_stats_subsample,
-            bn_group=group)
+            bn_group=group, bands=bands)
         return tree_leaves(grads), new_bn, metrics
 
     def augmented(images, labels, step_index):
         gen = step_generator(seed, step_index)
-        if mesh is None:
+        if dp is None:
             return apply_augment(images, labels, draw_augment(images.shape[0], gen,
                                                               **aug_options))
         draws = draw_augment(batch_size, gen, **aug_options)
-        rows = mesh.local_slice(batch_size)
+        rows = dp.local_slice(batch_size)
         if "mosaic_take" in draws:
-            images, labels = apply_augment(mesh.all_gather_batch(images),
-                                           mesh.all_gather_batch(labels), draws)
+            images, labels = apply_augment(dp.all_gather_batch(images),
+                                           dp.all_gather_batch(labels), draws)
             return images[rows], labels[rows]
         return apply_augment(images, labels, {k: v[rows] for k, v in draws.items()})
 
@@ -397,7 +421,8 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     def step(train_state, images, labels):
         _check_local(images, local, mesh)
         if compute_dtype is None:
-            pin_fp32_ieee(images.device)
+            for dev in bands or (images.device,):
+                pin_fp32_ieee(dev)
         params = train_state["params"]
         anchors = torch.as_tensor(anchors_np, device=images.device)
         if aug_options is not None:
@@ -415,9 +440,9 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
         else:
             grads, new_bn, metrics = grads_of(params, train_state["bn_state"], images, labels,
                                               anchors, local)
-        if mesh is not None:
-            grads = mesh.all_reduce_mean(grads)
-            metrics = tree_unflatten(metrics, mesh.all_reduce_mean(tree_leaves(metrics)))
+        if dp is not None:
+            grads = dp.all_reduce_mean(grads)
+            metrics = tree_unflatten(metrics, dp.all_reduce_mean(tree_leaves(metrics)))
         if mask_leaves is not None:
             grads = [g * m for g, m in zip(grads, mask_leaves)]
         with torch.no_grad():
@@ -437,8 +462,10 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
 def make_eval_step(spec, anchors_table, grid_sizes, batch_size, mesh=None, bn_frozen=()):
     """Validation loss step (no update): ``step(params, bn_state, images,
     labels) → metrics``. With a ``mesh`` each rank passes its shard of the
-    global ``batch_size`` and the metrics are averaged over the ranks."""
+    global ``batch_size`` and the metrics are averaged over the ranks; a
+    spatial axis splits the images into bands, as in ``make_train_step``."""
     local = _local_batch(batch_size, mesh)
+    dp, bands = _split(mesh)
     anchors_np = np.asarray(anchors_table, np.float32)
     grid_sizes = tuple(int(g) for g in grid_sizes)
 
@@ -447,9 +474,10 @@ def make_eval_step(spec, anchors_table, grid_sizes, batch_size, mesh=None, bn_fr
         _check_local(images, local, mesh)
         anchors = torch.as_tensor(anchors_np, device=images.device)
         _, (_, metrics) = _loss_and_metrics(spec, params, bn_state, images, labels, anchors,
-                                            grid_sizes, local, tuple(bn_frozen), False)
-        if mesh is not None:
-            metrics = tree_unflatten(metrics, mesh.all_reduce_mean(tree_leaves(metrics)))
+                                            grid_sizes, local, tuple(bn_frozen), False,
+                                            bands=bands)
+        if dp is not None:
+            metrics = tree_unflatten(metrics, dp.all_reduce_mean(tree_leaves(metrics)))
         return metrics
 
     return step
