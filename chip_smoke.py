@@ -193,7 +193,21 @@ Phases (any failure exits non-zero):
      card (``--dp-worker gloo-spatial``), states bit-identical; (d) ``Serve``
      with ``spatial_partitioning: 2`` answering as the plain server; (e)
      ``evaluate`` of the trained tiny at 416 with S = 2 over [0.004, 0.5],
-     counters and APs equal to the unsharded run's, K2 launched.
+     counters and APs equal to the unsharded run's, K2 launched;
+ 26. the training-quality recipe (``python -m
+     yolov3_tpu_torch.tools.train_convergence``, in this process; outputs
+     under ``build/smoke_convergence/``): YOLOv3-tiny at 416² trained from
+     scratch on a corpus the recipe generates (1,024 train and 128 val
+     images, seed 11, ``max_overlap`` 0.15; its sha256 digests against the
+     same generator's on a CPU host, and both PIL versions, printed), B=64,
+     ``mixed_precision``, ``device_dataset`` uint8, cosine LR, 120 epochs,
+     then evaluated in bf16, ``int8`` and ``int8_chain``: epochs, steps,
+     wall seconds, img/s, first and last losses, mAP@0.5 per tier, K1, K3,
+     K5 (each way) and K6 launches, the served w/h logit maxima, and one B=64
+     bf16 step alone (ms, device-busy ms, launches); fails unless the last
+     train loss is below half the first, bf16 mAP@0.5 >= 0.2, each int8 tier
+     within 0.01 of bf16, no served w/h logit above 88.72, and the four
+     kernels launched.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -202,6 +216,7 @@ Needs no network and one card; imports nothing of JAX.
 from __future__ import annotations
 
 import glob
+import itertools
 import json
 import logging
 import os
@@ -2333,10 +2348,11 @@ def counted_train(bn_stats, handler, config):
     return state, text, row
 
 
-def step_profile(key, options, bodies, nc, files):
-    """The train step of one key alone on one resident batch: ms a step
-    (host clock around 5 steps ending in a synchronize, after two), device
-    launches and busy ms of one step (profiler), peak memory of a step."""
+def step_profile(key, options, bodies, nc, files, batch=16):
+    """The train step of one key alone on one resident batch of ``batch``
+    images: ms a step (host clock around 5 steps ending in a synchronize,
+    after two), device launches and busy ms of one step (profiler), peak
+    memory of a step."""
     from yolov3_tpu_torch.config import get_anchors
     from yolov3_tpu_torch.models import init_model, parse_model_config
     from yolov3_tpu_torch.models.network import head_grid_sizes, to_device
@@ -2349,10 +2365,10 @@ def step_profile(key, options, bodies, nc, files):
     opts = dict(options)
     step_spec = s2d_stem_train(spec, 416) if opts.pop("stem_s2d", False) else spec
     step = make_train_step(step_spec, get_anchors(files["anchors"]), head_grid_sizes(spec, 416),
-                           16, optimizer, **opts)
+                           batch, optimizer, **opts)
     state = [init_train_state(to_device(params, "cuda"), to_device(st, "cuda"), optimizer)]
-    images = torch.from_numpy(smoke_images(bodies, 16)).cuda()
-    labels = torch.from_numpy(seeded_labels(np.random.RandomState(1), 16, nc)).cuda()
+    images = torch.from_numpy(smoke_images(bodies, batch)).cuda()
+    labels = torch.from_numpy(seeded_labels(np.random.RandomState(1), batch, nc)).cuda()
 
     def one_step():
         state[0], _ = step(state[0], images, labels)
@@ -4136,6 +4152,145 @@ def phase_spatial(inference_app, serve_app, evaluate_app, nms_kernel, round_swee
     return row, total
 
 
+# --- phase 26: the training-quality recipe (tools/train_convergence.py) ---
+
+CONVERGENCE_DIR = os.path.join(ROOT, "build", "smoke_convergence")
+# the recipe's corpus at the phase's size (tools/make_toy_dataset.py through
+# train_convergence.ensure_dataset): seed 11, max_overlap 0.15, 416²
+CONVERGENCE_CORPUS = dict(n_train=1024, n_val=128, image_size=416, seed=11, max_overlap=0.15)
+CONVERGENCE_BATCH = 64
+CONVERGENCE_EPOCHS = 120
+# sha256 of that corpus as the same generator wrote it on a CPU host with PIL
+# 12.1.0: every file (path and digest, sorted by path, one line each), and the
+# two TFRecord files that hold every JPEG
+CORPUS_PIL = "12.1.0"
+CORPUS_SHA256 = dict(
+    all_files="0c6603ffda1cf85ca5304cf7a4110bd23909cee7a7466688899b3f56c2f9ce88",
+    train="854138775b3e23a360a0f0820f92ab80d09512b6ab018c758494ddbf425b0941",
+    val="8e1ea02f1bc65ba0e48b339e93a4f7985d30b9e9453e2885bcbcffddd0be9b54")
+MAP_FLOOR = 0.2  # far above the 20-step checkpoint's 0.0135 and any untrained model
+INT8_GATE = 0.01  # tools/int8_accuracy_gate.py's bound
+
+
+def corpus_sha256(root):
+    """The digests of ``CORPUS_SHA256`` for the corpus under ``root``."""
+    import hashlib
+
+    lines = []
+    for path in sorted(glob.glob(f"{root}/**/*", recursive=True)):
+        if os.path.isfile(path):
+            with open(path, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            lines.append(f"{os.path.relpath(path, root)} {digest}\n")
+    split = {line.split()[0]: line.split()[1] for line in lines}
+    return dict(all_files=hashlib.sha256("".join(lines).encode()).hexdigest(),
+                train=split["tfrecords/train/file_00.tfrec"],
+                val=split["tfrecords/val/file_00.tfrec"])
+
+
+def phase_convergence(nms_kernel, conv1x1, conv_int8, bn_stats, bodies, smi,
+                      epochs=CONVERGENCE_EPOCHS):
+    """Phase 26: the port's training-quality recipe
+    (``yolov3_tpu_torch.tools.train_convergence``) in this process at full
+    width: YOLOv3-tiny at 416², a corpus generated into
+    ``build/smoke_convergence/`` (``CONVERGENCE_CORPUS``, its digests held
+    against the CPU host's as a finding), B=64, ``mixed_precision``,
+    ``device_dataset`` uint8, cosine LR, ``epochs`` epochs; then
+    ``evaluate_map50`` of the checkpoint in bf16, ``int8`` and
+    ``int8_chain``. K5's launches (each way) are counted over the training
+    run, K1's, K3's and K6's over the three evaluations, each set to 0 just
+    before. Fails unless the last epoch's train loss is below half the
+    first's, bf16 mAP@0.5 >= 0.2, each int8 tier within 0.01 of bf16, no
+    served (bf16) w/h logit above log(FLT_MAX), and K1, K3, K5 (both ways)
+    and K6 launched. Beside it one step of the same model and batch alone:
+    ms, device-busy ms and launches (profiler), as phase 20 measures them."""
+    import shutil
+
+    import PIL
+
+    from yolov3_tpu_torch.data.tfrecord import parse_tfrecords
+    from yolov3_tpu_torch.tools import train_convergence as tc
+
+    data_root = os.path.join(CONVERGENCE_DIR, "shapes_conv416")
+    out_dir = os.path.join(CONVERGENCE_DIR, "yolov3_tiny")
+    shutil.rmtree(CONVERGENCE_DIR, ignore_errors=True)
+    c = CONVERGENCE_CORPUS
+    t0 = time.monotonic()
+    tc.ensure_dataset(data_root, c["n_train"], c["n_val"], c["image_size"], c["seed"],
+                      c["max_overlap"])
+    corpus_s = time.monotonic() - t0
+    digests = corpus_sha256(data_root)
+    corpus = dict(seconds=corpus_s, pil_here=PIL.__version__, pil_of_the_digests=CORPUS_PIL,
+                  identical={k: digests[k] == CORPUS_SHA256[k] for k in digests})
+    log(f"convergence corpus {json.dumps(corpus)}")
+
+    bn_stats.bn_sums.launches = bn_stats.bn_moments_dx.launches = 0
+    result = tc.main(["--model", "yolov3_tiny", "--image_size", str(c["image_size"]),
+                      "--n_train", str(c["n_train"]), "--n_val", str(c["n_val"]),
+                      "--seed", str(c["seed"]), "--max_overlap", str(c["max_overlap"]),
+                      "--batch_size", str(CONVERGENCE_BATCH), "--epochs", str(epochs),
+                      "--data_root", data_root, "--out_dir", out_dir, "--skip_eval"])
+    torch.cuda.synchronize()
+    k5 = dict(forward=bn_stats.bn_sums.launches, backward=bn_stats.bn_moments_dx.launches)
+
+    model = os.path.join(ROOT, "config/models/yolov3_tiny/model.yaml")
+    ckpt = os.path.join(out_dir, "yolov3_tiny.tf")
+    nms_kernel.suppression_sweep.launches = 0
+    conv1x1.conv1x1_int8_requant.launches = conv_int8.conv_int8.launches = 0
+    maps, eval_s = {}, {}
+    for tier in (None, "int8", "int8_chain"):
+        t0 = time.monotonic()
+        r = tc.evaluate_map50(model, ckpt, data_root, c["image_size"], quantize=tier)
+        eval_s[tier or "bf16"] = time.monotonic() - t0
+        maps[tier or "bf16"] = r["map50"]
+        if r["val_images"] != c["n_val"]:
+            raise AssertionError(f"convergence: evaluated {r['val_images']} images")
+    launches = dict(nms_sweep=nms_kernel.suppression_sweep.launches,
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant.launches,
+                    conv_int8=conv_int8.conv_int8.launches, bn_stats=k5)
+
+    files = dict(model=model, names=os.path.join(data_root, "class.names"),
+                 anchors=os.path.join(data_root, "anchors", "anchors_tiny.txt"))
+    val_images = torch.from_numpy(np.stack([im for im, _ in itertools.islice(parse_tfrecords(
+        os.path.join(data_root, "tfrecords", "val"), c["image_size"], 100, files["names"]),
+        16)]).astype(np.float32))
+    overflow = served_head_overflow(files, ckpt, val_images, torch.bfloat16)
+    step = step_profile("yolov3_tiny B=64 bf16", {"compute_dtype": torch.bfloat16}, bodies, 3,
+                        files, batch=CONVERGENCE_BATCH)
+
+    train, val = result["train_loss"], result["val_loss"]
+    steps = epochs * (c["n_train"] // CONVERGENCE_BATCH)
+    row = dict(model="yolov3_tiny", image_size=c["image_size"], batch=CONVERGENCE_BATCH,
+               corpus=dict(corpus, n_train=c["n_train"], n_val=c["n_val"]), epochs=epochs,
+               steps=steps, wall_seconds=result["wall_seconds"],
+               trained_img_per_s=epochs * c["n_train"] / result["wall_seconds"],
+               last_epoch_img_per_s=result["img_per_sec"][epochs],
+               host_peak_rss_gb=result["host_peak_rss_gb"],
+               train_loss=dict(first=train[1], last=train[epochs]),
+               val_loss=dict(first=val[1], last=val[epochs]),
+               map50=maps, eval_seconds=eval_s, launches=launches,
+               served_wh_logit_max=overflow["largest_wh_logit"],
+               served_overflow=overflow["heads"], step=step, card=smi)
+    log(f"convergence {json.dumps(row)}")
+    failures = []
+    if not train[epochs] < 0.5 * train[1]:
+        failures.append(f"last train loss {train[epochs]} not below half the first {train[1]}")
+    if not maps["bf16"] >= MAP_FLOOR:
+        failures.append(f"bf16 mAP@0.5 {maps['bf16']} below {MAP_FLOOR}")
+    for tier in ("int8", "int8_chain"):
+        if abs(maps[tier] - maps["bf16"]) > INT8_GATE:
+            failures.append(f"{tier} mAP@0.5 {maps[tier]} not within {INT8_GATE} of bf16 "
+                            f"{maps['bf16']}")
+    if overflow["largest_wh_logit"] > EXP_F32_LIMIT:
+        failures.append(f"served w/h logit {overflow['largest_wh_logit']} above {EXP_F32_LIMIT}")
+    if min(launches["nms_sweep"], launches["conv1x1_int8"], launches["conv_int8"],
+           k5["forward"], k5["backward"]) == 0:
+        failures.append(f"a kernel did not launch: {launches}")
+    if failures:
+        raise AssertionError("convergence: " + "; ".join(failures))
+    return row, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -4290,6 +4445,16 @@ def main() -> int:
         launches[name] += count
     k5_launches[1] += spatial_row["b_training"]["k5_launches"]["backward"]
 
+    # the training-quality recipe: K5 counted over its training run, K1, K3
+    # and K6 over its three evaluations, each set to 0 just before
+    torch.cuda.empty_cache()
+    convergence_row, convergence_launches = timed("convergence", phase_convergence, nms_kernel,
+                                                  conv1x1, conv_int8, bn_stats, bodies, smi)
+    launches["bn_stats"] += convergence_launches["bn_stats"]["forward"]
+    k5_launches[1] += convergence_launches["bn_stats"]["backward"]
+    for name in ("nms_sweep", "conv1x1_int8", "conv_int8"):
+        launches[name] += convergence_launches[name]
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -4338,7 +4503,8 @@ def main() -> int:
                     "inference": infer_row, "offline_launches": offline,
                     "train_extras": extras, "convert": convert_row,
                     "recalibrate": recal_row, "artifact": artifact_row,
-                    "data_parallel": dp_row, "spatial": spatial_row, "card": smi}))
+                    "data_parallel": dp_row, "spatial": spatial_row,
+                    "convergence": convergence_row, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -94,6 +94,22 @@ def test_cuda_sweep_raises_above_its_bound(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_matrix_bound_override_above_k1_raises(cuda_device, monkeypatch):
+    """A ``YOLOV3_NMS_MATRIX_MAX_K`` above K1's bound sends such a K to the
+    matrix branch, where K1 raises: ``yolo_nms`` never falls back to the
+    plain sweep on the card."""
+    from yolov3_tpu_torch.ops import nms
+
+    monkeypatch.setattr(nms, "_MATRIX_SWEEP_MAX_K", 2048)
+    boxes, scores = _boxes_case(5, 1, 2000)
+    boxes_t = torch.from_numpy(boxes).to(cuda_device)
+    conf = torch.from_numpy(scores).to(cuda_device)[..., None]
+    probs = torch.ones((1, 2000, 1), device=cuda_device)
+    with pytest.raises(ValueError, match="YOLOV3_NMS_MATRIX_MAX_K"):
+        nms.yolo_nms(boxes_t, conf, probs, num_candidates=nms_kernel.MAX_SWEEP_K + 200)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,max_boxes,score_t", [(10647, 100, 0.004), (22743, 100, 0.3),
                                                  (777, 50, 0.0)])
 def test_cuda_round_sweep_equals_plain(cuda_device, n, max_boxes, score_t):

@@ -73,7 +73,8 @@ def _sweep_cuda(suppress_mat, valid):
         raise ValueError(f"suppression_sweep: shapes {tuple(suppress_mat.shape)}, "
                          f"{tuple(valid.shape)}")
     if k > MAX_SWEEP_K:
-        raise ValueError(f"suppression_sweep: K={k} exceeds {MAX_SWEEP_K}")
+        raise ValueError(f"suppression_sweep: K={k} exceeds the {MAX_SWEEP_K} the kernel takes "
+                         "(a YOLOV3_NMS_MATRIX_MAX_K above it sends such K to this kernel)")
     if valid.device != suppress_mat.device:
         raise ValueError("suppression_sweep: inputs on different devices")
     if suppress_mat.dtype != torch.bool or valid.dtype != torch.bool:

@@ -20,6 +20,8 @@ The device decides the sweep: on a CUDA tensor the hand-written kernels
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .cuda.nms_kernel import suppression_sweep
@@ -32,7 +34,9 @@ DEFAULT_NUM_CANDIDATES = 512
 # device time from K = 1,024 on (0.44 against 1.06 ms) and about the same at
 # 512 (0.44 against 0.46), and less host time at every K measured. K1 takes
 # K <= 1,300 (ops/cuda/nms_kernel.py); the JAX package's TPU bound was 4,096.
-_MATRIX_SWEEP_MAX_K = 512
+# YOLOV3_NMS_MATRIX_MAX_K overrides it, as in the JAX package; on the card a
+# matrix branch above K1's 1,300 raises when K1 is called.
+_MATRIX_SWEEP_MAX_K = int(os.environ.get("YOLOV3_NMS_MATRIX_MAX_K", 512))
 
 
 def _pairwise_iou(boxes):
