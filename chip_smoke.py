@@ -207,7 +207,31 @@ Phases (any failure exits non-zero):
      bf16 step alone (ms, device-busy ms, launches); fails unless the last
      train loss is below half the first, bf16 mAP@0.5 >= 0.2, each int8 tier
      within 0.01 of bf16, no served w/h logit above 88.72, and the four
-     kernels launched.
+     kernels launched;
+ 27. the custom-dataset transfer recipe (``python -m
+     yolov3_tpu_torch.tools.pets_transfer``, in this process; outputs under
+     ``build/smoke_transfer/``): YOLOv3 at 416² from phase 21's converted
+     80-class checkpoint (converted here if phase 21 left none) onto the 38
+     classes of the bundled pets_mini (48 + 16 photos, COCO JSON), B=8,
+     bf16, the splits staged as uint8, mosaic + HSV, ``--freeze config``
+     (backbone frozen, BN frozen in backbone and neck) with early stopping,
+     then a short ``--freeze none``, each ending in the int8 gate: seconds,
+     trained img/s, launches, best val loss, both mAPs; fails unless the
+     backbone's params and the backbone's and neck's BN statistics are
+     byte-identical to the source and the neck moved, K5's forward launches
+     are the unfrozen BN layers × steps (all BN layers × steps under
+     ``none``), every loss is finite and falls, the checkpoint's val loss
+     recomputed on the card is the best epoch's after an early stop, the
+     gate carries ``gate_pass``, and K1, K3 and K6 launched;
+ 28. the custom-dataset tools (outputs under ``build/smoke_tools/``):
+     ``create_tfrecords`` of pets_mini's train split and
+     ``create_yolov3_anchors`` over it (numpy's k-means), their sha256
+     against a CPU host's; ``visualize_assignment`` of
+     ``train_config_pets.yaml`` on the card and on the CPU, cubes bit-equal;
+     ``scale_matrix`` over phase 15's fp32 YOLOv3-416 checkpoint and phase
+     22's recalibration of it at 320, 416 and 608 on corpora
+     ``make_toy_dataset`` generates (K1 counted), every cell filled; one
+     full-width YOLOv3 predict at 608², B=16, bf16, timed.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -4291,6 +4315,388 @@ def phase_convergence(nms_kernel, conv1x1, conv_int8, bn_stats, bodies, smi,
     return row, launches
 
 
+
+# --- phase 27: the custom-dataset transfer recipe (tools/pets_transfer.py) ---
+
+TRANSFER_DIR = os.path.join(ROOT, "build", "smoke_transfer")
+PETS_TRAIN = os.path.join(ROOT, "datasets", "pets_mini", "train")
+TRANSFER_BATCH = 8
+TRANSFER_EPOCHS = 40  # --freeze config
+TRANSFER_PATIENCE = 4
+TRANSFER_NONE_EPOCHS = 3  # --freeze none
+
+
+def bn_layers(spec, frozen=()):
+    """BatchNorm layers of ``spec`` outside the sub-models whose names
+    contain a selector of ``frozen`` (``batch_norm_freeze_list``)."""
+    return sum(1 for sm in spec.sub_models if not any(s in sm.name for s in frozen)
+               for layer in sm.layers
+               if layer.kind == "convolutional" and layer["batch_normalize"])
+
+
+def checkpoint_leaves(ckpt):
+    from yolov3_tpu_torch.io.checkpoint import _flatten, load_checkpoint
+
+    return _flatten(load_checkpoint(ckpt + ".npz")[0])
+
+
+def darknet_backbone():
+    """Phase 21's converted YOLOv3-416 (80 classes) checkpoint; where phase 21
+    left none, the same synthetic ``yolov3.weights`` converted here."""
+    ckpt = os.path.join(CONVERT_DIR, "yolov3_converted.tf")
+    if os.path.exists(ckpt + ".npz"):
+        return ckpt, "phase 21"
+    from yolov3_tpu_torch.config import read_class_names
+    from yolov3_tpu_torch.io.darknet import load_darknet_weights, save_darknet_weights
+    from yolov3_tpu_torch.io.resolve import save_weights
+    from yolov3_tpu_torch.models import init_model, parse_model_config
+    from yolov3_tpu_torch.tree import tree_map
+
+    spec = parse_model_config(os.path.join(ROOT, "config/models/yolov3/model.yaml"),
+                              len(read_class_names(os.path.join(ROOT,
+                                                                "datasets/coco2012/coco.names"))))
+    params, state = init_model(spec, torch.Generator().manual_seed(0))
+    weights = os.path.join(TRANSFER_DIR, "yolov3.weights")
+    save_darknet_weights(spec, params, tree_map(lambda v: v + 0.25, state), weights)
+    params, state = load_darknet_weights(spec, weights)
+    ckpt = os.path.join(TRANSFER_DIR, "yolov3_converted.tf")
+    save_weights(spec, params, state, ckpt)
+    return ckpt, "converted in phase 27"
+
+
+def checkpoint_val_loss(cfg, ckpt):
+    """The trainer's validation loss of ``ckpt`` on the card: its val split
+    staged as ``cfg`` stages it, its eval step (fp32, BN frozen as ``cfg``
+    freezes it), the mean over the batches."""
+    from yolov3_tpu_torch.config import get_anchors, read_class_names
+    from yolov3_tpu_torch.data.pipeline import DeviceDataset, create_dataset
+    from yolov3_tpu_torch.io.resolve import load_weights
+    from yolov3_tpu_torch.models import init_model, parse_model_config
+    from yolov3_tpu_torch.models.network import head_grid_sizes, to_device
+    from yolov3_tpu_torch.models.transfer import bn_frozen_selectors
+    from yolov3_tpu_torch.parallel.train_step import make_eval_step
+
+    spec = parse_model_config(cfg["model_config_file"],
+                              len(read_class_names(cfg["classes_name_file"])))
+    params, state = load_weights(spec, *init_model(spec, torch.Generator().manual_seed(0)), ckpt)
+    (_, ds_val), _ = create_dataset(cfg["dataset_config"], cfg["image_size"], cfg["max_bboxes"],
+                                    cfg["classes_name_file"], cfg["max_dataset_examples"])
+    val = DeviceDataset(ds_val, cfg["batch_size"], "cuda", store_uint8=True)
+    step = make_eval_step(spec, get_anchors(cfg["anchors_file"]),
+                          head_grid_sizes(spec, cfg["image_size"]), cfg["batch_size"],
+                          bn_frozen=bn_frozen_selectors(
+                              cfg["transfer_learning_config"]["batch_norm_freeze_list"]))
+    params, state = to_device(params, "cuda"), to_device(state, "cuda")
+    return float(np.mean([float(step(params, state, im, lb)["total_loss"])
+                          for im, lb in val.batches(None)]))
+
+
+def transfer_run(pets_transfer, wrappers, bn_stats, out_dir, *args):
+    """One ``pets_transfer.main`` in this process, every count set to 0 just
+    before it and read just after → (result, seconds, launches, the
+    trainer's per-epoch (steps, seconds))."""
+    import re
+
+    for w in wrappers.values():
+        w.launches = 0
+    bn_stats.bn_sums.launches = bn_stats.bn_moments_dx.launches = 0
+    lines = _LogLines()
+    trainer_log = logging.getLogger("yolov3_tpu_torch.apps.train_app")
+    trainer_log.addHandler(lines)
+    t0 = time.monotonic()
+    try:
+        result = pets_transfer.main(["--batch_size", str(TRANSFER_BATCH), "--out_dir", out_dir,
+                                     "--eval_max_images", "16", *args])
+        torch.cuda.synchronize()
+    finally:
+        trainer_log.removeHandler(lines)
+    seconds = time.monotonic() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["bn_stats"] = dict(forward=bn_stats.bn_sums.launches,
+                                backward=bn_stats.bn_moments_dx.launches)
+    epochs = [(int(m.group(2)), float(m.group(3))) for m in
+              (re.search(r"epoch (\d+): (\d+) steps in ([\d.]+)s", ln)
+               for ln in lines.lines) if m]
+    return result, seconds, launches, epochs, lines.lines
+
+
+def phase_transfer(nms_kernel, conv1x1, conv_int8, bn_stats, smi):
+    """Phase 27: the custom-dataset transfer recipe
+    (``yolov3_tpu_torch.tools.pets_transfer``) in this process, outputs under
+    ``build/smoke_transfer/``: YOLOv3 at 416² from phase 21's converted
+    80-class checkpoint onto the 38 classes of the bundled ``pets_mini`` (48 +
+    16 photos of mixed sizes, COCO JSON), B=8, bf16, the splits staged as
+    uint8, mosaic + HSV, cosine LR. ``--freeze config`` for ``TRANSFER_EPOCHS``
+    epochs with early-stopping patience ``TRANSFER_PATIENCE``, then
+    ``--freeze none`` for ``TRANSFER_NONE_EPOCHS``; each ends in the int8
+    gate over the val split. Every count is set to 0 just before each run.
+    Fails unless: the backbone's params and the backbone's and neck's BN
+    statistics are byte-identical to the source and the neck's params moved
+    (config); K5's forward launches are the BN layers outside the frozen
+    sub-models × steps (config) and all BN layers × steps (none); every loss
+    is finite and the last train loss is below the first; the run stopped
+    early and its checkpoint's val loss, recomputed on the card, is the best
+    epoch's; the gate's result carries ``gate_pass``; K1, K3 and K6 launched."""
+    import shutil
+
+    from yolov3_tpu_torch.config import read_class_names
+    from yolov3_tpu_torch.models import parse_model_config
+    from yolov3_tpu_torch.tools import pets_transfer
+
+    shutil.rmtree(TRANSFER_DIR, ignore_errors=True)
+    os.makedirs(TRANSFER_DIR)
+    backbone, source = darknet_backbone()
+    spec = parse_model_config(os.path.join(ROOT, "config/models/yolov3/model.yaml"),
+                              len(read_class_names(os.path.join(ROOT,
+                                                                "datasets/pets_breed.names"))))
+    wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant, conv_int8=conv_int8.conv_int8)
+    frozen = ("backbone", "neck")  # train_config_pets.yaml's batch_norm_freeze_list
+    runs, failures = {}, []
+    for mode, epochs, extra in (("config", TRANSFER_EPOCHS, ["--patience",
+                                                             str(TRANSFER_PATIENCE)]),
+                                ("none", TRANSFER_NONE_EPOCHS, ["--freeze", "none"])):
+        out_dir = os.path.join(TRANSFER_DIR, mode)
+        result, seconds, launches, per_epoch, lines = transfer_run(
+            pets_transfer, wrappers, bn_stats, out_dir, "--backbone_ckpt", backbone,
+            "--epochs", str(epochs), *extra)
+        train, val = result["train_loss"], result["val_loss"]
+        steps = sum(n for n, _ in per_epoch)
+        expected_k5 = bn_layers(spec, frozen if mode == "config" else ()) * steps
+        gate = result["int8_gate"]
+        run = dict(seconds=seconds, epochs=len(train), steps=steps,
+                   trained_img_per_s=steps * TRANSFER_BATCH / sum(s for _, s in per_epoch),
+                   train_loss=dict(first=train[1], last=train[max(train)]),
+                   val_loss=dict(first=val[1], last=val[max(val)], best=min(val.values()),
+                                 best_epoch=min(val, key=val.get)),
+                   launches=launches, k5_forward_expected=expected_k5,
+                   gate={k: gate.get(k) for k in ("images", "map50_bf16", "map50_int8",
+                                                  "map50_delta", "gate_pass")})
+        ckpt = os.path.join(out_dir, "yolov3_pets.tf")
+        if launches["bn_stats"]["forward"] != expected_k5:
+            failures.append(f"{mode}: K5 forward {launches['bn_stats']['forward']} launches, "
+                            f"expected {expected_k5}")
+        if not all(np.isfinite(v) for series in (train, val) for v in series.values()):
+            failures.append(f"{mode}: a loss is not finite")
+        if not train[max(train)] < train[1]:
+            failures.append(f"{mode}: last train loss {train[max(train)]} not below the first")
+        if "gate_pass" not in gate or min(launches[k] for k in wrappers) == 0:
+            failures.append(f"{mode}: gate {gate} with launches {launches}")
+        if mode == "config":
+            src, got = checkpoint_leaves(backbone), checkpoint_leaves(ckpt)
+            kept = [k for k in got if k.split("/")[1] == "backbone"
+                    or (k.startswith("bn_state/") and k.split("/")[1].startswith("neck"))]
+            neck = [k for k in got
+                    if k.startswith("params/") and k.split("/")[1].startswith("neck")]
+            run.update(frozen_leaves=len(kept),
+                       frozen_byte_identical=all(got[k].tobytes() == src[k].tobytes()
+                                                 for k in kept),
+                       neck_params_moved=sum(got[k].tobytes() != src[k].tobytes() for k in neck),
+                       neck_params=len(neck),
+                       stopped_early=any(ln.startswith("early stopping at epoch")
+                                         for ln in lines))
+            cwd = os.getcwd()
+            os.chdir(ROOT)  # the config's paths are the repo's
+            try:
+                run["checkpoint_val_loss"] = checkpoint_val_loss(result["config"], ckpt)
+            finally:
+                os.chdir(cwd)
+            best = run["val_loss"]["best"]
+            if not (run["frozen_byte_identical"] and len(kept) > 100
+                    and run["neck_params_moved"] > 0):
+                failures.append(f"config: frozen leaves {run}")
+            if not (run["stopped_early"]
+                    and abs(run["checkpoint_val_loss"] - best) <= 1e-4 * abs(best) + 5e-5):
+                failures.append(f"config: stopped early {run['stopped_early']}, checkpoint val "
+                                f"loss {run['checkpoint_val_loss']} against the best {best}")
+        runs[mode] = run
+        log(f"transfer --freeze {mode} {json.dumps(run)}")
+    row = dict(model="yolov3", image_size=416, batch=TRANSFER_BATCH, backbone=source,
+               bn_layers=dict(all=bn_layers(spec), unfrozen=bn_layers(spec, frozen)),
+               runs=runs, card=smi)
+    if failures:
+        raise AssertionError("transfer: " + "; ".join(failures))
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in wrappers}
+    launches["bn_stats"] = {d: sum(r["launches"]["bn_stats"][d] for r in runs.values())
+                            for d in ("forward", "backward")}
+    return row, launches
+
+
+# --- phase 28: the custom-dataset host and eval tools ---
+
+TOOLS_DIR = os.path.join(ROOT, "build", "smoke_tools")
+PETS_SHARD = 16  # examples a shard: 48 training photos, three shards
+PETS_ANCHORS = 9
+# sha256 of create_tfrecords' output for pets_mini's train split (shards of 16,
+# with --names_out) and of the anchors file create_yolov3_anchors clusters from
+# it (numpy's k-means: sklearn blocked), as written on a CPU host (numpy 2.0.2)
+TOOLS_NUMPY = "2.0.2"
+TOOLS_SHA256 = {
+    "pets_train/class.names": "511b1b6f26e677cf63ec11239a7273e3d517a265608bbccad8de10ee0723fedc",
+    "pets_train/file_00.tfrec": "a26c5842c2c8c9fc5f36101500ee1fe38f68fe618ce8a29631a7ed832c148a88",
+    "pets_train/file_01.tfrec": "35467d413f95f128e5c6d1e9c9eb297a6c31e9cf8dff76725eacac207f50d489",
+    "pets_train/file_02.tfrec": "78de7426bf6fba9fc0fdd77b74abcb650b010f87bfdf84cb92cf069fd25796dc",
+    "anchors/pets_anchors.txt": "e4cff296b7f50f2d1ddd077a7030236ec8e0ce98788fd8e5987a0f192f29ecb8",
+}
+SCALE_CORPUS = dict(n_train=8, n_val=32, seed=11, max_overlap=0.15)
+
+
+def sha256_of(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def dataset_tool_files(out_dir):
+    """``create_tfrecords`` of pets_mini's train split into ``out_dir``, then
+    ``create_yolov3_anchors`` over those records, run from ``out_dir`` on a
+    config whose paths are relative to it → {file: sha256}, the anchors."""
+    import yaml
+
+    from yolov3_tpu_torch.tools import create_tfrecords, create_yolov3_anchors
+
+    records = os.path.join(out_dir, "pets_train")
+    create_tfrecords.main(["--images_dir", PETS_TRAIN,
+                           "--annotations", os.path.join(PETS_TRAIN, "_annotations.coco.json"),
+                           "--out_dir", records, "--shard_size", str(PETS_SHARD),
+                           "--names_out", os.path.join(records, "class.names")])
+    with open(os.path.join(out_dir, "anchors_config.yaml"), "w") as f:
+        yaml.safe_dump({"n_clusters": PETS_ANCHORS, "input_data_source": "tfrecords",
+                        "tfrecords": {"tfrecords_dir": "pets_train"}, "limit": "None",
+                        "anchors_out_file": "anchors/pets_anchors.txt"}, f)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        anchors = create_yolov3_anchors.main(["--config", "anchors_config.yaml"])
+    finally:
+        os.chdir(cwd)
+    files = sorted(glob.glob(os.path.join(records, "*"))) + [
+        os.path.join(out_dir, "anchors", "pets_anchors.txt")]
+    return {os.path.relpath(p, out_dir): sha256_of(p) for p in files}, anchors
+
+
+def phase_dataset_tools(nms_kernel, smi):
+    """Phase 28: the custom-dataset tools, outputs under ``build/smoke_tools/``:
+    (a) ``create_tfrecords`` of pets_mini's train split and
+    ``create_yolov3_anchors`` over its records (numpy's k-means where sklearn
+    is absent, as on the card's host), their sha256 against a CPU host's
+    (``TOOLS_SHA256``, a finding); (b) ``visualize_assignment`` of
+    ``train_config_pets.yaml`` (YOLOv3's three heads at 416) on the card and
+    with ``--device cpu`` (its ``assignment`` alone where the host has no
+    matplotlib to render with): the cubes bit-equal; (c) ``scale_matrix`` with its
+    variants pointed at phase 15's fp32 YOLOv3-416 checkpoint and phase 22's
+    recalibration of it, its 416 and 608 corpora generated by
+    ``make_toy_dataset`` (``SCALE_CORPUS``), K1 counted over it: every cell
+    filled; (d) one full-width YOLOv3 predict at 608², B=16, bf16, timed.
+    Fails unless the shards and the ``.names`` file are the CPU host's bytes
+    (the anchors' digest is a finding: numpy's float order may differ), (b)
+    is bit-equal, every (c) cell holds a number and K1 launched."""
+    import importlib.util
+    import shutil
+
+    import yaml
+
+    from yolov3_tpu_torch.config import load_yaml
+    from yolov3_tpu_torch.tools import scale_matrix, train_convergence, visualize_assignment
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    t0 = time.monotonic()
+    digests, anchors = dataset_tool_files(TOOLS_DIR)
+    files = dict(seconds=time.monotonic() - t0, numpy_here=np.__version__,
+                 numpy_of_the_digests=TOOLS_NUMPY,
+                 kmeans="sklearn" if importlib.util.find_spec("sklearn") else "numpy",
+                 identical={k: v == TOOLS_SHA256.get(k) for k, v in digests.items()},
+                 anchors=anchors.tolist())
+
+    config = os.path.join(TOOLS_DIR, "pets_assign.yaml")
+    pets = load_yaml(os.path.join(ROOT, "config/train_config_pets.yaml"))
+    with open(config, "w") as f:
+        yaml.safe_dump(pets, f)
+    # the tool renders through matplotlib, which a host may lack: there its
+    # assignment alone runs, on each device
+    rendered = importlib.util.find_spec("matplotlib") is not None
+    cubes, assign_s = {}, {}
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the config's paths are the repo's
+    try:
+        for dev in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            if rendered:
+                cubes[dev] = visualize_assignment.main(
+                    ["--config", config, "--out", os.path.join(TOOLS_DIR, f"assign_{dev}.png")]
+                    + (["--device", "cpu"] if dev == "cpu" else []))
+            else:
+                cubes[dev] = visualize_assignment.assignment(pets, torch.device(dev))[1]
+            assign_s[dev] = time.monotonic() - t0
+    finally:
+        os.chdir(cwd)
+    assignment = dict(seconds=assign_s, rendered=rendered,
+                      grids=[c.shape[0] for c in cubes["cuda"]],
+                      assigned=[int((c[..., 4] == 1).sum()) for c in cubes["cuda"]],
+                      bit_equal=all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                                    for a, b in zip(cubes["cuda"], cubes["cpu"])))
+
+    corpora = {}
+    for size in (416, 608):
+        corpora[size] = os.path.join(TOOLS_DIR, f"shapes_conv{size}")
+        c = SCALE_CORPUS
+        train_convergence.ensure_dataset(corpora[size], c["n_train"], c["n_val"], size,
+                                         c["seed"], c["max_overlap"])
+    variants = {"phase15_fp32": os.path.join(ROOT, "build", "smoke_train", "fp32",
+                                             "yolov3_toy.tf"),
+                "phase15_fp32_recal416": os.path.join(CONVERT_DIR, "yolov3_toy_recal_cuda.tf")}
+    evals = {"320": (corpora[608], 320), "416": (corpora[416], 416), "608": (corpora[608], 608)}
+    nms_kernel.suppression_sweep.launches = 0
+    t0 = time.monotonic()
+    out = scale_matrix.main(["--out", os.path.join(TOOLS_DIR, "scale_matrix.json")],
+                            variants=variants, evals=evals)
+    torch.cuda.synchronize()
+    matrix = dict(seconds=time.monotonic() - t0, rows=out["rows"],
+                  k1_launches=nms_kernel.suppression_sweep.launches)
+    cells = [row.get(f"map50_at_{col}") for row in out["rows"].values() for col in evals]
+    predict_608 = time_predict_608(variants["phase15_fp32"], corpora[608])
+
+    row = dict(files=files, assignment=assignment, scale_matrix=matrix, predict_608=predict_608,
+               card=smi)
+    log(f"dataset tools {json.dumps(row)}")
+    records = [k for k in digests if k.startswith("pets_train/")]
+    if not (all(files["identical"][k] for k in records) and len(records) == 4
+            and assignment["bit_equal"] and sum(assignment["assigned"]) > 0
+            and len(cells) == 6 and all(isinstance(v, float) and np.isfinite(v) for v in cells)
+            and matrix["k1_launches"] > 0):
+        raise AssertionError(f"dataset tools failed their checks: {row}")
+    return row, {"nms_sweep": matrix["k1_launches"]}
+
+
+def time_predict_608(ckpt, corpus, batch=16):
+    """YOLOv3 (3 classes, ``ckpt``) served in bf16 at 608², B=16, on the
+    corpus's first val images: device ms a call (CUDA events) and host ms a
+    call ending in a synchronize."""
+    from yolov3_tpu_torch.apps.inference_app import make_predictor
+    from yolov3_tpu_torch.config import get_anchors
+    from yolov3_tpu_torch.data.tfrecord import parse_tfrecords
+    from yolov3_tpu_torch.io.resolve import load_weights
+    from yolov3_tpu_torch.models import init_model, parse_model_config
+
+    spec = parse_model_config(os.path.join(ROOT, "config/models/yolov3/model.yaml"), 3)
+    params, state = load_weights(spec, *init_model(spec, torch.Generator().manual_seed(0)), ckpt)
+    predict = make_predictor(spec, params, state,
+                             get_anchors(os.path.join(corpus, "anchors", "anchors.txt")), 3, 100,
+                             0.5, 0.01, device="cuda", compute_dtype=torch.bfloat16)
+    images = np.stack([im for im, _ in itertools.islice(parse_tfrecords(
+        os.path.join(corpus, "tfrecords", "val"), 608, 100,
+        os.path.join(corpus, "class.names")), batch)]).astype(np.float32)
+    ms = cuda_ms(lambda: predict(images), 5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        predict(images)
+    torch.cuda.synchronize()
+    return dict(batch=batch, image_size=608, compute_dtype="bfloat16", device_event_ms=ms,
+                host_ms=(time.perf_counter() - t0) * 1e3 / 5)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -4455,6 +4861,19 @@ def main() -> int:
     for name in ("nms_sweep", "conv1x1_int8", "conv_int8"):
         launches[name] += convergence_launches[name]
 
+    # the custom-dataset workflow: K5 (each way), K1, K3 and K6 counted over
+    # each transfer run, K1 over the scale matrix, each set to 0 just before
+    torch.cuda.empty_cache()
+    transfer_row, transfer_launches = timed("transfer", phase_transfer, nms_kernel, conv1x1,
+                                            conv_int8, bn_stats, smi)
+    launches["bn_stats"] += transfer_launches["bn_stats"]["forward"]
+    k5_launches[1] += transfer_launches["bn_stats"]["backward"]
+    for name in ("nms_sweep", "conv1x1_int8", "conv_int8"):
+        launches[name] += transfer_launches[name]
+    torch.cuda.empty_cache()
+    tools_row, tools_launches = timed("dataset tools", phase_dataset_tools, nms_kernel, smi)
+    launches["nms_sweep"] += tools_launches["nms_sweep"]
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -4504,7 +4923,8 @@ def main() -> int:
                     "train_extras": extras, "convert": convert_row,
                     "recalibrate": recal_row, "artifact": artifact_row,
                     "data_parallel": dp_row, "spatial": spatial_row,
-                    "convergence": convergence_row, "card": smi}))
+                    "convergence": convergence_row, "transfer": transfer_row,
+                    "dataset_tools": tools_row, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

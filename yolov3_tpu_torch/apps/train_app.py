@@ -53,7 +53,7 @@ from ..io.checkpoint import checkpoint_keys, load_train_state, save_train_state
 from ..io.resolve import load_weights, native_path, save_weights
 from ..models import init_model, parse_model_config
 from ..models.network import head_grid_sizes, to_device
-from ..models.transfer import bn_frozen_selectors, do_transfer_learning
+from ..models.transfer import bn_frozen_selectors, do_transfer_learning, expand_transfer_list
 from ..models.transfer import trainable_mask as make_trainable_mask
 from ..ops.image import resize_antialiased
 from ..ops.s2d import s2d_stem_train
@@ -328,6 +328,12 @@ class Train:
                 def load_fn(output_stage):
                     ref_spec = spec.with_output_stage(output_stage)
                     rp, rs = init_model(ref_spec, torch.Generator().manual_seed(0))
+                    # only the sub-models that transfer are read: a source of
+                    # another class count (other head shapes) loads, as in the
+                    # JAX package, whose load takes a leaf of any shape
+                    keep = expand_transfer_list([output_stage])
+                    rp, rs = ({k: v for k, v in t.items() if any(s in k for s in keep)}
+                              for t in (rp, rs))
                     return load_weights(ref_spec, rp, rs, tlc["input_weights_path"])
 
                 params, bn_state, trainable_mask, bn_frozen = do_transfer_learning(

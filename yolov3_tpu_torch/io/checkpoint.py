@@ -198,7 +198,7 @@ def load_tf_keras_checkpoint(spec, params, state, prefix: str):
     loaded = 0
     for keras_path, kind, sm_name, layer_key, leaf in _weighted_layer_paths(spec):
         full = keras_path + suffix
-        if full not in var_map:
+        if full not in var_map or sm_name not in params:  # a sub-model the caller left out
             continue
         value = reader.get_tensor(full)
         if kind == "kernel":
