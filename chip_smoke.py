@@ -21,7 +21,7 @@ Phases (any failure exits non-zero):
   5. serve YOLOv3-416 (Darknet-53, 3 heads, 80 COCO classes, seeded
      weights) through build_serving_predictor + DetectionApp, buckets
      [1, 4, 16], fp32 and bf16, encoded images from 48 closed-loop client
-     threads (3 s warm-up, then a 10 s measured window per tier), then
+     threads (2 s warm-up, then a 5 s measured window per tier), then
      yolo_nms_exact at threshold 0.004 on one served batch's heads;
      both kernels' launch counters must rise over this run; then the same
      exact NMS escalating by jumping to K = N against doubling, in turns;
@@ -61,7 +61,7 @@ Phases (any failure exits non-zero):
      K4 against its plain version (bit-equal), at B=16, 1 and 4; at B=16
      each stage both ways in turns (event-loop ms and device ms), one K4
      block's device µs, the plan;
- 11. serve the ``int8`` tier for a 10 s window as in 5; K3 and K6 must
+ 11. serve the ``int8`` tier for a 5 s window as in 5; K3 and K6 must
      launch while serving;
  12. trained YOLOv3-tiny, ``int8_chain``: detections on the card against
      the CPU on the same quantized params (held as in 6), and against the
@@ -83,9 +83,9 @@ Phases (any failure exits non-zero):
      twice as far from it as the CPU; see the phase's docstring); K5 must
      launch 72 times forward and 72 times backward;
  15. the trainer through ``Train``: YOLOv3-416, B=16, shapes_toy TFRecords,
-     Adam, EMA, 10 epochs (20 steps) in fp32 and again with
+     Adam, EMA, 5 epochs (10 steps) in fp32 and again with
      ``mixed_precision``: finite falling loss, K5 launches 72 × steps each
-     way, the three checkpoint files, a resumed eleventh epoch, the serving
+     way, the three checkpoint files, a resumed sixth epoch, the serving
      predictor answering from the trained checkpoint; ms per step, img/s,
      peak memory, device launches per step (72 + 72 of them K5's) and K5's
      share of a step's device time;
@@ -232,6 +232,20 @@ Phases (any failure exits non-zero):
      22's recalibration of it at 320, 416 and 608 on corpora
      ``make_toy_dataset`` generates (K1 counted), every cell filled; one
      full-width YOLOv3 predict at 608², B=16, bf16, timed.
+ 29. the measurement tools (``yolov3_tpu_torch/tools/``, each through its
+     ``main(argv)``; each tool's printing under ``build/smoke_measure/``):
+     ``bench`` in ``int8``, ``int8_chain`` and ``bf16`` (YOLOv3-416, B=128, 8
+     batches a pass), ``latency_bench`` in ``int8`` and bf16 (B=1, 50
+     chained predicts, 5 reps), ``profile_inference`` (B=128, 4 batches),
+     ``mfu_table`` in ``int8_chain`` and ``bf16`` (B=128), ``profile_eval``
+     (B=32, 608², K=512 and K=N), ``profile_train --trace`` at B=16 in bf16
+     and fp32, ``bench_resblock`` at 13², 26² and 52² (B=128),
+     ``bench_input_pipeline`` on phase 26's corpus at B=64 against phase
+     26's trained img/s, and ``multihost_smoke`` as two gloo ranks sharing
+     the card (``--multihost-smoke``); every count set to 0 just before each
+     tool: fails unless each launches the kernels it runs (K1 to K6 among
+     them), no ``mfu_table`` share is above 100%, and the ranks' losses are
+     one.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -260,10 +274,10 @@ INT8_OPS_PER_S = 1979e12   # H100 SXM int8 tensor cores, dense
 IOU_THR = 0.5
 # serving: closed-loop clients, a warm-up then a measured window per tier
 SERVE_CLIENTS = 48
-SERVE_WARM_S = 3.0
-SERVE_WINDOW_S = {"fp32": 10.0, "bf16": 10.0, "int8": 10.0,
+SERVE_WARM_S = 2.0
+SERVE_WINDOW_S = {"fp32": 5.0, "bf16": 5.0, "int8": 5.0,
                   # phase 23: the int8_chain tier from its model keys and from its artifact
-                  "int8_chain": 4.0, "artifact int8_chain": 4.0}
+                  "int8_chain": 2.0, "artifact int8_chain": 2.0}
 # an image may differ end to end between card and CPU only where a
 # decision of greedy NMS sits within this margin of flipping
 NEAR_TIE = 1e-5
@@ -1593,10 +1607,13 @@ class _LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+TRAINER_EPOCHS = 5  # phase 15: 2 steps an epoch
+
+
 def phase_trainer(inference_app, bn_stats, bodies, smi):
     """The trainer through ``Train`` on the card: YOLOv3 (full Darknet-53) at
     416², B=16, the shapes_toy TFRecords (32 training images: 2 steps an
-    epoch), Adam at 1e-3, EMA, 10 epochs, once in fp32 and once with
+    epoch), Adam at 1e-3, EMA, ``TRAINER_EPOCHS`` epochs, once in fp32 and once with
     ``mixed_precision``; then one more epoch with ``resume``; then the serving
     predictor on the trained checkpoint."""
     import re
@@ -1621,7 +1638,8 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
             config = dict(
                 model_config_file=files["model"], image_size=416, batch_size=16,
                 max_bboxes=100, debug_mode=False, anchors_file=files["anchors"],
-                learning_rate=0.001, early_stop_patience=13, epochs=10, training_mode="fit",
+                learning_rate=0.001, early_stop_patience=13, epochs=TRAINER_EPOCHS,
+                training_mode="fit",
                 render_dataset_example=False, max_dataset_examples=None,
                 transfer_learning_config={"transfer_list": ["none"]},
                 dataset_config={"input_data_source": "tfrecords",
@@ -1650,7 +1668,7 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
 
             # a second call with resume and one more epoch
             handler.lines.clear()
-            Train()(**dict(config, resume=True, epochs=11))
+            Train()(**dict(config, resume=True, epochs=TRAINER_EPOCHS + 1))
             resumed = [ln for ln in handler.lines if "resumed full train state" in ln]
             resumed_epochs = re.findall(r"epoch (\d+): train_loss", "\n".join(handler.lines))
 
@@ -1660,7 +1678,7 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                 nms_score_threshold=0.1, compute_precision="bf16" if mixed else None)
             boxes, _, scores, selected, num_valid = predictor(smoke_images(bodies, 16))
             torch.cuda.synchronize()
-            # 20 steps at BatchNorm momentum 0.99 leave the running statistics
+            # 10 steps at BatchNorm momentum 0.99 leave the running statistics
             # near their initial values, so the served heads are far off and
             # exp(wh) may overflow: held are the answer's shapes and its scores
             served_ok = (tuple(selected.shape) == (16, 100) and len(names) == 3
@@ -1711,7 +1729,8 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                              k5_device_launches=k5_device_launches,
                              host_enqueue_ms=host_ms, top=[[n[:60], ms] for n, ms in top])
             del state, train_state, predictor
-            row = dict(tier=tier, card=smi, epochs=10, steps=steps, batch=16, image_size=416,
+            row = dict(tier=tier, card=smi, epochs=TRAINER_EPOCHS, steps=steps, batch=16,
+                       image_size=416,
                        train_loss_first=losses[0] if losses else None,
                        train_loss_last=losses[-1] if losses else None, train_losses=losses,
                        val_loss_first=val[0] if val else None,
@@ -1725,11 +1744,11 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                        served_detections=int(num_valid.sum()), served_boxes_finite=boxes_finite,
                        served_head_overflow=overflow, profile=share)
             log(f"trainer YOLOv3-416 {json.dumps(row)}")
-            ok = (len(losses) == 10 and len(val) == 10 and all(np.isfinite(losses + val))
-                  and losses[-1] < losses[0] and steps == 20 and step_count == 20
+            ok = (len(losses) == len(val) == TRAINER_EPOCHS and all(np.isfinite(losses + val))
+                  and losses[-1] < losses[0] and steps == step_count == 2 * TRAINER_EPOCHS
                   and launches == [72 * steps, 72 * steps] and all(written)
-                  and len(resumed) == 1 and "at epoch 11" in resumed[0]
-                  and resumed_epochs == ["11"] and served_ok)
+                  and len(resumed) == 1 and f"at epoch {TRAINER_EPOCHS + 1}" in resumed[0]
+                  and resumed_epochs == [str(TRAINER_EPOCHS + 1)] and served_ok)
             if isinstance(share, dict) and share["k5_device_launches"] != 144:
                 ok = False  # one launch forward and one backward for each of the 72 layers
             if not ok:
@@ -4697,6 +4716,187 @@ def time_predict_608(ckpt, corpus, batch=16):
                 host_ms=(time.perf_counter() - t0) * 1e3 / 5)
 
 
+
+# --- phase 29: the measurement tools (yolov3_tpu_torch/tools/) ---
+
+MEASURE_DIR = os.path.join(ROOT, "build", "smoke_measure")
+# the kernels each tool must launch in its run (the counts set to 0 just before)
+K1, K2, K3, K4, K5, K6 = ("nms_sweep", "round_sweep", "conv1x1_int8", "resblock_int8",
+                          "bn_stats", "conv_int8")
+
+
+def kernel_counts():
+    """Every wrapper's launch count: K1–K4, K6 and K5 (forward, backward, and
+    the synced launches each way)."""
+    from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock, round_sweep
+
+    return dict({K1: nms_kernel.suppression_sweep.launches, K2: round_sweep.round_sweep.launches,
+                 K3: conv1x1.conv1x1_int8_requant.launches, K4: resblock.fused_resblock.launches,
+                 K6: conv_int8.conv_int8.launches},
+                **{f"{K5}_{k}": v for k, v in k5_counts().items()})
+
+
+def reset_kernel_counts():
+    from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock, round_sweep
+
+    nms_kernel.suppression_sweep.launches = round_sweep.round_sweep.launches = 0
+    conv1x1.conv1x1_int8_requant.launches = resblock.fused_resblock.launches = 0
+    conv_int8.conv_int8.launches = 0
+    reset_k5_counts()
+
+
+def multihost_rank(*argv):
+    """A rank of phase 29's ``multihost_smoke`` (``--multihost-smoke``): the
+    tool's ``main`` in this process, then its K5 counts as the last line."""
+    from yolov3_tpu_torch.tools import multihost_smoke
+
+    reset_kernel_counts()
+    result = multihost_smoke.main(list(argv))
+    torch.cuda.synchronize()
+    print(json.dumps(dict(result, launches=kernel_counts())), flush=True)
+    return 0
+
+
+def multihost_ranks(world=2):
+    """``multihost_smoke`` as ``world`` gloo ranks sharing the card, each a
+    process of its own → their rows (the MULTIHOST_OK line, the counts)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-smoke",
+                               "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+                               str(world), "--process_id", str(rank), "--backend", "gloo"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for rank in range(world)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rows = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost_smoke rank {rank} failed (rc {p.returncode}): "
+                                 f"{err[-3000:]}")
+        lines = out.strip().splitlines()
+        rows.append(dict(json.loads(lines[-1]),
+                         line=next(ln for ln in lines if ln.startswith("MULTIHOST_OK"))))
+    return rows
+
+
+def phase_measurement_tools(convergence_row, smi):
+    """Phase 29: every measurement tool of ``yolov3_tpu_torch/tools/`` through
+    its ``main(argv)`` on the card at full width (YOLOv3-416, 80 classes,
+    seeded weights), each tool's printing under ``build/smoke_measure/``:
+    ``bench`` in ``int8``, ``int8_chain`` and ``bf16`` (B=128, 8 batches a
+    pass); ``latency_bench`` in ``int8`` (the chain tier) and bf16 (50
+    chained predicts, 5 reps); ``profile_inference`` (B=128, 4 batches);
+    ``mfu_table`` in ``int8_chain`` and ``bf16`` (B=128); ``profile_eval``
+    (B=32, 608², 2 batches, K=512 and K=N); ``profile_train --trace`` at B=16
+    in bf16 and fp32; ``bench_resblock`` at 13², 26², 52² (B=128);
+    ``bench_input_pipeline`` on phase 26's corpus at B=64 (1 and 8 workers,
+    192 images) against phase 26's trained img/s; ``multihost_smoke`` as two
+    gloo ranks sharing the card.
+    Every count is set to 0 just before each tool and read just after.
+    Fails unless each tool launches every kernel its row names, every
+    ``mfu_table`` share is at most 100%, and the two ranks print one loss
+    (each tool raises on a non-finite checksum or loss itself) → (the
+    phase's row, the launches summed over its tools)."""
+    import contextlib
+    import io
+    import shutil
+
+    from yolov3_tpu_torch.tools import (bench, bench_input_pipeline, bench_resblock,
+                                        latency_bench, mfu_table, profile_eval,
+                                        profile_inference, profile_train)
+
+    shutil.rmtree(MEASURE_DIR, ignore_errors=True)
+    os.makedirs(MEASURE_DIR)
+    corpus = os.path.join(CONVERGENCE_DIR, "shapes_conv416")
+    target = convergence_row["trained_img_per_s"]
+    runs = [
+        ("bench int8", (K1, K3, K6), lambda: bench.main(
+            [], env=dict(BENCH_QUANTIZE="int8", BENCH_ITERS="8"))),
+        ("bench int8_chain", (K1, K3, K4, K6), lambda: bench.main(
+            [], env=dict(BENCH_QUANTIZE="int8_chain", BENCH_ITERS="8"))),
+        ("bench bf16", (K1,), lambda: bench.main(
+            [], env=dict(BENCH_QUANTIZE="bf16", BENCH_ITERS="8"))),
+        ("latency_bench int8", (K1, K3, K4, K6), lambda: latency_bench.main(
+            ["--quantize", "int8", "--iters", "50", "--reps", "5"])),
+        ("latency_bench bf16", (K1,), lambda: latency_bench.main(
+            ["--iters", "50", "--reps", "5"])),
+        ("profile_inference", (K1,), lambda: profile_inference.main(["--iters", "4"])),
+        ("mfu_table int8_chain", (K3, K4, K6), lambda: mfu_table.main(
+            ["--quantize", "int8_chain", "--csv",
+             os.path.join(MEASURE_DIR, "mfu_int8_chain.csv")])),
+        ("mfu_table bf16", (), lambda: mfu_table.main(
+            ["--quantize", "bf16", "--csv", os.path.join(MEASURE_DIR, "mfu_bf16.csv")])),
+        ("profile_eval", (K1, K2), lambda: profile_eval.main(["--iters", "2"])),
+        ("profile_train bf16", (f"{K5}_forward", f"{K5}_backward"), lambda: profile_train.main(
+            ["--batch", "16", "--steps", "2", "--trace", "--top", "8", "--top_fusions", "4"])),
+        ("profile_train fp32", (f"{K5}_forward", f"{K5}_backward"), lambda: profile_train.main(
+            ["--batch", "16", "--steps", "2", "--trace", "--fp32", "--top", "8"])),
+        ("bench_resblock", (K3, K4, K6), lambda: bench_resblock.main(
+            ["--stages", "13,26,52"])),
+        ("bench_input_pipeline", (), lambda: bench_input_pipeline.main(
+            ["--data_root", corpus, "--batch", "64", "--workers", "1", "8",
+             "--max_images", "192", "--target", str(target)])),
+    ]
+    rows, totals, failures = {}, dict.fromkeys(kernel_counts(), 0), []
+    for name, expect, run in runs:
+        torch.cuda.empty_cache()
+        reset_kernel_counts()
+        printed = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(printed):
+            result = run()
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        counts = kernel_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        with open(os.path.join(MEASURE_DIR, name.replace(" ", "_") + ".txt"), "w") as f:
+            f.write(printed.getvalue())
+        missing = [k for k in expect if counts[k] == 0]
+        if missing:
+            failures.append(f"{name} launched none of {missing}")
+        if name.startswith("mfu_table"):
+            top = max([r["mfu_pct"] for r in result["rows"]]
+                      + [result["e2e_mfu_pct"], result["attributed_mfu_pct"]])
+            if top > 100.0:
+                failures.append(f"{name}: an MFU share above 100% ({top})")
+            result = dict(result, rows=result["rows"][:8])  # the slowest layers
+        rows[name] = dict(seconds=seconds, launches={k: v for k, v in counts.items() if v},
+                          result=result)
+        log(f"measurement tool {name}: {seconds:.1f} s {json.dumps(rows[name]['launches'])}")
+
+    t0 = time.monotonic()
+    ranks = multihost_ranks()
+    losses = {r["loss"] for r in ranks}
+    rows["multihost_smoke"] = dict(seconds=time.monotonic() - t0,
+                                   lines=[r["line"] for r in ranks],
+                                   launches=[{k: v for k, v in r["launches"].items() if v}
+                                             for r in ranks])
+    log(f"measurement tool multihost_smoke: {json.dumps(rows['multihost_smoke'])}")
+    for r in ranks:
+        for k, v in r["launches"].items():
+            totals[k] += v
+    if len(losses) != 1:
+        failures.append(f"multihost_smoke: the ranks' losses differ: {losses}")
+    if not all(r["launches"][f"{K5}_forward"] and r["launches"][f"{K5}_sync_forward"]
+               and r["launches"][f"{K5}_backward"] for r in ranks):
+        failures.append("multihost_smoke: a rank ran no synced K5")
+    row = dict(tools=rows, card=smi, launches=totals)
+    log(f"measurement tools {json.dumps(row)}")
+    if failures:
+        raise AssertionError("measurement tools: " + "; ".join(failures))
+    return row, totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -4706,6 +4906,8 @@ def main() -> int:
         return artifact_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase 24
         return dp_worker(*sys.argv[2:])
+    if sys.argv[1:2] == ["--multihost-smoke"]:  # a rank of phase 29's multihost_smoke
+        return multihost_rank(*sys.argv[2:])
     from yolov3_tpu_torch import models
     from yolov3_tpu_torch.apps import inference_app, serve_app
     from yolov3_tpu_torch.ops import decode
@@ -4874,6 +5076,16 @@ def main() -> int:
     tools_row, tools_launches = timed("dataset tools", phase_dataset_tools, nms_kernel, smi)
     launches["nms_sweep"] += tools_launches["nms_sweep"]
 
+    # the measurement tools: every count set to 0 just before each tool and
+    # read just after; multihost_smoke's ranks count their own
+    torch.cuda.empty_cache()
+    measure_row, measure_launches = timed("measurement tools", phase_measurement_tools,
+                                          convergence_row, smi)
+    for name in (K1, K2, K3, K4, K6):
+        launches[name] += measure_launches[name]
+    launches["bn_stats"] += measure_launches[f"{K5}_forward"]
+    k5_launches[1] += measure_launches[f"{K5}_backward"]
+
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
                    and r["memory"] == train_step_row.get("main_memory_format", "nchw"))
@@ -4924,7 +5136,8 @@ def main() -> int:
                     "recalibrate": recal_row, "artifact": artifact_row,
                     "data_parallel": dp_row, "spatial": spatial_row,
                     "convergence": convergence_row, "transfer": transfer_row,
-                    "dataset_tools": tools_row, "card": smi}))
+                    "dataset_tools": tools_row, "measurement_tools": measure_row,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -29,6 +29,12 @@ It computes the same bits. A forward with an observer runs every layer
 unfused, so the observer sees them all. ``pack_fused_stages`` computes the
 fused blocks' constant kernel arguments once, ahead of the forwards.
 
+Under a profiler every layer runs inside a range named as the JAX
+package's ``named_scope``, ``L|<sub-model>|<layer>|<kind>``, and a fused
+stage inside one range over the layers it replaces,
+``L|<sub-model>|layer<a>-layer<b>|resblock`` (``tools/mfu_table.py`` reads
+them); with no profiler running no range is entered.
+
 One interpreter serves the unsharded forward and the spatial split of
 image rows (``parallel/spatial.py``): every activation is a
 ``spatial.Bands``, the unsharded one a single band, and every layer runs
@@ -37,15 +43,29 @@ band by band, a windowed one on its band's rows with their halo rows.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 import torch.utils.checkpoint
+from torch.profiler import record_function
 
 from ..ops.cuda import resblock
 from ..parallel import spatial as sp
 from . import layers as L
 from .spec import LayerSpec, ModelSpec, SubModelSpec
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _layer_range(name: str):
+    """The profiler range of one layer, ``L|<sub-model>|<layer>|<kind>`` as
+    the JAX package's ``named_scope`` (``tools/mfu_table.py`` attributes
+    device time to layers by it), entered only while a profiler runs: with
+    none, a null context, so serving, ``torch.export`` and a train step run
+    the same ops as without it."""
+    return record_function(name) if torch.autograd._profiler_enabled() else _NO_RANGE
 
 
 def _deq(x, fp_dtype):
@@ -225,106 +245,110 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
         key = f"layer{i}"
         starts = fusable.get(i)
         if starts and all(isinstance(p, L.QAct) for p in x.parts if p is not None):
-            x = sp.fused_stage_bands(x, on, starts)
-            layer_outs.extend([None] * (starts[-1] + 2 - i) + [x])
+            last = starts[-1] + 2
+            with _layer_range(f"L|{sm.name}|{key}-layer{last}|resblock"):
+                x = sp.fused_stage_bands(x, on, starts)
+            layer_outs.extend([None] * (last - i) + [x])
             continue
-        if layer.kind == "convolutional":
-            p = sm_params[key]
-            if conv_observer is not None:
-                conv_observer(sm.name, key, _deq(x.parts[0], fp_dtype))
-            if conv_input_transform is not None and "kernel_q" not in p:
-                fp = [_deq(part, fp_dtype) for part in x.parts if part is not None]
-                done = conv_input_transform(sm.name, key, fp[0] if len(fp) == 1 else fp)
-                done = iter([done] if len(fp) == 1 else done)
-                x = x.with_parts([None if part is None else next(done) for part in x.parts])
-            stride, pad, explicit = layer["stride"], layer.get("pad", 1), layer.get("explicit_pad")
-            leaky = layer.get("activation") == "leaky"
-            if "kernel_q" in p:
-                k = p["kernel_q"].shape[1]
+        with _layer_range(f"L|{sm.name}|{key}|{layer.kind}"):
+            if layer.kind == "convolutional":
+                p = sm_params[key]
+                if conv_observer is not None:
+                    conv_observer(sm.name, key, _deq(x.parts[0], fp_dtype))
+                if conv_input_transform is not None and "kernel_q" not in p:
+                    fp = [_deq(part, fp_dtype) for part in x.parts if part is not None]
+                    done = conv_input_transform(sm.name, key, fp[0] if len(fp) == 1 else fp)
+                    done = iter([done] if len(fp) == 1 else done)
+                    x = x.with_parts([None if part is None else next(done) for part in x.parts])
+                stride, pad = layer["stride"], layer.get("pad", 1)
+                explicit = layer.get("explicit_pad")
+                leaky = layer.get("activation") == "leaky"
+                if "kernel_q" in p:
+                    k = p["kernel_q"].shape[1]
 
-                def conv_q(dev, xb, rows, key=key, stride=stride, pad=pad, explicit=explicit,
-                           leaky=leaky):
-                    fp_in = not isinstance(xb, L.QAct)
-                    if fp_in:
-                        xb = xb.permute(0, 2, 3, 1)  # NHWC; a view when channels-last
-                    y = L.conv2d_int8(xb, on(dev)[key], stride, pad, leaky=leaky,
-                                      fp_dtype=fp_dtype, explicit_pad=explicit, rows=rows)
-                    return y if isinstance(y, L.QAct) else y.permute(0, 3, 1, 2)
+                    def conv_q(dev, xb, rows, key=key, stride=stride, pad=pad, explicit=explicit,
+                               leaky=leaky):
+                        fp_in = not isinstance(xb, L.QAct)
+                        if fp_in:
+                            xb = xb.permute(0, 2, 3, 1)  # NHWC; a view when channels-last
+                        y = L.conv2d_int8(xb, on(dev)[key], stride, pad, leaky=leaky,
+                                          fp_dtype=fp_dtype, explicit_pad=explicit, rows=rows)
+                        return y if isinstance(y, L.QAct) else y.permute(0, 3, 1, 2)
 
-                x = sp.window(x, k, stride, L.conv_padding(k, stride, pad, explicit)[0], conv_q)
-            else:
-                # s2d_phase layers (ops/s2d.py::s2d_stem_train) carry the
-                # ORIGINAL 3×3 kernels; the phase kernel is built in the graph
-                s2d = layer.get("s2d_phase")
-                kernel = (L.s2d_phase_kernel_conv0(p["kernel"]) if s2d == "conv0"
-                          else L.s2d_phase_kernel_conv1(p["kernel"]) if s2d == "conv1"
-                          else p["kernel"])
-                k = kernel.shape[2]
-                x = sp.window(x, k, stride, L.conv_padding(k, stride, pad, explicit)[0],
-                              lambda dev, xb, rows, kernel=kernel, stride=stride, pad=pad,
-                              explicit=explicit: L.conv2d(
-                                  _deq(xb, fp_dtype), kernel.to(dev), stride, pad,
-                                  explicit_pad=explicit, rows=rows))
-                tail = functools.partial(
-                    _conv_tail, on=on, key=key, bn_state=sm_state.get(key), bn_train=bn_train,
-                    phases=4 if s2d == "conv0" else 1, stats_subsample=bn_stats_subsample,
-                    leaky=leaky, bn_group=bn_group)
-                if remat_tail and "bn" in p:
-                    x, layer_state = torch.utils.checkpoint.checkpoint(
-                        tail, x, use_reentrant=False, preserve_rng_state=False)
+                    x = sp.window(x, k, stride, L.conv_padding(k, stride, pad, explicit)[0], conv_q)
                 else:
-                    x, layer_state = tail(x)
-                if layer_state is not None and new_state is not None:
-                    new_state[key] = layer_state
-        elif layer.kind == "shortcut":
-            other = layer_outs[layer["from"]]
-            quantized = "out_scale" in sm_params.get(key, {})
+                    # s2d_phase layers (ops/s2d.py::s2d_stem_train) carry the
+                    # ORIGINAL 3×3 kernels; the phase kernel is built in the graph
+                    s2d = layer.get("s2d_phase")
+                    kernel = (L.s2d_phase_kernel_conv0(p["kernel"]) if s2d == "conv0"
+                              else L.s2d_phase_kernel_conv1(p["kernel"]) if s2d == "conv1"
+                              else p["kernel"])
+                    k = kernel.shape[2]
+                    x = sp.window(x, k, stride, L.conv_padding(k, stride, pad, explicit)[0],
+                                  lambda dev, xb, rows, kernel=kernel, stride=stride, pad=pad,
+                                  explicit=explicit: L.conv2d(
+                                      _deq(xb, fp_dtype), kernel.to(dev), stride, pad,
+                                      explicit_pad=explicit, rows=rows))
+                    tail = functools.partial(
+                        _conv_tail, on=on, key=key, bn_state=sm_state.get(key), bn_train=bn_train,
+                        phases=4 if s2d == "conv0" else 1, stats_subsample=bn_stats_subsample,
+                        leaky=leaky, bn_group=bn_group)
+                    if remat_tail and "bn" in p:
+                        x, layer_state = torch.utils.checkpoint.checkpoint(
+                            tail, x, use_reentrant=False, preserve_rng_state=False)
+                    else:
+                        x, layer_state = tail(x)
+                    if layer_state is not None and new_state is not None:
+                        new_state[key] = layer_state
+            elif layer.kind == "shortcut":
+                other = layer_outs[layer["from"]]
+                quantized = "out_scale" in sm_params.get(key, {})
 
-            def add(j, part, other=other, key=key, quantized=quantized):
-                o = other.parts[j]
-                if quantized and isinstance(part, L.QAct) and isinstance(o, L.QAct):
-                    return L.add_requant(o, part, on(x.devices[j])[key]["out_scale"])
-                return _deq(o, fp_dtype) + _deq(part, fp_dtype)
+                def add(j, part, other=other, key=key, quantized=quantized):
+                    o = other.parts[j]
+                    if quantized and isinstance(part, L.QAct) and isinstance(o, L.QAct):
+                        return L.add_requant(o, part, on(x.devices[j])[key]["out_scale"])
+                    return _deq(o, fp_dtype) + _deq(part, fp_dtype)
 
-            x = x.map(add)
-        elif layer.kind == "route":
-            x = _route_sources(layer, inputs_entry, layer_outs, fp_dtype)
-        elif layer.kind == "upsample":
-            s = layer["stride"]
-            x = x.map(lambda j, part, s=s: L.QAct(
-                part.q.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2), part.scale)
-                if isinstance(part, L.QAct) else L.upsample_nearest(part, s))
-        elif layer.kind == "maxpool":
-            size, stride, padding = (list(layer["size_xy"]), list(layer["stride_xy"]),
-                                     layer["padding"])
-            part = next(p for p in x.parts if p is not None)
-            width = part.q.shape[2] if isinstance(part, L.QAct) else part.shape[3]
-            if padding.lower() == "same":
-                pads = L._pool_same_pads((x.height, width), size, stride)
-            elif size[0] == stride[0] or len(x.parts) == 1:
-                pads = ((0, 0), (0, 0))
+                x = x.map(add)
+            elif layer.kind == "route":
+                x = _route_sources(layer, inputs_entry, layer_outs, fp_dtype)
+            elif layer.kind == "upsample":
+                s = layer["stride"]
+                x = x.map(lambda j, part, s=s: L.QAct(
+                    part.q.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2), part.scale)
+                    if isinstance(part, L.QAct) else L.upsample_nearest(part, s))
+            elif layer.kind == "maxpool":
+                size, stride, padding = (list(layer["size_xy"]), list(layer["stride_xy"]),
+                                         layer["padding"])
+                part = next(p for p in x.parts if p is not None)
+                width = part.q.shape[2] if isinstance(part, L.QAct) else part.shape[3]
+                if padding.lower() == "same":
+                    pads = L._pool_same_pads((x.height, width), size, stride)
+                elif size[0] == stride[0] or len(x.parts) == 1:
+                    pads = ((0, 0), (0, 0))
+                else:
+                    raise ValueError(f"spatial: a 'valid' max-pool of {size} at stride {stride} "
+                                     "does not split over bands")
+
+                def pool(dev, xb, rows, size=size, stride=stride, padding=padding, pads=pads):
+                    band_pads = (rows, pads[1])
+                    if isinstance(xb, L.QAct):
+                        return L.QAct(_pool_int8(xb.q, size, stride, padding, band_pads), xb.scale)
+                    return L.max_pool(xb, size, stride, padding, band_pads)
+
+                x = sp.window(x, size[0], stride[0], pads[0], pool)
+            elif layer.kind == "yolo":
+                # raw logits, no activation (reference parse_model.py:209-211);
+                # NHWC before the reshape keeps JAX's channel→(anchor, field) map
+                def head(j, part):
+                    part = _deq(part, fp_dtype)
+                    b, c, h, w = part.shape
+                    return part.permute(0, 2, 3, 1).reshape(b, h, w, 3, 5 + nclasses)
+
+                x = x.map(head, nhwc=True)
             else:
-                raise ValueError(f"spatial: a 'valid' max-pool of {size} at stride {stride} "
-                                 "does not split over bands")
-
-            def pool(dev, xb, rows, size=size, stride=stride, padding=padding, pads=pads):
-                band_pads = (rows, pads[1])
-                if isinstance(xb, L.QAct):
-                    return L.QAct(_pool_int8(xb.q, size, stride, padding, band_pads), xb.scale)
-                return L.max_pool(xb, size, stride, padding, band_pads)
-
-            x = sp.window(x, size[0], stride[0], pads[0], pool)
-        elif layer.kind == "yolo":
-            # raw logits, no activation (reference parse_model.py:209-211);
-            # NHWC before the reshape keeps JAX's channel→(anchor, field) map
-            def head(j, part):
-                part = _deq(part, fp_dtype)
-                b, c, h, w = part.shape
-                return part.permute(0, 2, 3, 1).reshape(b, h, w, 3, 5 + nclasses)
-
-            x = x.map(head, nhwc=True)
-        else:
-            raise ValueError(f"unknown layer kind {layer.kind}")
+                raise ValueError(f"unknown layer kind {layer.kind}")
         if out_observer is not None:
             out_observer(sm.name, key, _deq(x.parts[0], fp_dtype))
         layer_outs.append(x)

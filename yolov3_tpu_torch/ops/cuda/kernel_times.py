@@ -131,10 +131,19 @@ def _pad():
     torch.cuda.synchronize()
 
 
+def is_range_span(event) -> bool:
+    """Whether a device record is a profiler range's span on the device (a
+    ``record_function`` range, such as ``models/network.py``'s layer ranges
+    ``L|…``, shows on the device's timeline over the kernels it launched),
+    not a kernel: counting it would count those kernels twice."""
+    return bool(getattr(event, "is_user_annotation", False)) or event.name.startswith("L|")
+
+
 def profile_window(run):
     """``run()`` once under torch.profiler → (the profile, host ms of the call,
     [(start, kernel name, device µs), ...] of the device records it made, in
-    the order the device started them).
+    the order the device started them; ranges' device spans left out,
+    ``is_range_span``).
 
     The profiler on the H100 machine drops device records at a window's
     edges: the first few of a window, and, as its device clock drifts against
@@ -158,7 +167,8 @@ def profile_window(run):
             (e.time_range.start, e.name,
              getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0) or 0)
             for e in prof.events()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and not is_range_span(e))
         pads = [i for i, r in enumerate(records) if "spin_kernel" in r[1]]
         own = [i for i, r in enumerate(records) if "spin_kernel" not in r[1]]
         if own and pads and pads[0] < own[0] and pads[-1] > own[-1]:

@@ -44,7 +44,7 @@ import socket
 import torch
 import torch.distributed as dist
 
-from ..device import local_rank
+from ..device import local_rank, resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -234,8 +234,9 @@ class Mesh:
 
 def make_mesh(devices=None, axes: dict | None = None, spatial: int = 1) -> Mesh:
     """Build a mesh. Default: under an initialized process group, this
-    process's card (or the CPU) on every rank of the group; else every local
-    device of this process.
+    process's card (``device.resolve_device``) on every rank of the group;
+    else every card of this process. With no card the default raises: a CPU
+    caller passes ``devices=("cpu",)``.
 
     ``spatial`` > 1 (or a ``spatial`` entry in ``axes``) builds the (data ×
     spatial) mesh over this process's ``spatial_devices``: the spatial
@@ -247,11 +248,8 @@ def make_mesh(devices=None, axes: dict | None = None, spatial: int = 1) -> Mesh:
         spatial = int(axes.get(SPATIAL_AXIS, 1))
     spatial = int(spatial)
     if devices is None:
-        if group is not None:
-            devices = (torch.device("cuda", local_rank()) if torch.cuda.is_available()
-                       else torch.device("cpu"),)
-        else:
-            devices = local_devices("cuda" if torch.cuda.is_available() else "cpu")
+        card = resolve_device(None)  # raises without a card
+        devices = (card,) if group is not None else local_devices("cuda")
     devices = spatial_devices(devices, spatial)
     count = world * len(devices)
     if axes is None:
