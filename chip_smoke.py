@@ -83,7 +83,7 @@ Phases (any failure exits non-zero):
      twice as far from it as the CPU; see the phase's docstring); K5 must
      launch 72 times forward and 72 times backward;
  15. the trainer through ``Train``: YOLOv3-416, B=16, shapes_toy TFRecords,
-     Adam, EMA, 5 epochs (10 steps) in fp32 and again with
+     Adam, EMA, 3 epochs (6 steps) in fp32 and again with
      ``mixed_precision``: finite falling loss, K5 launches 72 × steps each
      way, the three checkpoint files, a resumed sixth epoch, the serving
      predictor answering from the trained checkpoint; ms per step, img/s,
@@ -122,7 +122,7 @@ Phases (any failure exits non-zero):
      every step, device_dataset uint8, bn_stats_subsample 2, remat conv,
      tensorboard, profile_trace_dir, mixed_precision; 3 epochs): finite
      losses, K5 launched (through the phase view too), the event and trace
-     files, both scales, the checkpoint served; each key alone for 2 epochs
+     files, both scales, the checkpoint served; each key alone for 1 epoch
      in fp32: ms a step, launches a step, K5's launches, peak memory
      (``remat`` false, true and conv among them); the port against itself
      on the CPU (augmentation's apply and gathered indices, QAT's integers)
@@ -244,8 +244,27 @@ Phases (any failure exits non-zero):
      26's trained img/s, and ``multihost_smoke`` as two gloo ranks sharing
      the card (``--multihost-smoke``); every count set to 0 just before each
      tool: fails unless each launches the kernels it runs (K1 to K6 among
-     them), no ``mfu_table`` share is above 100%, and the ranks' losses are
-     one.
+     them), no ``mfu_table`` share is above 100%, ``bench_input_pipeline``
+     decodes on the tier the native build gave, and the ranks' losses are
+     one;
+ 30. the browser port's path (outputs under ``build/smoke_browser/``), with
+     no TensorFlow: ``tools/export_tfjs.py`` exports phase 21's converted
+     YOLOv3-416 (80 classes) in float32 and uint8, each twice from one fold
+     (seconds, MB, the sha256 of model.json and of the shards; the second
+     export byte-identical to the first); ``export/tfjs_runtime.GraphModel``
+     runs each on the card, float32 heads within 1e-3 of the eager fp32
+     forward of the same checkpoint (of a head's largest |value|), B=1 ms of
+     both by CUDA events; ``tools/run_js_pipeline.py --compare`` drives
+     js/src/inference.js through the port's jsvm with ``GraphModelHost`` on
+     the card: the trained tiny on a shapes_toy val image (counts and classes
+     equal to the compare leg's, boxes and scores within 1e-5, or a near-tie
+     witness), and the float32 YOLOv3-416 export (the count equal to the
+     Python pipeline's, detections well-formed, no tensor left live), then
+     ``yolo_nms`` at K = N on its decoded boxes equal to ``yolo_nms_exact``;
+     K1 and K2, set to 0 just before, must both launch.
+Before phase 1, the native data-loader core (``native/``) is built once
+(``data/native_build.py``): its tier, make's return code, the compiler it
+found and the last lines of its stderr are printed on a line of their own.
 Output: a JSON line of every kernel, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Needs no network and one card; imports nothing of JAX.
@@ -1607,7 +1626,7 @@ class _LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-TRAINER_EPOCHS = 5  # phase 15: 2 steps an epoch
+TRAINER_EPOCHS = 3  # phase 15: 2 steps an epoch
 
 
 def phase_trainer(inference_app, bn_stats, bodies, smi):
@@ -1678,7 +1697,7 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                 nms_score_threshold=0.1, compute_precision="bf16" if mixed else None)
             boxes, _, scores, selected, num_valid = predictor(smoke_images(bodies, 16))
             torch.cuda.synchronize()
-            # 10 steps at BatchNorm momentum 0.99 leave the running statistics
+            # 6 steps at BatchNorm momentum 0.99 leave the running statistics
             # near their initial values, so the served heads are far off and
             # exp(wh) may overflow: held are the answer's shapes and its scores
             served_ok = (tuple(selected.shape) == (16, 100) and len(names) == 3
@@ -2602,16 +2621,16 @@ def phase_train_extras(inference_app, bn_stats, bodies, smi):
         all_keys_launches = row["k5_launches"]
         del state, predictor
 
-        # each key alone, 2 epochs, fp32: the trainer's run, then its step
+        # each key alone, 1 epoch, fp32: the trainer's run, then its step
         per_key = []
         for key, keys in PER_KEY.items():
-            _, _, row = counted_train(bn_stats, handler, extras_config(key, **keys))
+            _, _, row = counted_train(bn_stats, handler, extras_config(key, epochs=1, **keys))
             options = {STEP_OPTIONS[k]: v for k, v in keys.items() if k in STEP_OPTIONS}
             if key == "plain" or options:
                 row.update(step_profile(key, options, bodies, nc, files))
             row["key"] = key
             log(f"trainer extras per key {json.dumps(row)}")
-            if not (row["steps"] == 4 and all(np.isfinite(row["train_losses"]))
+            if not (row["steps"] == 2 and all(np.isfinite(row["train_losses"]))
                     and min(row["k5_launches"]) > 0):
                 raise AssertionError(f"the {key} run failed its checks: {row}")
             per_key.append(row)
@@ -4788,7 +4807,7 @@ def multihost_ranks(world=2):
     return rows
 
 
-def phase_measurement_tools(convergence_row, smi):
+def phase_measurement_tools(convergence_row, smi, decode_tier):
     """Phase 29: every measurement tool of ``yolov3_tpu_torch/tools/`` through
     its ``main(argv)`` on the card at full width (YOLOv3-416, 80 classes,
     seeded weights), each tool's printing under ``build/smoke_measure/``:
@@ -4803,7 +4822,8 @@ def phase_measurement_tools(convergence_row, smi):
     gloo ranks sharing the card.
     Every count is set to 0 just before each tool and read just after.
     Fails unless each tool launches every kernel its row names, every
-    ``mfu_table`` share is at most 100%, and the two ranks print one loss
+    ``mfu_table`` share is at most 100%, ``bench_input_pipeline`` decodes on
+    ``decode_tier`` (the native build's outcome), and the two ranks print one loss
     (each tool raises on a non-finite checksum or loss itself) → (the
     phase's row, the launches summed over its tools)."""
     import contextlib
@@ -4864,6 +4884,9 @@ def phase_measurement_tools(convergence_row, smi):
         missing = [k for k in expect if counts[k] == 0]
         if missing:
             failures.append(f"{name} launched none of {missing}")
+        if name == "bench_input_pipeline" and result["decode"] != decode_tier:
+            failures.append(f"{name} decoded on {result['decode']}, the build gave "
+                            f"{decode_tier}")
         if name.startswith("mfu_table"):
             top = max([r["mfu_pct"] for r in result["rows"]]
                       + [result["e2e_mfu_pct"], result["attributed_mfu_pct"]])
@@ -4897,6 +4920,238 @@ def phase_measurement_tools(convergence_row, smi):
     return row, totals
 
 
+# --- phase 30: the browser port's path (export, executor, jsvm) ---
+
+BROWSER_DIR = os.path.join(ROOT, "build", "smoke_browser")
+BROWSER_TOL = 1e-3  # executor heads against the eager fp32 forward, of a head's largest |value|
+
+
+def export_files(out_dir):
+    """An exported graph-model directory → (MB, digests): the sha256 of
+    model.json and of its shards, read in manifest order as one stream."""
+    import hashlib
+
+    with open(os.path.join(out_dir, "model.json")) as f:
+        paths = json.load(f)["weightsManifest"][0]["paths"]
+    shards = hashlib.sha256()
+    for p in paths:
+        with open(os.path.join(out_dir, p), "rb") as f:
+            shards.update(f.read())
+    names = os.listdir(out_dir)
+    return (sum(os.path.getsize(os.path.join(out_dir, n)) for n in names) / 1e6,
+            {"model.json": sha256_of(os.path.join(out_dir, "model.json")),
+             f"{len(paths)} shards": shards.hexdigest()})
+
+
+def timed_export(export_tfjs, model_file, ckpt, names, prebuilt, out_dir, quantize):
+    """One ``export_tfjs`` run into ``out_dir`` → (seconds, MB, digests)."""
+    import contextlib
+    import io
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_tfjs.export_tfjs_graph_model(model_file, ckpt, names, 416, out_dir,
+                                            prebuilt=prebuilt, quantize=quantize)
+    seconds = time.monotonic() - t0
+    return (seconds, *export_files(out_dir))
+
+
+def js_decoded(heads, anchors, nclasses):
+    """The browser port's own decode (js/src/decode.js through jsvm) of the
+    executor's heads → (boxes, scores) on the CPU, as nms.js scores them."""
+    from yolov3_tpu_torch.jsvm import Interpreter, TfShim
+
+    shim = TfShim()
+    interp = Interpreter({"tf": shim})
+    mod = interp.load_module(os.path.join(ROOT, "js", "src", "decode.js"))
+    out = interp.call(mod["decodeOutputs"], [shim.tensor(h.cpu().numpy()) for h in heads],
+                      np.asarray(anchors, np.float32).reshape(-1, 3, 2).tolist(),
+                      float(nclasses))
+    boxes = torch.from_numpy(out["boxes"]._np()[0])
+    scores = torch.from_numpy(out["confidence"]._np()[0, :, 0]
+                              * out["classProbs"]._np()[0].max(-1))
+    return boxes, scores
+
+
+def run_js(run_js_pipeline, *argv):
+    """``run_js_pipeline.main`` on the card with ``--compare`` → (its result,
+    its wall seconds, its printing)."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(printed):
+        result = run_js_pipeline.main(list(argv) + ["--compare"])
+    torch.cuda.synchronize()
+    return result, time.monotonic() - t0, printed.getvalue()
+
+
+def phase_browser(nms_mod, nms_kernel, round_sweep, smi):
+    """Phase 30: the browser port's path on the card, with no TensorFlow
+    (outputs under ``build/smoke_browser/``).
+
+    (a) ``tools/export_tfjs.py`` exports phase 21's converted YOLOv3-416 (80
+    classes; converted here where phase 21 left none) in float32 and uint8,
+    each twice from one fold: seconds, MB, the sha256 of model.json and of
+    every shard; the second export must equal the first byte for byte.
+    (b) ``export/tfjs_runtime.GraphModel`` runs the float32 export on the
+    card: each head within ``BROWSER_TOL`` of the eager fp32 forward of the
+    same checkpoint on the card (of the head's largest |value|), B=1 ms of
+    both by CUDA events; the uint8 export's heads against the same forward
+    (printed). (c) ``tools/run_js_pipeline.py --compare`` drives
+    js/src/inference.js through the port's jsvm, ``GraphModelHost`` on the
+    card: the trained YOLOv3-tiny (``checkpoints/output``, shapes_toy's
+    classes) on the first shapes_toy val image, counts and classes equal to
+    the compare leg's and boxes and scores within ``NEAR_TIE``, or a near-tie
+    witness (``near_tie_witness``, the JS side's own decode against the
+    compare leg's); then the float32 YOLOv3-416 export on the bundled
+    ``girl.png``: the structural contract of tests/test_js_execution.py (the
+    count equals the Python pipeline's, detections well-formed, no tensor
+    left live), and ``yolo_nms`` at K = N on the compare leg's decoded boxes
+    equal to its ``yolo_nms_exact``. K1 and K2 are set to 0 just before (c)
+    and read just after: each must have launched → (row, launches)."""
+    import shutil
+
+    from yolov3_tpu_torch.config import get_anchors, read_class_names
+    from yolov3_tpu_torch.data.tfrecord import iter_tfrecord_records, parse_example
+    from yolov3_tpu_torch.export import GraphModel
+    from yolov3_tpu_torch.io.resolve import load_weights
+    from yolov3_tpu_torch.models import apply_model, fold_batch_norm, init_model
+    from yolov3_tpu_torch.models.network import to_device
+    from yolov3_tpu_torch.tools import export_tfjs, run_js_pipeline
+
+    shutil.rmtree(BROWSER_DIR, ignore_errors=True)
+    os.makedirs(BROWSER_DIR)
+    os.makedirs(TRANSFER_DIR, exist_ok=True)
+    failures = []
+
+    # (a) the export, twice per format from one fold
+    ckpt, ckpt_source = darknet_backbone()
+    model_file = os.path.join(ROOT, "config/models/yolov3/model.yaml")
+    coco = os.path.join(ROOT, "datasets/coco2012/coco.names")
+    t0 = time.monotonic()
+    prebuilt = export_tfjs.load_folded_model(model_file, ckpt, coco)
+    fold_s = time.monotonic() - t0
+    exports = {}
+    for fmt, quantize in (("float32", None), ("uint8", "uint8")):
+        runs = [timed_export(export_tfjs, model_file, ckpt, coco, prebuilt,
+                             os.path.join(BROWSER_DIR, f"yolov3_{fmt}_{i}"), quantize)
+                for i in (1, 2)]
+        exports[fmt] = dict(seconds=[r[0] for r in runs], mb=runs[0][1], sha256=runs[0][2],
+                            identical=runs[0][2] == runs[1][2])
+        if not exports[fmt]["identical"]:
+            failures.append(f"the {fmt} export differs between two runs")
+    log(f"browser export ({ckpt_source} checkpoint, fold {fold_s:.2f} s) {json.dumps(exports)}")
+
+    # (b) the executor on the card against the eager forward
+    spec, _ = prebuilt
+    val = os.path.join(ROOT, "datasets/shapes_toy/tfrecords/val/file_00.tfrec")
+    val_jpg = os.path.join(BROWSER_DIR, "val_000.jpg")
+    with open(val_jpg, "wb") as f:
+        f.write(parse_example(next(iter_tfrecord_records(val)))["image/encoded"][0])
+    from yolov3_tpu_torch.data.image import decode_image, resize_bilinear
+
+    with open(val_jpg, "rb") as f:
+        x = resize_bilinear(decode_image(f.read()).astype(np.float32), 416, 416)[None] / 255.0
+    x = torch.from_numpy(x.astype(np.float32)).cuda()
+    params, state = load_weights(spec, *init_model(spec, torch.Generator().manual_seed(0)), ckpt)
+    folded = to_device(fold_batch_norm(params, state), "cuda")
+    executor_row = {}
+    with torch.inference_mode():
+        def eager():
+            return sorted(apply_model(spec, folded, {}, x), key=lambda o: o.shape[1])
+
+        want = eager()
+        for fmt in ("float32", "uint8"):
+            t0 = time.monotonic()
+            graph = GraphModel(os.path.join(BROWSER_DIR, f"yolov3_{fmt}_1"), device="cuda")
+            load_s = time.monotonic() - t0
+            got = graph(x)
+            rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+            executor_row[fmt] = dict(load_s=load_s, head_rel_err=rel,
+                                     shapes=[list(g.shape) for g in got],
+                                     finite=all(bool(torch.isfinite(g).all()) for g in got))
+            if fmt == "float32":
+                executor_row[fmt]["b1_ms"] = cuda_ms(lambda: graph(x), 20)
+                if max(rel) > BROWSER_TOL or [g.shape for g in got] != [w.shape for w in want]:
+                    failures.append(f"executor heads off the eager forward: {rel}")
+            elif not executor_row[fmt]["finite"]:
+                failures.append("the uint8 export's heads are not finite")
+            del graph
+        executor_row["eager_b1_ms"] = cuda_ms(eager, 20)
+    del folded, want
+    torch.cuda.empty_cache()
+    log(f"browser executor {json.dumps(executor_row)}")
+
+    # (c) the JS pipeline through jsvm, GraphModelHost on the card
+    tiny_dir = os.path.join(BROWSER_DIR, "tiny_float32")
+    toy_names = os.path.join(ROOT, "datasets/shapes_toy/class.names")
+    toy_anchors = os.path.join(ROOT, "datasets/shapes_toy/anchors/anchors_tiny.txt")
+    export_tfjs.main(["--model_config_file", os.path.join(ROOT, "config/models/yolov3_tiny/"
+                                                                "model.yaml"),
+                      "--weights_path", os.path.join(ROOT, "checkpoints/output/"
+                                                           "yolov3_train_tiny.tf"),
+                      "--classes_name_file", toy_names, "--tfjs_out_dir", tiny_dir])
+    nms_kernel.suppression_sweep.launches = round_sweep.round_sweep.launches = 0
+    tiny, tiny_s, tiny_out = run_js(run_js_pipeline, "--model_dir", tiny_dir, "--image", val_jpg,
+                                    "--classes", toy_names, "--anchors", toy_anchors)
+    full, full_s, full_out = run_js(run_js_pipeline, "--model_dir",
+                                    os.path.join(BROWSER_DIR, "yolov3_float32_1"))
+    py = full["python"]
+    with torch.inference_mode():
+        n = py["decoded"][0].shape[1]
+        exact = nms_mod.yolo_nms_exact(*py["decoded"])
+        at_n = nms_mod.yolo_nms(*py["decoded"], num_candidates=n)
+    torch.cuda.synchronize()
+    launches = dict(nms_sweep=nms_kernel.suppression_sweep.launches,
+                    round_sweep=round_sweep.round_sweep.launches)
+    with open(os.path.join(BROWSER_DIR, "run_js_pipeline.txt"), "w") as f:
+        f.write(tiny_out + full_out)
+
+    tiny_cmp = tiny["compare"]
+    witness = None
+    if not (tiny_cmp["classes_match"] and tiny_cmp["box_delta"] <= NEAR_TIE
+            and tiny_cmp["score_delta"] <= NEAR_TIE):
+        tpy = tiny["python"]
+        g_boxes, g_scores = js_decoded(tpy["heads"], get_anchors(toy_anchors),
+                                       len(read_class_names(toy_names)))
+        pb, pc, pp = (t[0].cpu() for t in tpy["decoded"])
+        witness = near_tie_witness(nms_mod, g_boxes, g_scores, pb,
+                                   pc[:, 0] * pp.max(-1).values,
+                                   dict(iou_threshold=0.5, score_threshold=0.1))
+        if witness["margin"] is None or witness["margin"] > NEAR_TIE:
+            failures.append(f"tiny: the JS detections differ from the compare leg's "
+                            f"without a near tie: {tiny_cmp} {witness}")
+    names = read_class_names(coco)
+    well_formed = all(len(d["box"]) == 4 and 0.1 < d["score"] <= 1.0
+                      and d["className"] in names for d in full["detections"])
+    same_at_n = all(torch.equal(a, b) for a, b in zip(exact[3:], at_n[3:]))
+    if full["compare"]["n_python"] != len(full["detections"]) or not well_formed:
+        failures.append(f"yolov3: the JS pipeline breaks its contract {full['compare']}")
+    if tiny["leaked_tensors"] or full["leaked_tensors"]:
+        failures.append("the browser port left tensors live")
+    if not same_at_n:
+        failures.append("yolo_nms at K = N differs from yolo_nms_exact")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        failures.append(f"the JS pipeline's compare legs launched none of {missing}")
+    row = dict(checkpoint=ckpt_source, fold_s=fold_s, exports=exports, executor=executor_row,
+               js_tiny=dict(seconds=tiny_s, detections=len(tiny["detections"]),
+                            compare=tiny_cmp, near_tie_witness=witness),
+               js_yolov3=dict(seconds=full_s, detections=len(full["detections"]),
+                              compare=full["compare"], n=n,
+                              detections_at_k_n=int(at_n[4][0]), same_at_k_n=same_at_n,
+                              leaked=full["leaked_tensors"]),
+               launches=launches, card=smi)
+    log(f"browser {json.dumps(row)}")
+    if failures:
+        raise AssertionError("browser: " + "; ".join(failures))
+    return row, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; this script runs the port on the card",
@@ -4914,6 +5169,14 @@ def main() -> int:
     from yolov3_tpu_torch.ops import nms as nms_mod
     from yolov3_tpu_torch.ops.cuda import (bn_stats, build, conv1x1, conv_int8, nms_kernel,
                                            resblock, round_sweep)
+
+    # the native data-loader core, built once before any phase decodes
+    import dataclasses
+
+    from yolov3_tpu_torch.data.native_build import ensure_native_library
+
+    native_build = ensure_native_library()
+    log(f"native build: {json.dumps(dataclasses.asdict(native_build))}")
 
     # phase 1 — card identity and the fp32 settings
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5080,11 +5343,19 @@ def main() -> int:
     # read just after; multihost_smoke's ranks count their own
     torch.cuda.empty_cache()
     measure_row, measure_launches = timed("measurement tools", phase_measurement_tools,
-                                          convergence_row, smi)
+                                          convergence_row, smi, native_build.tier)
     for name in (K1, K2, K3, K4, K6):
         launches[name] += measure_launches[name]
     launches["bn_stats"] += measure_launches[f"{K5}_forward"]
     k5_launches[1] += measure_launches[f"{K5}_backward"]
+
+    # the browser port: K1 and K2 counted over the JS pipeline's compare legs
+    # and the K = N run, set to 0 just before
+    torch.cuda.empty_cache()
+    browser_row, browser_launches = timed("browser", phase_browser, nms_mod, nms_kernel,
+                                          round_sweep, smi)
+    for name, count in browser_launches.items():
+        launches[name] += count
 
     k5_main = next(r for r in k5 if r["dtype"] == "float32" and r["shape"][1] == 32
                    and r["shape"][2] == 416
@@ -5137,6 +5408,7 @@ def main() -> int:
                     "data_parallel": dp_row, "spatial": spatial_row,
                     "convergence": convergence_row, "transfer": transfer_row,
                     "dataset_tools": tools_row, "measurement_tools": measure_row,
+                    "browser": browser_row, "native_build": dataclasses.asdict(native_build),
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,8 @@ import torch
 from yolov3_tpu.ops import assign as jassign
 from yolov3_tpu_torch.ops import assign as tassign
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 ANCHORS = np.array([[0.28, 0.22], [0.38, 0.48], [0.90, 0.78],
                     [0.07, 0.15], [0.15, 0.11], [0.14, 0.29],
                     [0.02, 0.03], [0.04, 0.07], [0.08, 0.06]], np.float32).reshape(3, 3, 2)

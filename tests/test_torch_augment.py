@@ -22,6 +22,8 @@ import torch
 from yolov3_tpu.ops.augment import augment_batch as jax_augment_batch
 from yolov3_tpu_torch.ops import augment as taug
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 B, H, W, M = 5, 32, 40, 6
 
 

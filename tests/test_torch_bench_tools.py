@@ -53,6 +53,7 @@ from yolov3_tpu_torch.tools import (bench, bench_resblock, latency_bench, mfu_ta
 
 from .conftest import REPO
 from .test_torch_layers_network import SYNTHETIC
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 TINY = os.path.join(REPO, "config/models/yolov3_tiny/model.yaml")
 YOLOV3 = os.path.join(REPO, "config/models/yolov3/model.yaml")

@@ -26,6 +26,8 @@ from yolov3_tpu.ops.pallas.bn_stats import bn_sums as jax_bn_sums
 from yolov3_tpu_torch.models import layers as tlayers
 from yolov3_tpu_torch.ops.cuda import bn_stats
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 SHAPES = [(4, 8, 8, 32), (2, 13, 13, 256), (8, 16, 16, 128), (1, 7, 7, 64), (3, 5, 7, 32),
           (2, 4, 4, 1024)]
 DTYPES = [("float32", jnp.float32, torch.float32), ("bfloat16", jnp.bfloat16, torch.bfloat16)]

@@ -40,6 +40,7 @@ from yolov3_tpu_torch.tree import tree_leaves, tree_map
 
 from .conftest import REPO
 from .test_torch_data import native_decode_tier
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 TINY = os.path.join(REPO, "config/models/yolov3_tiny/model.yaml")
 TRAINED_TINY = os.path.join(REPO, "checkpoints/output/yolov3_train_tiny.tf")

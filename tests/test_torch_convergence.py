@@ -48,6 +48,7 @@ from yolov3_tpu_torch.tree import tree_map
 
 from .conftest import REPO
 from .test_torch_data import native_decode_tier
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 SMALL = ["--n_train", "64", "--n_val", "16", "--image_size", "96", "--epochs", "2",
          "--batch_size", "8"]
@@ -64,21 +65,6 @@ def _files(root):
 def _read(path):
     with open(path, "rb") as f:
         return f.read()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads, here and in the tools' processes: the suite runs
-    several test processes on one host, and these tests train."""
-    threads, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
-    torch.set_num_threads(2)
-    os.environ["OMP_NUM_THREADS"] = "2"
-    yield
-    torch.set_num_threads(threads)
-    if env is None:
-        os.environ.pop("OMP_NUM_THREADS")
-    else:
-        os.environ["OMP_NUM_THREADS"] = env
 
 
 # --- the corpus generator ---

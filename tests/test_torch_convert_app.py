@@ -28,6 +28,7 @@ from yolov3_tpu_torch.apps import cli
 from yolov3_tpu_torch.io.checkpoint import _flatten, load_checkpoint
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 TINY = os.path.join(REPO, "config/models/yolov3_tiny/model.yaml")
 

@@ -32,6 +32,7 @@ from yolov3_tpu_torch.tree import tree_leaves
 
 from .conftest import REPO
 from .test_darknet_cfg import TINY_CFG
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 HEAD_TOL = 1e-4
 

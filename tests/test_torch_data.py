@@ -15,13 +15,12 @@ to one tier at a time. The library is gitignored and each package builds it
 lazily with ``make`` in place, which races when several test processes start
 at once: one process can open the file while another writes it and then
 stays on the Python tier. This module therefore builds it once at import
-(collection runs in every test process before any test starts) under a lock,
-into a temporary name that is renamed over the real one."""
+(collection runs in every test process before any test starts) with the port's
+``data/native_build.py::ensure_native_library``: under a lock, into a
+temporary name that is renamed over the real one."""
 
 import contextlib
-import fcntl
 import os
-import subprocess
 
 import jax
 import numpy as np
@@ -33,42 +32,17 @@ from yolov3_tpu.data import pipeline as jpipe
 from yolov3_tpu.models import transfer as jtransfer
 from yolov3_tpu_torch.data import native as tnative
 from yolov3_tpu_torch.data import pipeline as tpipe
+from yolov3_tpu_torch.data.native_build import ensure_native_library
 from yolov3_tpu_torch.models import transfer as ttransfer
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 NATIVE_DIR = os.path.join(REPO, "native")
 NATIVE_LIB = os.path.join(NATIVE_DIR, "libyolodata.so")
 
 
-def build_native_library():
-    """Build ``native/libyolodata.so`` if it is missing, with no process ever
-    seeing it half written: an exclusive ``flock`` on the source serialises
-    the processes that build it, ``make`` writes a name of this process's
-    own, and ``os.replace`` puts it in place in one step. A failed build leaves
-    nothing behind (the native tests then skip, as without a compiler)."""
-    if os.path.exists(NATIVE_LIB):
-        return
-    with open(os.path.join(NATIVE_DIR, "yolodata.cc"), "rb") as source:
-        fcntl.flock(source, fcntl.LOCK_EX)
-        try:
-            if os.path.exists(NATIVE_LIB):
-                return
-            tmp = f".libyolodata-{os.getpid()}.so"
-            try:
-                done = subprocess.run(["make", "-C", NATIVE_DIR, f"TARGET={tmp}"],
-                                      capture_output=True, timeout=300).returncode == 0
-            except (OSError, subprocess.TimeoutExpired):
-                done = False
-            if done:
-                os.replace(os.path.join(NATIVE_DIR, tmp), NATIVE_LIB)
-            elif os.path.exists(os.path.join(NATIVE_DIR, tmp)):
-                os.remove(os.path.join(NATIVE_DIR, tmp))
-        finally:
-            fcntl.flock(source, fcntl.LOCK_UN)
-
-
-build_native_library()
+ensure_native_library(NATIVE_DIR)
 
 NOTE = ("\n\nFramework-neutral copy of ``yolov3_tpu/data/{name}`` (host code in numpy; the port\n"
         "imports nothing of the JAX package). tests/test_torch_data.py pins it to its original.\n")
@@ -122,7 +96,7 @@ def native_decode_tier():
     and a whole ``Train`` run's epoch losses came out 1–2% apart (the JAX
     package's ``[58.964, 106.0662]`` on the Python tier against
     ``[60.1824, 107.0742]`` on the native one)."""
-    build_native_library()
+    ensure_native_library(NATIVE_DIR)
     with pytest.MonkeyPatch.context() as mp:
         for mod in (jnative, tnative):
             mp.setattr(mod, "_lib", None)

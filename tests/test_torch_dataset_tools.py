@@ -31,6 +31,7 @@ from yolov3_tpu_torch.tools import (create_tfrecords, create_yolov3_anchors, eva
                                     visualize_assignment)
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 UTILITIES = os.path.join(REPO, "utilities")
 TOOLS = ("create_tfrecords", "create_yolov3_anchors", "visualize_assignment", "pets_transfer",

@@ -11,6 +11,8 @@ import torch
 from yolov3_tpu.ops.decode import yolo_decode as jax_decode
 from yolov3_tpu_torch.ops.decode import yolo_decode
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 TOL = 1e-5
 
 

@@ -24,6 +24,7 @@ from yolov3_tpu.eval import detections_evaluator as jev
 from yolov3_tpu_torch.eval import detections_evaluator as tev
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 NCLASSES = 4
 

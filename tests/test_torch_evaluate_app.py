@@ -51,6 +51,7 @@ import chip_smoke
 
 from .conftest import REPO
 from .test_torch_data import native_decode_tier
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 MAX_IMAGES = 6
 NEAR_TIE = 1e-4

@@ -52,6 +52,7 @@ from yolov3_tpu_torch.models.convert import qparams_from_jax
 from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock, round_sweep
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 SIZE = 96
 NAMES = os.path.join(REPO, "datasets/shapes_toy/class.names")

@@ -52,6 +52,7 @@ from yolov3_tpu_torch.ops.nms import gather_detections, yolo_nms
 
 from .conftest import REPO, absolutize_run_config
 from .test_torch_data import native_decode_tier
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 SIZE = 128
 

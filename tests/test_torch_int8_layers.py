@@ -25,6 +25,8 @@ from yolov3_tpu_torch.models.convert import qparams_from_jax
 from yolov3_tpu_torch.ops.cuda import conv1x1 as TC
 from yolov3_tpu_torch.ops.cuda import resblock as TR
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))

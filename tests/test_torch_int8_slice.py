@@ -41,6 +41,7 @@ from yolov3_tpu_torch.parallel import spatial
 
 from .conftest import REPO
 from .test_torch_layers_network import SYNTHETIC, _random_bn
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 SIZE = 32
 ANCHORS = os.path.join(REPO, "datasets/shapes_toy/anchors/anchors_tiny.txt")

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from .conftest import REPO, has_tf
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 pytestmark = pytest.mark.skipif(not has_tf(), reason="tensorflow unavailable")
 

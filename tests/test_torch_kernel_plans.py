@@ -44,6 +44,8 @@ from yolov3_tpu_torch.models import network
 from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel, requant,
                                        resblock, round_sweep)
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ODD_BN_SHAPES = [(32, 5, 7), (3, 8, 8), (40, 9, 11), (1024, 4, 4), (7, 1, 1), (130, 33, 65)]
 PLANES_BLOCKS = {(256, 256), (256, 32), (128, 32)}  # (threads, lanes) the kernel is built for

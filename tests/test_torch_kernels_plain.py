@@ -14,6 +14,7 @@ from yolov3_tpu.ops.pallas.round_sweep import pallas_round_sweep
 from yolov3_tpu_torch.ops.cuda import nms_kernel, round_sweep
 
 from .test_torch_kernels_cuda import _boxes_case, _sweep_case
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 
 @pytest.mark.parametrize("b,k", [(2, 16), (2, 128), (1, 200)])

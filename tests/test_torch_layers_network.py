@@ -32,6 +32,7 @@ from yolov3_tpu_torch.models.convert import params_from_jax, params_to_jax
 from yolov3_tpu_torch.models.spec import parse_model_config
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 HEAD_TOL = 1e-4
 

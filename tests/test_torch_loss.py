@@ -17,6 +17,8 @@ from yolov3_tpu.ops import loss as jloss
 from yolov3_tpu.ops.assign import assign_targets as jax_assign
 from yolov3_tpu_torch.ops import loss as tloss
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 ANCHORS = np.array([[0.28, 0.22], [0.38, 0.48], [0.90, 0.78],
                     [0.07, 0.15], [0.15, 0.11], [0.14, 0.29]], np.float32).reshape(2, 3, 2)
 NC = 4

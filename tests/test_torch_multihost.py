@@ -38,6 +38,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
+if __package__:  # under pytest; the ranks run this file as a script
+    from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_TIMEOUT_S = 300
 
@@ -249,9 +252,11 @@ def test_train_cli_multihost(tmp_path):
     resumed, against one process training the same global batches."""
     import yaml
 
-    from .test_torch_data import build_native_library, native_decode_tier
+    from yolov3_tpu_torch.data.native_build import ensure_native_library
 
-    build_native_library()  # every process decodes on the same tier
+    from .test_torch_data import NATIVE_DIR, native_decode_tier
+
+    ensure_native_library(NATIVE_DIR)  # every process decodes on the same tier
 
     def run_both(epochs):
         port, argvs = free_port(), []

@@ -13,6 +13,8 @@ import torch
 from yolov3_tpu.ops import nms as jnms
 from yolov3_tpu_torch.ops import nms as tnms
 
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
+
 
 def _heads(seed, b, n, nc=3, size=0.25):
     """Decoded-head-like inputs with many exact score ties (objectness and

@@ -64,6 +64,7 @@ from .test_torch_train_step import ANCHORS, GRAD_TOL, _assert_trees_close, _np
 from .test_torch_train_step import make_setup as _make_setup
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 BATCH, WORLD, LR = 8, 2, 1e-3
 SGD = {"type": "sgd", "momentum": 0.0}

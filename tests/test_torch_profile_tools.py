@@ -35,6 +35,7 @@ from yolov3_tpu_torch.tools import bench_input_pipeline, multihost_smoke, profil
 from .conftest import REPO
 from .test_torch_data import native_decode_tier
 from .test_torch_multihost import free_port, run_ranks
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 TINY = os.path.join(REPO, "config/models/yolov3_tiny/model.yaml")
 TOY = os.path.join(REPO, "datasets/shapes_toy")
@@ -130,7 +131,7 @@ def test_bench_input_pipeline_main(capsys):
     assert all(row["path"] == "per-example" and row["images"] == 8 for row in rows[:2])
     assert rows[2] == {"verdict": "no_target", "best_img_per_sec": r["best_img_per_sec"],
                        "target_img_per_sec": None, "headroom_x": None,
-                       "decode": r["decode"]}
+                       "decode": r["decode"], "decode_reason": r["decode_reason"]}
     assert r["decode"] in ("native", "python")
     r = bench_input_pipeline.main(["--data_root", "datasets/shapes_toy", "--image_size", "96",
                                    "--batch", "4", "--workers", "1", "--max_images", "8",

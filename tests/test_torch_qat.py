@@ -37,6 +37,7 @@ from .conftest import REPO
 from .test_torch_train_extras import MINI
 from .test_torch_train_step import (ANCHORS, BATCH, GRAD_TOL, _assert_trees_close, _np,
                                     make_setup, setup)  # noqa: F401  (setup is a fixture)
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 
 @pytest.fixture(scope="module")

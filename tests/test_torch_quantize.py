@@ -25,6 +25,7 @@ from yolov3_tpu_torch.ops import s2d as ts2d
 
 from .conftest import REPO
 from .test_torch_layers_network import SYNTHETIC, _random_bn, _spec_fields
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 SIZE = 32
 

@@ -28,6 +28,7 @@ from yolov3_tpu_torch.apps.serve_app import DetectionApp, Serve
 from yolov3_tpu_torch.data.image import decode_image, resize_bilinear
 
 from .conftest import REPO, absolutize_run_config
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 SIZE = 128
 # the shapes_toy checkpoint's scores top out near 0.26, under the config's

@@ -53,6 +53,7 @@ from yolov3_tpu_torch.parallel import train_step as tts
 
 from .conftest import REPO, absolutize_run_config
 from .test_torch_multihost import run_scenario
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 ANCHORS = np.array(
     [[0.1, 0.1], [0.2, 0.2], [0.3, 0.3],

@@ -47,6 +47,7 @@ from yolov3_tpu_torch.tree import tree_leaves, tree_map
 from .test_torch_spatial import (ANCHORS, ANCHORS3, GRAD_TOL, YOLOV3, _step_case, cpus,
                                  tmesh_init)
 from .test_torch_spatial import tiny  # noqa: F401  (the module fixture)
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 
 def _jax_grads(jspec, jp, js, mesh=None, dtype=np.float32):

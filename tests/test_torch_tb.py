@@ -25,6 +25,7 @@ from yolov3_tpu_torch.utils import profiling as tprofiling
 from yolov3_tpu_torch.utils import tb as ttb
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 NOTE = ("\n\nFramework-neutral copy of ``yolov3_tpu/utils/tb.py`` (the port imports nothing of the\n"
         "JAX package). tests/test_torch_tb.py pins it to its original.\n")

@@ -39,6 +39,7 @@ from yolov3_tpu_torch.parallel import train_step as tts
 from yolov3_tpu_torch.tree import tree_leaves
 
 from .conftest import REPO, absolutize_run_config
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 LR = 0.001
 

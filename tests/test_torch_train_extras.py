@@ -60,6 +60,7 @@ from .test_torch_layers_network import SYNTHETIC, _spec_fields
 from .test_torch_train_app import _captured_logs, _config
 from .test_torch_train_step import (ANCHORS, BATCH, GRAD_TOL, _assert_trees_close, _np,
                                     make_setup)
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 # a small detector with the Darknet stem (3×3 s1, then 3×3 s2) and no
 # max-pooling: stride-2 convs down to /32, two heads (/32 and /16)

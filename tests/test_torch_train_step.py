@@ -38,6 +38,7 @@ from yolov3_tpu_torch.parallel import train_step as tts
 from yolov3_tpu_torch.tree import tree_leaves, tree_map
 
 from .conftest import REPO
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 ANCHORS = np.array([[0.1, 0.1], [0.2, 0.2], [0.3, 0.3],
                     [0.4, 0.4], [0.5, 0.5], [0.6, 0.6]], np.float32).reshape(2, 3, 2)

@@ -51,20 +51,13 @@ from yolov3_tpu_torch.tools import pets_transfer, scale_matrix, train_convergenc
 
 from .conftest import REPO, SUITE_XLA_CACHE
 from .test_torch_data import native_decode_tier
+from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
 TINY = "config/models/yolov3_tiny/model.yaml"
 BACKBONE = os.path.join(REPO, "checkpoints/output/yolov3_train_tiny.tf")
 PETS = ["--epochs", "1", "--batch_size", "8", "--image_size", "64",
         "--backbone_ckpt", BACKBONE, "--eval_max_images", "8"]
 LOSS_RTOL = 5e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _tiny_pets(load):

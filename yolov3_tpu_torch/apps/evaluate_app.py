@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import get_anchors, read_class_names
+from ..data.native_build import ensure_native_library
 from ..data.tfrecord import parse_tfrecords
 from ..device import pin_fp32_ieee, resolve_device
 from ..eval.detections_evaluator import APAccumulator, CocoAPAccumulator, EvaluateDetections
@@ -119,6 +120,7 @@ def evaluate(evaluate_config: dict, detect_config: dict, max_eval_images=None,
     if detect_config.get("compilation_cache"):
         log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
     dev = resolve_device(device if device is not None else detect_config.get("device"))
+    ensure_native_library()  # the TFRecords' decoding library
 
     thresholds = evaluate_config["evaluate_nms_score_thresholds"]
     # COCO interchange export for the lowest sweep threshold — max recall,

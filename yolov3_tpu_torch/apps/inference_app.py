@@ -26,6 +26,7 @@ import torch
 
 from ..config import dir_filelist, get_anchors, read_class_names
 from ..data.image import decode_image, letterbox_resize, letterbox_unmap_boxes, resize_bilinear
+from ..data.native_build import ensure_native_library
 from ..data.tfrecord import parse_tfrecords
 from ..device import pin_fp32_ieee, resolve_device
 from ..export.aot import as_predict
@@ -379,6 +380,8 @@ class Inference:
         if kwargs.get("compilation_cache"):
             log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
         dev = resolve_device(device)
+        if input_data_source == "tfrecords":
+            ensure_native_library()  # the TFRecords' decoding library
         eff_batch = batch_size if input_data_source in batched_sources else 1
         mesh = data_parallel_mesh(data_parallel, eff_batch, dev, spatial_partitioning)
         os.makedirs(output_dir, exist_ok=True)

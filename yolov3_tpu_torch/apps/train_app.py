@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import count_file_lines, get_anchors
+from ..data.native_build import ensure_native_library
 from ..data.pipeline import Batcher, DeviceDataset, DevicePrefetcher, batched, create_dataset
 from ..device import resolve_device
 from ..io.checkpoint import checkpoint_keys, load_train_state, save_train_state
@@ -250,6 +251,7 @@ class Train:
         logging.getLogger().setLevel(logging.INFO)
         if kwargs.get("compilation_cache"):
             log.info("compilation_cache: nothing is compiled ahead of time here; no effect")
+        ensure_native_library()  # the decoding library, before any rank reads data
         bn_stats_subsample = int(kwargs.get("bn_stats_subsample") or 1)
         if bn_stats_subsample < 1:
             raise ValueError(f"bn_stats_subsample must be >= 1, got {bn_stats_subsample}")

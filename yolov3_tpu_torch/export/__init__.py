@@ -1,4 +1,5 @@
-"""Export backends of the port: the browser (TFJS) graph-model and the
+"""Export backends of the port: the browser (TFJS) graph-model, written and
+run without TensorFlow (``tfjs_graph.py``, ``tfjs_runtime.py``), and the
 serving artifact (``torch.export`` programs, ``aot.py``)."""
 
 from .aot import (  # noqa: F401
@@ -8,9 +9,10 @@ from .aot import (  # noqa: F401
 )
 from .tfjs_graph import (  # noqa: F401
     TFJS_SUPPORTED_OPS,
-    build_tf_graph,
+    GraphTopology,
+    build_graph_topology,
     quantize_weight,
     read_graph_model,
-    run_graph_model,
     write_graph_model,
 )
+from .tfjs_runtime import GraphModel, run_graph_model  # noqa: F401

@@ -1,45 +1,52 @@
-"""Pure-Python TFJS graph-model export — no tensorflowjs CLI required.
+"""TFJS graph-model export with neither the tensorflowjs CLI nor TensorFlow.
 
 The reference's browser path (utilities/convert_model_to_tfjs.py:26 of the
 reference repository) shells out to ``tensorflowjs_converter`` on a Keras
 SavedModel; the produced graph-model (model.json + weight shards) is what
 ``js/src/inference.js`` loads with ``tf.loadGraphModel``. This module writes
-that format natively:
+that format directly:
 
-1. ``build_tf_graph`` re-emits the BN-folded model as a FLAT TF1 GraphDef
-   of plain ops (Conv2D/BiasAdd/LeakyRelu/MaxPool/ConcatV2/AddV2/Pad/
-   Reshape/ResizeNearestNeighbor) — every op in the TFJS kernel registry,
-   no function library, no XlaCallModule. It mirrors the functional
-   interpreter (models/network.py::_apply_sub_model) exactly, so outputs
-   match the forward at fp32 tolerance (pinned by
-   tests/test_torch_tfjs_export.py).
-2. ``write_graph_model`` serializes TFJS graph-model format: Const tensor
-   payloads are extracted into 4 MB binary shards with a
-   ``weightsManifest``, and the JSON topology keeps only dtype/shape
-   (exactly how the official converter's output looks to the TFJS loader,
-   which materializes every Const from the manifest by node name).
-3. ``read_graph_model`` reconstitutes the GraphDef with the shard payloads
-   re-injected — used by tests (and debuggers) to run the exported
-   artifact in TF and pin it against the forward.
+1. ``build_graph_topology`` emits the BN-folded model as the flat node list
+   of a TF1 GraphDef of plain ops (Conv2D/BiasAdd/LeakyRelu/MaxPool/ConcatV2/
+   AddV2/Pad/Reshape/ResizeNearestNeighbor), every one in the TFJS kernel
+   registry, no function library. The nodes are in the JSON form that
+   ``json_format.MessageToDict`` gives a GraphDef: each node's ``name``,
+   ``op``, ``input`` and ``attr``, with the attrs TensorFlow adds by default
+   (Conv2D's ``dilations``, ``explicit_paddings``, ``use_cudnn_on_gpu`` and
+   ``data_format`` among them) and each Const's dtype and shape. Names
+   follow TensorFlow's unique-name rule, so the nodes are those the JAX
+   package's ``build_tf_graph`` builds in TensorFlow, node for node. The Const
+   payloads travel beside the nodes, in node order.
+2. ``write_graph_model`` serializes the TFJS graph-model format: the Const
+   payloads go into 4 MB binary shards with a ``weightsManifest``, and the
+   JSON topology keeps only dtype and shape (how the official converter's
+   output looks to the TFJS loader, which materializes every Const from the
+   manifest by node name). ``quantize`` applies the converter's affine
+   uint8/uint16 manifest quantization (``quantize_weight``).
+3. ``read_graph_model`` reads model.json and the shards back into a weight
+   map, dequantized as ``tf.io.decodeWeights`` does; the port's executor
+   (``export/tfjs_runtime.py``) runs the nodes over it in PyTorch.
 
 Its input is JAX-layout numpy params (HWIO kernels), as the JAX package's
 ``fold_batch_norm`` gives them; the port's ``tools/export_tfjs.py`` builds
-them from its own folded tensors. TensorFlow is imported only inside the
-functions that need it.
-
-Framework-neutral copy of ``yolov3_tpu/export/tfjs_graph.py`` (the port imports nothing
-of the JAX package). tests/test_torch_tfjs_export.py pins its code, everything
-after this docstring, to its original.
+them from its own folded tensors. The files equal the JAX package's
+TensorFlow-built export (``yolov3_tpu/export/tfjs_graph.py``): model.json as
+parsed JSON, apart from ``modelTopology.versions``, which records the
+TensorFlow build there and is fixed here (``GRAPH_DEF_PRODUCER``, the
+GraphDef version TensorFlow 2.21 writes), and the shards byte for byte
+(tests/test_torch_tfjs_export.py).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 
-# every op emitted by build_tf_graph, all present in the TFJS op registry
+# every op emitted by build_graph_topology, all present in the TFJS op registry
 # (tfjs-converter/src/operations/op_list: convolution, arithmetic, basic_math,
 # image, matrices, transformation, graph)
 TFJS_SUPPORTED_OPS = frozenset({
@@ -48,6 +55,10 @@ TFJS_SUPPORTED_OPS = frozenset({
     "ResizeNearestNeighbor",
 })
 
+# modelTopology.versions.producer: the GraphDef version of TensorFlow 2.21,
+# whose graphs of these ops this module writes
+GRAPH_DEF_PRODUCER = 2474
+
 _SHARD_BYTES = 4 * 1024 * 1024  # tensorflowjs default shard size
 
 _NP_TO_TFJS_DTYPE = {
@@ -55,48 +66,127 @@ _NP_TO_TFJS_DTYPE = {
     np.dtype(np.int32): "int32",
     np.dtype(np.bool_): "bool",
 }
+_NP_TO_TF_DTYPE = {
+    np.dtype(np.float32): "DT_FLOAT",
+    np.dtype(np.int32): "DT_INT32",
+    np.dtype(np.bool_): "DT_BOOL",
+}
+_T = {"type": "DT_FLOAT"}
+_NO_LIST = {"list": {}}
 
 
-def build_tf_graph(spec, folded_params, image_size: int):
-    """Emit the BN-folded forward as a flat TF1 GraphDef.
+class GraphTopology(NamedTuple):
+    """A graph-model's nodes (``MessageToDict`` JSON form, Const payloads
+    left out) and its Const payloads by node name, in node order."""
 
-    ``folded_params``: output of ``models.network.fold_batch_norm`` (every
-    conv carries {"kernel", "bias"}). Returns
-    ``(graph_def, input_name, output_names)`` where names are node names
-    (tensor = name + ":0").
+    nodes: list
+    weights: dict
+
+
+def _bytes_attr(s: str) -> dict:
+    return {"s": base64.b64encode(s.encode()).decode()}
+
+
+def _ints_attr(values) -> dict:
+    return {"list": {"i": [str(int(v)) for v in values]}}
+
+
+def _shape_json(shape) -> dict:
+    return {"dim": [{"size": str(int(d))} for d in shape]} if len(shape) else {}
+
+
+class _GraphBuilder:
+    """Nodes in creation order, named by TensorFlow's ``Graph.unique_name``
+    rule, with each tensor's static NHWC shape."""
+
+    def __init__(self):
+        self.nodes: list = []
+        self.weights: dict = {}
+        self.shapes: dict = {}
+        self._in_use: dict = {}
+
+    def unique(self, name: str) -> str:
+        key = name.lower()
+        i = self._in_use.get(key, 0)
+        self._in_use[key] = i + 1
+        if i == 0:
+            return name
+        base = key
+        while key in self._in_use:
+            key = f"{base}_{i}"
+            i += 1
+        self._in_use[key] = 1
+        return f"{name}_{i - 1}"
+
+    def node(self, name, op, inputs, attr, shape):
+        entry = {"name": name, "op": op}
+        if inputs:
+            entry["input"] = list(inputs)
+        entry["attr"] = attr
+        self.nodes.append(entry)
+        self.shapes[name] = tuple(int(d) for d in shape)
+        return name
+
+    def const(self, name, value):
+        arr = np.array(value, order="C")  # (ascontiguousarray makes a scalar 1-D)
+        dtype = _NP_TO_TF_DTYPE[arr.dtype]
+        self.weights[name] = arr
+        return self.node(name, "Const", (), {
+            "value": {"tensor": {"dtype": dtype, "tensorShape": _shape_json(arr.shape)}},
+            "dtype": {"type": dtype}}, arr.shape)
+
+    def scoped_op(self, op_name, const_suffix, const_value, op, x, attr, shape):
+        """An op whose second input is a Const made in its name scope
+        (``Pad/paddings``, ``Reshape/shape``, ``ResizeNearestNeighbor/size``)."""
+        name = self.unique(op_name)
+        c = self.const(self.unique(f"{name}/{const_suffix}"),
+                       np.asarray(const_value, np.int32))
+        return self.node(name, op, (x, c), attr, shape)
+
+
+def build_graph_topology(spec, folded_params, image_size: int):
+    """Emit the BN-folded forward as a flat graph of TFJS-registry ops.
+
+    ``folded_params``: the folded params in JAX layout (every conv carries
+    {"kernel", "bias"}). Returns ``(graph, input_name, output_names)`` with
+    ``graph`` a ``GraphTopology`` and names node names (tensor = name + ":0").
     """
-    import tensorflow as tf
+    g = _GraphBuilder()
+    images = g.node(g.unique("images"), "Placeholder", (), {
+        "dtype": dict(_T), "shape": {"shape": _shape_json((1, image_size, image_size, 3))}},
+        (1, image_size, image_size, 3))
+    produced = {}
+    for sm in spec.sub_models:
+        if sm.inputs is None:
+            inputs_entry = images
+        else:
+            srcs = [produced[name][entry_index] for name, entry_index in sm.inputs]
+            inputs_entry = srcs[0] if len(srcs) == 1 else srcs
+        produced[sm.name] = _emit_sub_model(g, sm, folded_params[sm.name], inputs_entry,
+                                            spec.nclasses)
 
-    v1 = tf.compat.v1
-    graph = tf.Graph()
-    with graph.as_default():
-        images = v1.placeholder(tf.float32, (1, image_size, image_size, 3),
-                                name="images")
-        produced = {}
-        for sm in spec.sub_models:
-            if sm.inputs is None:
-                inputs_entry = images
-            else:
-                srcs = [produced[name][entry_index] for name, entry_index in sm.inputs]
-                inputs_entry = srcs[0] if len(srcs) == 1 else srcs
-            produced[sm.name] = _emit_sub_model(
-                tf, sm, folded_params[sm.name], inputs_entry, spec.nclasses)
-
-        output_names = []
-        i = 0
-        for sm in spec.output_sub_models:
-            for out in produced[sm.name]:
-                output_names.append(f"head{i}")
-                tf.identity(out, name=f"head{i}")
-                i += 1
-    return graph.as_graph_def(), "images", output_names
+    output_names = []
+    i = 0
+    for sm in spec.output_sub_models:
+        for out in produced[sm.name]:
+            name = f"head{i}"
+            output_names.append(name)
+            g.node(g.unique(name), "Identity", (out,), {"T": dict(_T)}, g.shapes[out])
+            i += 1
+    return GraphTopology(g.nodes, g.weights), images, output_names
 
 
-def _emit_sub_model(tf, sm, sm_params, inputs_entry, nclasses: int):
-    """TF-ops twin of models/network.py::_apply_sub_model (folded, inference)."""
+def _same_out(size: int, stride: int) -> int:
+    return -(-size // stride)
+
+
+def _emit_sub_model(g: _GraphBuilder, sm, sm_params, inputs_entry, nclasses: int):
+    """The graph twin of models/network.py::_apply_sub_model (folded, inference),
+    emitting the nodes TensorFlow emits for the same calls, in its order."""
     x = inputs_entry if not isinstance(inputs_entry, (list, tuple)) else inputs_entry[0]
     layer_outs = []
     for i, layer in enumerate(sm.layers):
+        b, h, w, c = g.shapes[x][:4] if len(g.shapes[x]) == 4 else (None,) * 4
         if layer.kind == "convolutional":
             p = sm_params[f"layer{i}"]
             if layer.get("explicit_pad") is not None or layer.get("s2d_phase"):
@@ -111,23 +201,39 @@ def _emit_sub_model(tf, sm, sm_params, inputs_entry, nclasses: int):
                     "re-fold from the fp checkpoint for export")
             kernel = np.asarray(p["kernel"], np.float32)
             bias = np.asarray(p["bias"], np.float32)
+            kh, kw, _, cout = kernel.shape
             stride = layer["stride"]
             if stride > 1:
                 # Darknet stride-2: ZeroPadding2D ((1,0),(1,0)) + VALID
                 # (reference core/parse_model.py:34-35)
-                x = tf.pad(x, [[0, 0], [1, 0], [1, 0], [0, 0]])
+                h, w = h + 1, w + 1
+                x = g.scoped_op("Pad", "paddings", [[0, 0], [1, 0], [1, 0], [0, 0]], "Pad", x,
+                                {"T": dict(_T), "Tpaddings": {"type": "DT_INT32"}},
+                                (b, h, w, c))
                 padding = "VALID"
             elif layer.get("pad", 1) == 1:
                 padding = "SAME"
             else:
                 padding = "VALID"
-            x = tf.nn.conv2d(x, tf.constant(kernel),
-                             strides=[1, stride, stride, 1], padding=padding)
-            x = tf.nn.bias_add(x, tf.constant(bias))
+            if padding == "SAME":
+                oh, ow = _same_out(h, stride), _same_out(w, stride)
+            else:
+                oh, ow = (h - kh) // stride + 1, (w - kw) // stride + 1
+            k = g.const(g.unique("Const"), kernel)
+            x = g.node(g.unique("Conv2D"), "Conv2D", (x, k), {
+                "T": dict(_T), "strides": _ints_attr([1, stride, stride, 1]),
+                "use_cudnn_on_gpu": {"b": True}, "padding": _bytes_attr(padding),
+                "explicit_paddings": dict(_NO_LIST), "data_format": _bytes_attr("NHWC"),
+                "dilations": _ints_attr([1, 1, 1, 1])}, (b, oh, ow, cout))
+            bn = g.const(g.unique("Const"), bias)
+            x = g.node(g.unique("BiasAdd"), "BiasAdd", (x, bn), {
+                "T": dict(_T), "data_format": _bytes_attr("NHWC")}, g.shapes[x])
             if layer.get("activation") == "leaky":
-                x = tf.nn.leaky_relu(x, alpha=0.1)
+                x = g.node(g.unique("LeakyRelu"), "LeakyRelu", (x,), {
+                    "T": dict(_T), "alpha": {"f": 0.1}}, g.shapes[x])
         elif layer.kind == "shortcut":
-            x = tf.add(layer_outs[layer["from"]], x)
+            src = layer_outs[layer["from"]]
+            x = g.node(g.unique("Add"), "AddV2", (src, x), {"T": dict(_T)}, g.shapes[x])
         elif layer.kind == "route":
             source = dict(layer["source"])
             selected = []
@@ -138,33 +244,49 @@ def _emit_sub_model(tf, sm, sm_params, inputs_entry, nclasses: int):
                     selected.extend(inputs_entry[int(j)] for j in source["inputs"])
                 else:
                     selected.append(inputs_entry)
-            x = selected[0] if len(selected) == 1 else tf.concat(selected, axis=-1)
+            if len(selected) == 1:
+                x = selected[0]
+            else:
+                shape = g.shapes[selected[0]]
+                channels = sum(g.shapes[s][3] for s in selected)
+                name = g.unique("concat")
+                axis = g.const(g.unique(f"{name}/axis"), np.asarray(-1, np.int32))
+                x = g.node(name, "ConcatV2", (*selected, axis), {
+                    "T": dict(_T), "N": {"i": str(len(selected))},
+                    "Tidx": {"type": "DT_INT32"}}, (*shape[:3], channels))
         elif layer.kind == "upsample":
             s = layer["stride"]
-            h, w = int(x.shape[1]), int(x.shape[2])
             # Keras UpSampling2D nearest == ResizeNearestNeighbor with
             # align_corners=False, half_pixel_centers=False (pure repeat)
-            x = tf.compat.v1.image.resize_nearest_neighbor(x, [h * s, w * s])
+            x = g.scoped_op("ResizeNearestNeighbor", "size", [h * s, w * s],
+                            "ResizeNearestNeighbor", x, {
+                                "T": dict(_T), "align_corners": {"b": False},
+                                "half_pixel_centers": {"b": False}}, (b, h * s, w * s, c))
         elif layer.kind == "maxpool":
             (sh, sw), (kh, kw) = layer["stride_xy"], layer["size_xy"]
-            x = tf.nn.max_pool2d(x, ksize=[1, kh, kw, 1], strides=[1, sh, sw, 1],
-                                 padding=layer["padding"].upper())
+            padding = layer["padding"].upper()
+            if padding == "SAME":
+                oh, ow = _same_out(h, sh), _same_out(w, sw)
+            else:
+                oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+            x = g.node(g.unique("MaxPool2d"), "MaxPool", (x,), {
+                "T": dict(_T), "ksize": _ints_attr([1, kh, kw, 1]),
+                "strides": _ints_attr([1, sh, sw, 1]), "padding": _bytes_attr(padding),
+                "explicit_paddings": dict(_NO_LIST), "data_format": _bytes_attr("NHWC")},
+                (b, oh, ow, c))
         elif layer.kind == "yolo":
-            b, h, w, c = (int(d) for d in x.shape)
-            x = tf.reshape(x, [b, h, w, 3, 5 + nclasses])
+            head = (b, h, w, 3, 5 + nclasses)
+            x = g.scoped_op("Reshape", "shape", list(head), "Reshape", x, {
+                "T": dict(_T), "Tshape": {"type": "DT_INT32"}}, head)
         else:
             raise ValueError(f"unknown layer kind {layer.kind}")
         layer_outs.append(x)
     return [layer_outs[i] for i in sm.outputs_layers]
 
 
-def _tensor_shape_json(shape):
-    return {"dim": [{"size": str(int(d))} for d in shape]}
-
-
 def _signature_entry(name, shape):
     return {"name": f"{name}:0", "dtype": "DT_FLOAT",
-            "tensorShape": _tensor_shape_json(shape)}
+            "tensorShape": _shape_json(shape)}
 
 
 def quantize_weight(arr, dtype: str):
@@ -184,57 +306,38 @@ def quantize_weight(arr, dtype: str):
     return q, {"dtype": dtype, "scale": scale, "min": lo}
 
 
-def write_graph_model(graph_def, out_dir: str, input_name: str,
+def write_graph_model(graph: GraphTopology, out_dir: str, input_name: str,
                       output_names, input_shape, output_shapes,
                       generated_by: str = "yolov3_tpu",
                       quantize: str | None = None):
     """Write TFJS graph-model format: model.json + group1-shard*.bin.
 
-    Const payloads go to the shards (manifest order = concatenation order);
-    the JSON topology keeps each Const's dtype/shape only — the TFJS loader
-    materializes Const nodes from the weight map by node name.
+    Const payloads go to the shards (manifest order = node order =
+    concatenation order); the JSON topology keeps each Const's dtype/shape
+    only — the TFJS loader materializes Const nodes from the weight map by
+    node name.
 
     ``quantize``: None | "uint8" | "uint16" — affine-quantize float32
     weights in the manifest (4×/2× smaller browser download, the official
     converter's --quantize_uint8/16 feature); int32/bool consts stay raw.
     """
-    from google.protobuf import json_format
-    from tensorflow.python.framework import tensor_util
-
     if quantize not in (None, "uint8", "uint16"):
         raise ValueError(f"quantize must be None|uint8|uint16, got {quantize!r}")
-    unsupported = sorted({n.op for n in graph_def.node} - TFJS_SUPPORTED_OPS)
+    unsupported = sorted({n["op"] for n in graph.nodes} - TFJS_SUPPORTED_OPS)
     if unsupported:
         raise ValueError(f"graph contains ops outside the TFJS registry: {unsupported}")
 
     weights = []  # (manifest entry, payload array) in manifest order
-    for node in graph_def.node:
-        if node.op == "Const":
-            tensor = node.attr["value"].tensor
-            arr = tensor_util.MakeNdarray(tensor)
-            # MakeNdarray can return (1,) for scalar protos carried in the
-            # *_val fields — force the proto's declared shape so the
-            # manifest, the topology and the re-injected Const all agree
-            arr = np.ascontiguousarray(arr).reshape(
-                [d.size for d in tensor.tensor_shape.dim])
+    for node in graph.nodes:
+        if node["op"] == "Const":
+            arr = np.array(graph.weights[node["name"]], order="C")
             if arr.dtype not in _NP_TO_TFJS_DTYPE:
-                # int64 would need an attr rewrite pass (TFJS weights are
-                # 32-bit); build_tf_graph only emits int32 shape/size consts
-                # so hitting this means a new op slipped in — fail loudly
-                raise ValueError(f"unsupported Const dtype {arr.dtype} at {node.name}")
-            entry = {"name": node.name, "shape": list(arr.shape),
+                raise ValueError(f"unsupported Const dtype {arr.dtype} at {node['name']}")
+            entry = {"name": node["name"], "shape": list(arr.shape),
                      "dtype": _NP_TO_TFJS_DTYPE[arr.dtype]}
             if quantize and arr.dtype == np.float32:
                 arr, entry["quantization"] = quantize_weight(arr, quantize)
             weights.append((entry, arr))
-
-    topology = json_format.MessageToDict(graph_def)
-    for node in topology.get("node", []):
-        if node.get("op") == "Const":
-            tensor = node["attr"]["value"]["tensor"]
-            for payload_key in ("tensorContent", "floatVal", "intVal", "int64Val",
-                               "boolVal", "doubleVal", "halfVal"):
-                tensor.pop(payload_key, None)
 
     os.makedirs(out_dir, exist_ok=True)
     payload = b"".join(arr.tobytes() for _, arr in weights)
@@ -255,7 +358,8 @@ def write_graph_model(graph_def, out_dir: str, input_name: str,
             "outputs": {name: _signature_entry(name, shape)
                         for name, shape in zip(output_names, output_shapes)},
         },
-        "modelTopology": topology,
+        "modelTopology": {"node": graph.nodes,
+                          "versions": {"producer": GRAPH_DEF_PRODUCER}},
         "weightsManifest": [{
             "paths": paths,
             "weights": [entry for entry, _ in weights],
@@ -267,21 +371,19 @@ def write_graph_model(graph_def, out_dir: str, input_name: str,
 
 
 def read_graph_model(model_dir: str):
-    """Load model.json + shards back into a runnable GraphDef.
-
-    Returns ``(graph_def, signature)`` with every Const's payload
-    re-injected — the same materialization the TFJS runtime performs.
-    """
-    import tensorflow as tf
-    from google.protobuf import json_format
-    from tensorflow.python.framework import tensor_util
-
+    """Load model.json and its shards → ``(model_json, weight_map)``, the
+    weight map holding every Const's payload by node name, dequantized as
+    ``tf.io.decodeWeights`` does (``w = q * scale + min`` in float32) — the
+    same materialization the TFJS runtime performs."""
     with open(os.path.join(model_dir, "model.json")) as f:
         model_json = json.load(f)
 
     manifest = model_json["weightsManifest"][0]
-    payload = b"".join(
-        open(os.path.join(model_dir, p), "rb").read() for p in manifest["paths"])
+    chunks = []
+    for p in manifest["paths"]:
+        with open(os.path.join(model_dir, p), "rb") as f:
+            chunks.append(f.read())
+    payload = b"".join(chunks)
     weight_map = {}
     offset = 0
     for w in manifest["weights"]:
@@ -298,29 +400,4 @@ def read_graph_model(model_dir: str):
         offset += nbytes
     if offset != len(payload):
         raise ValueError(f"shard payload size mismatch: {offset} != {len(payload)}")
-
-    graph_def = json_format.ParseDict(model_json["modelTopology"], tf.compat.v1.GraphDef())
-    for node in graph_def.node:
-        if node.op == "Const":
-            arr = weight_map[node.name]
-            node.attr["value"].tensor.CopyFrom(
-                tensor_util.make_tensor_proto(arr, shape=arr.shape))
-    return graph_def, model_json["signature"]
-
-
-def run_graph_model(model_dir: str, images):
-    """Execute an exported graph-model in TF (test/debug harness)."""
-    import tensorflow as tf
-
-    graph_def, signature = read_graph_model(model_dir)
-    (input_name,) = signature["inputs"].keys()
-    output_tensors = [v["name"] for v in signature["outputs"].values()]
-    graph = tf.Graph()
-    with graph.as_default():
-        tf.compat.v1.import_graph_def(graph_def, name="")
-        with tf.compat.v1.Session(graph=graph) as sess:
-            outs = sess.run(output_tensors, {f"{input_name}:0": np.asarray(images)})
-    # grid order can be arbitrary in signature dict order — sort 13-grid
-    # first like the js port (js/src/inference.js:46)
-    outs.sort(key=lambda o: o.shape[1])
-    return outs
+    return model_json, weight_map

@@ -12,8 +12,9 @@ port's ``data/pipeline.py`` and ``data/tfrecord.py``, with its flags:
 
 Host only: it touches no device. Prints one JSON line per worker count and a
 verdict line, which also names the decode tier that ran (``native``: the
-C++ core of ``native/``, built at first use where a compiler is; else
-``python``). ``--target`` is the img/s of the train step the host must feed,
+C++ core of ``native/``, built before the first pass by
+``data/native_build.py`` where a compiler is; else ``python``) and, as
+``decode_reason``, why. ``--target`` is the img/s of the train step the host must feed,
 measured on the card (``profile_train``, or ``train_convergence``'s trained
 img/s); it has no default, and without it the verdict line reports the best
 rate with ``"target_img_per_sec": null``. ``--batched`` takes the zero-copy
@@ -88,6 +89,9 @@ def main(argv=None):
                     help="the zero-copy batched path (tfrecord.stream_batches)")
     args = ap.parse_args(argv)
     data_root = M.repo_path(args.data_root)
+    from ..data.native_build import ensure_native_library
+
+    build = ensure_native_library()  # before the decoding threads start
     best, lines = 0.0, []
     for w in args.workers:
         rate, n, checksum = bench_stream(data_root, args.image_size, args.batch, w,
@@ -108,6 +112,7 @@ def main(argv=None):
     from ..data import native
 
     verdict["decode"] = "native" if native.available() else "python"
+    verdict["decode_reason"] = build.reason
     print(json.dumps(verdict), flush=True)
     return dict(verdict, rows=lines, host_cpus=os.cpu_count())
 

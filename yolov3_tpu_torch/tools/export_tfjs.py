@@ -2,12 +2,15 @@
 
 Counterpart of the TFJS graph-model leg of the JAX package's
 ``utilities/convert_model_to_tfjs.py`` (the jax2tf SavedModel leg has no
-counterpart here). The BN-folded model is re-emitted as a flat TF GraphDef of
-TFJS-registry ops and written as model.json + 4 MB weight shards
-(``export/tfjs_graph.py``), which ``js/src/inference.js`` loads with
-``tf.loadGraphModel``; no tensorflowjs CLI is needed, but TensorFlow is. The
+counterpart here). The BN-folded model is emitted as the flat node list of a
+TF GraphDef of TFJS-registry ops and written as model.json + 4 MB weight
+shards (``export/tfjs_graph.py``), which ``js/src/inference.js`` loads with
+``tf.loadGraphModel``; neither the tensorflowjs CLI nor TensorFlow is needed,
+and the files equal the JAX package's TensorFlow-built export. The
 reference's L2→L1L2 regularizer-name patch is applied to model.json. It
-touches no device: the weights are folded on the CPU.
+touches no device: the weights are folded on the CPU. ``export/tfjs_runtime.py``
+runs the result in PyTorch (``tools/run_js_pipeline.py`` drives the browser
+sources against it).
 
 Usage:
   python -m yolov3_tpu_torch.tools.export_tfjs \\
@@ -43,21 +46,24 @@ def load_folded_model(model_config_file, weights_path, classes_name_file):
 
 
 def export_tfjs_graph_model(model_config_file, weights_path, classes_name_file,
-                            image_size, out_dir, quantize=None):
-    """Pure-Python TFJS graph-model export (no tensorflowjs CLI).
+                            image_size, out_dir, prebuilt=None, quantize=None):
+    """Pure-Python TFJS graph-model export (no tensorflowjs CLI, no TensorFlow).
 
-    ``quantize``: None | "uint8" | "uint16" — affine manifest quantization
-    (the official converter's --quantize_uint8/16; 4×/2× smaller download).
+    ``prebuilt``: ``(spec, folded)`` from ``load_folded_model``, to fold once
+    for several exports, as the JAX utility's ``prebuilt``. ``quantize``:
+    None | "uint8" | "uint16" — affine manifest quantization (the official
+    converter's --quantize_uint8/16; 4×/2× smaller download).
     """
-    from ..export import build_tf_graph, write_graph_model
+    from ..export import build_graph_topology, write_graph_model
     from ..models.network import head_grid_sizes
 
-    spec, folded = load_folded_model(model_config_file, weights_path, classes_name_file)
+    spec, folded = prebuilt or load_folded_model(model_config_file, weights_path,
+                                                 classes_name_file)
 
-    graph_def, input_name, output_names = build_tf_graph(spec, folded, image_size)
+    graph, input_name, output_names = build_graph_topology(spec, folded, image_size)
     grids = head_grid_sizes(spec, image_size)
     output_shapes = [(1, g, g, 3, 5 + spec.nclasses) for g in grids]
-    path = write_graph_model(graph_def, out_dir, input_name, output_names,
+    path = write_graph_model(graph, out_dir, input_name, output_names,
                              (1, image_size, image_size, 3), output_shapes,
                              quantize=quantize)
     patch_model_json(out_dir)

@@ -33,6 +33,7 @@ import os
 import subprocess
 import sys
 
+from ..data.native_build import ensure_native_library
 from ..device import resolve_device
 from .train_convergence import REPO, evaluate_map50, stale_regime
 
@@ -60,6 +61,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     resolve_device(args.device)  # no card and no --device cpu: raise before any work
     os.chdir(REPO)
+    # the decoding library, built once before the per-run processes start
+    print(f":: {ensure_native_library().line()}", flush=True)
 
     data_root = args.data_root or f"output/shapes_conv{args.image_size}"
     modes = ([m for m in MODES if m[0] in set(args.modes.split(","))]
