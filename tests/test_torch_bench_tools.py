@@ -48,6 +48,7 @@ from yolov3_tpu_torch.models.spec import parse_model_config
 from yolov3_tpu_torch.ops.decode import yolo_decode
 from yolov3_tpu_torch.ops.s2d import s2d_stem
 from yolov3_tpu_torch.tools import _measure as M
+from yolov3_tpu_torch.utils import profiling as tprofiling
 from yolov3_tpu_torch.tools import (bench, bench_resblock, latency_bench, mfu_table,
                                     profile_eval, profile_inference)
 
@@ -146,9 +147,11 @@ def test_fused_stage_is_one_range_over_its_layers(tmp_path):
 
 
 def test_no_range_entered_without_a_profiler_and_outputs_unchanged(tiny, monkeypatch):
+    # the layer ranges are the profiler half of the port's spans
+    # (utils/profiling.py::profiler_range), which enters record_function
     entered = []
-    real = tnet.record_function
-    monkeypatch.setattr(tnet, "record_function",
+    real = tprofiling.record_function
+    monkeypatch.setattr(tprofiling, "record_function",
                         lambda name: (entered.append(name), real(name))[1])
     x = torch.from_numpy(_images(64, 1))
     plain = tnet.apply_model(tiny.tspec, tiny.tf, {}, x)
@@ -173,7 +176,7 @@ def test_export_graph_unchanged_by_the_ranges(tiny, monkeypatch):
         return [(n.op, str(n.target)) for n in nodes]
 
     with_ranges = graph()
-    monkeypatch.setattr(tnet, "_layer_range", lambda name: tnet._NO_RANGE)
+    monkeypatch.setattr(tnet, "_layer_range", lambda name: tprofiling.NO_RANGE)
     assert graph() == with_ranges
     assert not any("record_function" in t or "profiler" in t for _, t in with_ranges)
 

@@ -97,6 +97,9 @@ def test_profile_train_main_on_the_cpu(capsys):
     assert "peak memory: not measured; device: cpu" in out
     assert "(--trace: no device trace on the CPU)" in out
     assert r["device"] == "cpu" and len(r["losses"]) == 2 and np.isfinite(r["loss"])
+    assert "phases (host ms, median a step): {'steps': 2, 'S|step': " in out
+    assert list(r["phases"]) == ["steps", "S|step", "S|anchors", "S|assign", "S|forward",
+                                 "S|loss", "S|backward", "S|optimizer"]
     with pytest.raises(ValueError, match="--dump_hlo"):
         profile_train.main(tiny + ["--dump_hlo", "x.txt", "--device", "cpu"])
     if not torch.cuda.is_available():

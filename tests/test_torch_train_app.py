@@ -110,6 +110,20 @@ def test_one_epoch_writes_checkpoints_and_logs(port_run):
     assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(state["params"]))
 
 
+def test_the_log_ends_with_the_step_phases(port_run):
+    """Beside the step timing, the median host ms a step of ``S|step`` and
+    each phase span over the run's four steps (utils/profiling.py)."""
+    _, lines = port_run
+    timing = [i for i, line in enumerate(lines) if line.startswith("step timing (host enqueue)")]
+    phases = [line for line in lines
+              if line.startswith("step phases (host ms, median a step, unprofiled steps): ")]
+    assert len(timing) == len(phases) == 1 and lines[timing[0] + 1] == phases[0]
+    summary = eval(phases[0].split(": ", 1)[1])
+    assert list(summary) == ["steps", "S|step", "S|anchors", "S|assign", "S|forward",
+                             "S|loss", "S|backward", "S|optimizer"]
+    assert summary["steps"] == 4 and all(v > 0 for v in summary.values())
+
+
 def test_resume_continues_at_the_next_epoch(port_run, tmp_path):
     cfg, _ = port_run
     import shutil

@@ -34,7 +34,11 @@ Differences, by design:
     package's checks and messages, and its single-host rule for a process
     group that spans hosts;
   * ``bn_stats_subsample`` is an argument threaded down to ``batch_norm``,
-    not a process-wide setting, and the profiler trace is ``torch.profiler``'s.
+    not a process-wide setting, and the profiler trace is ``torch.profiler``'s;
+  * beside ``step timing (host enqueue)`` the log ends with ``step phases``:
+    the median host ms a step of ``S|step`` and each of its phase spans
+    (``parallel/train_step.py``, ``utils/profiling.py::phase_summary``) over
+    the run's steps that ran with no profiler.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ from ..parallel.spatial import band_starts, total_stride
 from ..parallel.train_step import (epoch_learning_rate, init_train_state, make_adam,
                                    make_adam_scheduled, make_eval_step, make_train_step)
 from ..tree import tree_map
-from ..utils.profiling import StepTimer, trace
+from ..utils.profiling import StepTimer, phase_summary, span_records, trace
 
 log = logging.getLogger(__name__)
 
@@ -556,6 +560,7 @@ class Train:
         patience_left = early_stop_patience
         last_epoch = start_epoch - 1
         timer = StepTimer(images_per_step=batch_size)  # host time to enqueue each step
+        spans_from = time.perf_counter_ns()  # the step's phase spans of this run
         # TensorBoard scalars: `tensorboard: <logdir>` or true (./tb_logs); one
         # device fetch per epoch, never a per-step wait
         tb_writer = None
@@ -703,6 +708,9 @@ class Train:
                 tb_writer.close()
         if timer.durations:
             log.info(f"step timing (host enqueue): {timer.stats()}")
+            phases = phase_summary([r for r in span_records() if r.start_ns >= spans_from])
+            if phases:
+                log.info(f"step phases (host ms, median a step, unprofiled steps): {phases}")
         return train_state
 
     @staticmethod

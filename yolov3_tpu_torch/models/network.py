@@ -43,29 +43,25 @@ band by band, a windowed one on its band's rows with their halo rows.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 import torch.utils.checkpoint
-from torch.profiler import record_function
 
 from ..ops.cuda import resblock
 from ..parallel import spatial as sp
+from ..utils.profiling import profiler_range
 from . import layers as L
 from .spec import LayerSpec, ModelSpec, SubModelSpec
 
 
-_NO_RANGE = contextlib.nullcontext()
-
-
-def _layer_range(name: str):
-    """The profiler range of one layer, ``L|<sub-model>|<layer>|<kind>`` as
-    the JAX package's ``named_scope`` (``tools/mfu_table.py`` attributes
-    device time to layers by it), entered only while a profiler runs: with
-    none, a null context, so serving, ``torch.export`` and a train step run
-    the same ops as without it."""
-    return record_function(name) if torch.autograd._profiler_enabled() else _NO_RANGE
+# The profiler range of one layer, ``L|<sub-model>|<layer>|<kind>`` as the
+# JAX package's ``named_scope`` (``tools/mfu_table.py`` attributes device
+# time to layers by it): the profiler half of a span, entered only while a
+# profiler runs and recording nothing on the host. With none, the shared
+# null context, so serving, ``torch.export`` and a train step run the same
+# ops as without it.
+_layer_range = profiler_range
 
 
 def _deq(x, fp_dtype):

@@ -26,6 +26,19 @@ process group), and the heads are gathered on the first band's device, so
 assignment and loss run on whole grids as unsharded. Autograd sums each
 weight's gradient over the bands; the ranks' average follows as above.
 
+Each step runs inside the span ``S|step`` (``utils/profiling.py::span``:
+a profiler range while a profiler runs, always a host-clock record), its
+phases inside spans of their own: ``S|anchors`` (the anchors' copy to the
+device; from pageable host memory, so on the card it waits until the
+device has run what was queued before it), ``S|augment``, ``S|assign``
+(``assign_targets``), ``S|forward`` (QAT and mixed-precision casts through
+the heads), ``S|loss`` (the terms, L2 and the metrics), ``S|backward``
+(``torch.autograd.grad`` and the zero-fill of unused gradients),
+``S|allreduce`` (under a process group) and ``S|optimizer`` (the trainable
+mask, the update and the EMA). With ``accum_steps`` > 1 assign, forward,
+loss and backward repeat under one ``S|step``. An eval step's phases run
+under ``S|eval``.
+
 The optimizer is the port's own small functional one over the param dicts,
 because three details of the JAX package's optimizers differ from
 ``torch.optim`` / ``torch.nn.utils``: Adam adds ``eps=1e-7`` outside the
@@ -54,6 +67,7 @@ from ..ops.augment import apply_augment, draw_augment, step_generator
 from ..ops.loss import yolo_loss_terms
 from ..ops.quantize import fake_quant_weights, make_activation_fake_quant
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..utils.profiling import span
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7
 
@@ -257,41 +271,45 @@ def _loss_and_metrics(spec, params, bn_state, images, labels, anchors_table, gri
     the conv inputs, 'full' both (``ops/quantize.py``), before the
     mixed-precision cast, so the rounding happens in f32; L2 still reads the
     masters."""
-    y_true = assign_targets(labels, anchors_table, grid_sizes)
+    with span("S|assign"):
+        y_true = assign_targets(labels, anchors_table, grid_sizes)
     params_master = params
-    act_transform = None
-    if qat:
-        if qat in ("weights", "full", True):
-            params = fake_quant_weights(spec, params, min_k2cin=qat_min_k2cin)
-        if qat in ("full", "activations"):
-            act_transform = make_activation_fake_quant(spec, min_k2cin=qat_min_k2cin)
-    if compute_dtype is not None:
-        # mixed precision: the casts sit inside the differentiated graph, so
-        # the gradients come back f32 at the f32 masters
-        images = images.to(compute_dtype)
-        params_c = tree_map(lambda x: x.to(compute_dtype), params)
-    else:
-        params_c = params
-    if train:
-        outputs, new_bn = apply_model(spec, params_c, bn_state, images, train=True,
-                                      bn_frozen=bn_frozen, remat=remat,
-                                      conv_input_transform=act_transform,
-                                      bn_stats_subsample=bn_stats_subsample, bn_group=bn_group,
-                                      devices=bands)
-    else:
-        outputs, new_bn = apply_model(spec, params_c, bn_state, images, devices=bands), bn_state
-    terms = torch.stack([
-        yolo_loss_terms(t, p, anchors_table[i], spec.nclasses) / batch_size
-        for i, (t, p) in enumerate(zip(y_true, outputs))])  # (nscales, 4) [xy, wh, obj, class]
-    reg = l2_regularization(params_master, spec.decay_factor)
-    total = torch.sum(terms) + reg
-    metrics = {
-        "total_loss": total,
-        "regularization": reg,
-        "per_grid": torch.sum(terms, dim=1),      # (nscales,)
-        "per_source": torch.sum(terms, dim=0),    # (4,) [xy, wh, obj, class]
-        "per_grid_per_source": terms,             # (nscales, 4)
-    }
+    with span("S|forward"):
+        act_transform = None
+        if qat:
+            if qat in ("weights", "full", True):
+                params = fake_quant_weights(spec, params, min_k2cin=qat_min_k2cin)
+            if qat in ("full", "activations"):
+                act_transform = make_activation_fake_quant(spec, min_k2cin=qat_min_k2cin)
+        if compute_dtype is not None:
+            # mixed precision: the casts sit inside the differentiated graph,
+            # so the gradients come back f32 at the f32 masters
+            images = images.to(compute_dtype)
+            params_c = tree_map(lambda x: x.to(compute_dtype), params)
+        else:
+            params_c = params
+        if train:
+            outputs, new_bn = apply_model(spec, params_c, bn_state, images, train=True,
+                                          bn_frozen=bn_frozen, remat=remat,
+                                          conv_input_transform=act_transform,
+                                          bn_stats_subsample=bn_stats_subsample,
+                                          bn_group=bn_group, devices=bands)
+        else:
+            outputs, new_bn = (apply_model(spec, params_c, bn_state, images, devices=bands),
+                               bn_state)
+    with span("S|loss"):
+        terms = torch.stack([
+            yolo_loss_terms(t, p, anchors_table[i], spec.nclasses) / batch_size
+            for i, (t, p) in enumerate(zip(y_true, outputs))])  # (nscales, 4) [xy, wh, obj, class]
+        reg = l2_regularization(params_master, spec.decay_factor)
+        total = torch.sum(terms) + reg
+        metrics = {
+            "total_loss": total,
+            "regularization": reg,
+            "per_grid": torch.sum(terms, dim=1),      # (nscales,)
+            "per_source": torch.sum(terms, dim=0),    # (4,) [xy, wh, obj, class]
+            "per_grid_per_source": terms,             # (nscales, 4)
+        }
     return total, (new_bn, metrics)
 
 
@@ -307,8 +325,9 @@ def loss_and_grads(spec, params, bn_state, images, labels, anchors_table, grid_s
         spec, tree_unflatten(params, leaves), bn_state, images, labels, anchors_table,
         tuple(int(g) for g in grid_sizes), batch_size, tuple(bn_frozen), True,
         compute_dtype, remat, qat, qat_min_k2cin, bn_stats_subsample, bn_group, bands)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    with span("S|backward"):
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
     return (tree_unflatten(params, grads), new_bn,
             tree_map(lambda m: m.detach(), metrics))
 
@@ -419,14 +438,20 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     anchors_np = np.asarray(anchors_table, np.float32)
 
     def step(train_state, images, labels):
+        with span("S|step"):
+            return _step(train_state, images, labels)
+
+    def _step(train_state, images, labels):
         _check_local(images, local, mesh)
         if compute_dtype is None:
             for dev in bands or (images.device,):
                 pin_fp32_ieee(dev)
         params = train_state["params"]
-        anchors = torch.as_tensor(anchors_np, device=images.device)
+        with span("S|anchors"):
+            anchors = torch.as_tensor(anchors_np, device=images.device)
         if aug_options is not None:
-            images, labels = augmented(images, labels, int(train_state["step"]))
+            with span("S|augment"):
+                images, labels = augmented(images, labels, int(train_state["step"]))
         if accum_steps > 1:
             bn, grads, metrics = train_state["bn_state"], None, None
             for k in range(accum_steps):
@@ -441,11 +466,12 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
             grads, new_bn, metrics = grads_of(params, train_state["bn_state"], images, labels,
                                               anchors, local)
         if dp is not None:
-            grads = dp.all_reduce_mean(grads)
-            metrics = tree_unflatten(metrics, dp.all_reduce_mean(tree_leaves(metrics)))
-        if mask_leaves is not None:
-            grads = [g * m for g, m in zip(grads, mask_leaves)]
-        with torch.no_grad():
+            with span("S|allreduce"):
+                grads = dp.all_reduce_mean(grads)
+                metrics = tree_unflatten(metrics, dp.all_reduce_mean(tree_leaves(metrics)))
+        with span("S|optimizer"), torch.no_grad():
+            if mask_leaves is not None:
+                grads = [g * m for g, m in zip(grads, mask_leaves)]
             new_params, new_opt_state = optimizer.update(
                 tree_unflatten(params, grads), train_state["opt_state"], params)
             new_train_state = {"params": new_params, "bn_state": new_bn,
@@ -471,13 +497,17 @@ def make_eval_step(spec, anchors_table, grid_sizes, batch_size, mesh=None, bn_fr
 
     @torch.no_grad()
     def step(params, bn_state, images, labels):
-        _check_local(images, local, mesh)
-        anchors = torch.as_tensor(anchors_np, device=images.device)
-        _, (_, metrics) = _loss_and_metrics(spec, params, bn_state, images, labels, anchors,
-                                            grid_sizes, local, tuple(bn_frozen), False,
-                                            bands=bands)
-        if dp is not None:
-            metrics = tree_unflatten(metrics, dp.all_reduce_mean(tree_leaves(metrics)))
-        return metrics
+        with span("S|eval"):
+            _check_local(images, local, mesh)
+            with span("S|anchors"):
+                anchors = torch.as_tensor(anchors_np, device=images.device)
+            _, (_, metrics) = _loss_and_metrics(spec, params, bn_state, images, labels,
+                                                anchors, grid_sizes, local, tuple(bn_frozen),
+                                                False, bands=bands)
+            if dp is not None:
+                with span("S|allreduce"):
+                    metrics = tree_unflatten(metrics,
+                                             dp.all_reduce_mean(tree_leaves(metrics)))
+            return metrics
 
     return step

@@ -12,13 +12,18 @@ The step is the port's ``make_train_step`` (Adam 1e-3, bf16 unless
 ``--fp32``) on the model's Keras-default weights from
 ``torch.Generator().manual_seed(0)``, one batch of ``RandomState(0)`` images
 and the JAX tool's three boxes per image. ``wall`` is the host clock over
-``--steps`` steps ending in a synchronize (the host's launches included).
+``--steps`` steps ending in a synchronize (the host's launches included);
+``phases`` the median host ms a step of the step's spans (``S|step`` and
+its phases, ``utils/profiling.py::phase_summary``) over those steps.
 ``--trace`` profiles two more steps (``ops/cuda/kernel_times.profile_window``)
-and prints the device-busy ms per step and the device time by kernel name
-(``--top`` of them, with their launches); ``--top_fusions N`` adds the N ops
-whose kernels took the most device time. ``--dump_hlo`` has no meaning
-here (no XLA program) and raises. The JAX default batch, 128, is kept; a
-batch the card cannot hold raises torch's out-of-memory error.
+and prints the device-busy ms per step, the kernel launch calls a step by
+the phase span they were made in (on any thread: the autograd engine's
+thread launches the backward while the step waits in ``S|backward``) and
+the device time by kernel name (``--top`` of them, with their launches);
+``--top_fusions N`` adds the N ops whose kernels took the most device
+time. ``--dump_hlo`` has no meaning here (no XLA program) and raises. The
+JAX default batch, 128, is kept; a batch the card cannot hold raises
+torch's out-of-memory error.
 """
 
 from __future__ import annotations
@@ -32,7 +37,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import phase_summary, span_records
 from . import _measure as M
+
+# the CUDA runtime and `cu` API calls that launch a kernel or a graph
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch")
 
 
 def train_inputs(batch: int, image_size: int, device):
@@ -90,6 +100,27 @@ def by_op(events):
     return us
 
 
+def launches_by_phase(events, steps: int):
+    """Kernel launch calls a step by the innermost ``S|…`` span around each
+    (by time, on any thread), of those made inside an ``S|step`` range of the
+    profiler ``events`` (their host side: a range's span on the device's
+    timeline is left out); a launch in the step outside its phases counts
+    under ``S|step``."""
+    host = [e for e in events
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU]
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in host
+                    if e.name.startswith("S|"))
+    out = collections.Counter()
+    for e in host:
+        if e.name.split("_v")[0] not in LAUNCH_CALLS:
+            continue
+        t = e.time_range.start
+        around = [(end - start, name) for start, end, name in ranges if start <= t <= end]
+        if any(name == "S|step" for _, name in around):
+            out[min(around)[1]] += 1
+    return {name: n / steps for name, n in out.most_common()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m yolov3_tpu_torch.tools.profile_train")
     ap.add_argument("--model_config_file", default="config/models/yolov3/model.yaml")
@@ -127,6 +158,7 @@ def main(argv=None):
     ts, m = step(ts, images, labels)
     print(f"warm loss {float(m['total_loss']):.3f}", file=sys.stderr)
 
+    spans_from = time.perf_counter_ns()
     t0 = time.perf_counter()
     losses = []
     for _ in range(args.steps):
@@ -134,6 +166,7 @@ def main(argv=None):
         losses.append(m["total_loss"])
     total = float(m["total_loss"])  # the fetch synchronizes
     dt = (time.perf_counter() - t0) / args.steps
+    phases = phase_summary([r for r in span_records() if r.start_ns >= spans_from])
     if not np.isfinite(total):
         raise AssertionError(f"profile_train: non-finite loss {total}")
     device = M.device_record(dev)
@@ -142,9 +175,10 @@ def main(argv=None):
           f"launches included); peak memory: "
           + ("not measured" if peak_gb is None else f"{peak_gb:.2f} GB (max_memory_allocated)")
           + f"; device: {M.device_text(device)}", flush=True)
+    print(f"phases (host ms, median a step): {phases}", flush=True)
     result = dict(batch=b, image_size=args.image_size, fp32=args.fp32, wall_ms=dt * 1e3,
                   img_per_sec=b / dt, peak_gb=peak_gb, loss=total,
-                  losses=[float(x) for x in losses], device=device)
+                  losses=[float(x) for x in losses], phases=phases, device=device)
     if not args.trace:
         return result
     if dev.type != "cuda":
@@ -163,6 +197,9 @@ def main(argv=None):
     busy_ms = sum(us for _, _, us in records) / 1e3 / 2
     print(f"device: {busy_ms:.2f} ms/step ({b / (busy_ms / 1e3):.1f} img/s device rate; "
           "device-busy from the profiler)")
+    launches = launches_by_phase(prof.events(), 2)
+    print(f"-- kernel launch calls a step by phase ({sum(launches.values()):.0f} in all): "
+          f"{launches}")
     us, count = by_kernel(records)
     print("-- device time by kernel name (ms/step):")
     for name, v in us.most_common(args.top):
@@ -172,6 +209,7 @@ def main(argv=None):
         for name, v in by_op(prof.events()).most_common(args.top_fusions):
             print(f"   {name[:60]:60s} {v / 2 / 1e3:7.2f}")
     return dict(result, device_busy_ms=busy_ms, launches_per_step=len(records) / 2,
+                launch_calls_by_phase=launches,
                 top_kernels={n: v / 2 / 1e3 for n, v in us.most_common(args.top)})
 
 
