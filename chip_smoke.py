@@ -75,7 +75,12 @@ Phases (any failure exits non-zero):
      device launch a call each way (profiler); the event-loop time, the
      device time of one call and the host's µs a call, the byte bound, and
      torch.var_mean / torch.batch_norm_stats as the library yardstick; then
-     two calls at once on two streams;
+     two calls at once on two streams; then K7 (the training BatchNorm tail,
+     ``phase_k7``) at every distinct tail of YOLOv3-416 at B=64, bf16,
+     channels-last (the train cell's): forward bit-equal to
+     ``bn_leaky_plain``, dx to ``bn_leaky_dx_plain``, the (C,) gradients
+     within K5's sum tolerance of float64, one launch each way, times and
+     bytes bound each way;
  14. one training forward and backward of YOLOv3-416 at B=2, seeded weights
      and labels, fp32 without TF32, the card against the CPU: targets
      bit-equal, loss terms 1e-4 relative, new BN state 1e-4, and every
@@ -84,11 +89,11 @@ Phases (any failure exits non-zero):
      launch 72 times forward and 72 times backward;
  15. the trainer through ``Train``: YOLOv3-416, B=16, shapes_toy TFRecords,
      Adam, EMA, 3 epochs (6 steps) in fp32 and again with
-     ``mixed_precision``: finite falling loss, K5 launches 72 × steps each
-     way, the three checkpoint files, a resumed sixth epoch, the serving
+     ``mixed_precision``: finite falling loss, K5 and K7 launches 72 × steps
+     each way, the three checkpoint files, a resumed sixth epoch, the serving
      predictor answering from the trained checkpoint; ms per step, img/s,
-     peak memory, device launches per step (72 + 72 of them K5's) and K5's
-     share of a step's device time;
+     peak memory, device launches per step (72 + 72 of them K5's, as many
+     K7's) and K5's and K7's shares of a step's device time;
  16. ``evaluate`` of the trained YOLOv3-tiny at 416 over shapes_toy
      ``tfrecords/val`` (16 images, batch 8), the sweep [0.004, 0.1, 0.2,
      0.5, 0.9], on the card and on the CPU: counters equal per threshold or
@@ -121,7 +126,8 @@ Phases (any failure exits non-zero):
      the slice on (augmentation, qat full, stem_s2d, multi_scale [320, 416]
      every step, device_dataset uint8, bn_stats_subsample 2, remat conv,
      tensorboard, profile_trace_dir, mixed_precision; 3 epochs): finite
-     losses, K5 launched (through the phase view too), the event and trace
+     losses, K5 launched (through the phase view too), every BatchNorm tail
+     through K7 (this run's and each key's alone), the event and trace
      files, both scales, the checkpoint served; each key alone for 1 epoch
      in fp32: ms a step, launches a step, K5's launches, peak memory
      (``remat`` false, true and conv among them); the port against itself
@@ -1478,6 +1484,154 @@ def phase_k5(bn_stats):
     return results
 
 
+def k7_sums_error(x, dy, got, mean, var, gamma, beta, eps, slope, rtol):
+    """How far K7's (C,) gradients ``got[1:]`` (dmean, dvar, dgamma, dbeta)
+    lie from their formulas over float64 sums of the same terms, each error
+    less 2^-21 of the value (the finishing products) and, for bf16
+    parameters, 2^-8 (their rounding), as a share of the sums' Σ|term|:
+    (largest share, every share within ``rtol``)."""
+    view = (1, -1, 1, 1)
+    r = torch.rsqrt(var + eps)
+    s = (gamma.float() * r).to(x.dtype)
+    d = x - mean.to(x.dtype).view(view)
+    v = d * s.view(view) + beta.to(x.dtype).view(view)
+    g = torch.where(v >= 0, dy.float(), dy.float() * slope).double()
+    del v
+    gd = g * d.double()
+    del d
+    s0, s1 = g.sum(dim=(0, 2, 3)), gd.sum(dim=(0, 2, 3))
+    a0, a1 = g.abs().sum(dim=(0, 2, 3)), gd.abs().sum(dim=(0, 2, 3))
+    del g, gd
+    r64, s64, gamma64 = r.double(), s.double(), gamma.double()
+    rounding = 2.0 ** -8 if gamma.dtype == torch.bfloat16 else 0.0
+    worst, within = 0.0, True
+    for value, ref, scale, rnd in (
+            (got[1], -s64 * s0, a0 * s64.abs(), 0.0),
+            (got[2], -0.5 * s1 * gamma64 * r64 ** 3, a1 * 0.5 * gamma64 * r64 ** 3, 0.0),
+            (got[3], s1 * r64, a1 * r64, rounding), (got[4], s0, a0, rounding)):
+        err = (value.double() - ref).abs() - (rnd + 2.0 ** -21) * ref.abs()
+        within = within and bool((err <= rtol * scale).all())
+        worst = max(worst, float((err.clamp(min=0.0) / scale.clamp(min=1e-300)).max()))
+    return worst, within
+
+
+def phase_k7(bn_leaky, bn_stats):
+    """K7 forward and backward at each distinct BatchNorm tail of YOLOv3-416
+    at B=64, bf16 in channels-last memory: the tails of the train cell's step
+    (``kernel_times.K7_TAILS``), largest first. y bit-equal to the plain
+    version (``bn_leaky_plain``) evaluated on the card, dx bit-equal to
+    ``bn_leaky_dx_plain``, dmean, dvar, dgamma and dbeta within ``SUM_RTOL``
+    of float64 sums (``k7_sums_error``), two launches the same bits each way,
+    one device kernel each way (profiler), y and dx in x's memory format.
+    Each row: the event-loop ms, device µs and host µs a call each way, the
+    bytes bound (forward: x read, y written; backward: x and dy read, dx
+    written; at ``HBM_BYTES_PER_S``) and the device time's share of it, and
+    the plain versions' ms (the forward; autograd's forward and backward).
+    Then the sums over the model's tails, a tail counted as often as the
+    model has it → (rows, sums)."""
+    from yolov3_tpu_torch.models import layers
+    from yolov3_tpu_torch.ops.cuda.kernel_times import K7_TAILS
+
+    model, batch, tails = K7_TAILS[0]
+    eps, slope = layers.BN_EPS, layers.LEAKY_SLOPE
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    def forward(x, args):
+        with torch.no_grad():
+            return bn_leaky.bn_leaky(x, *args)
+
+    def one_launch_each(x, dy, args):
+        """Device µs of one forward and one backward call, which must be one
+        launch each: both run in one profiler window."""
+        profiled = device_time_by_kernel(lambda: (forward(x, args),
+                                                  bn_leaky.bn_leaky_dx(x, dy, *args)))
+        if profiled is None:
+            raise AssertionError("K7: the profiler showed no device time")
+        names = [n for n, _ in profiled[5]]
+        if (len(names) != 2 or "bn_leaky_fwd_" not in names[0]
+                or "bn_leaky_bwd_" not in names[1]):
+            raise AssertionError(f"K7: expected one launch of bn_leaky_fwd_* and one of "
+                                 f"bn_leaky_bwd_*, saw {names}")
+        return profiled[5][0][1] * 1e3, profiled[5][1][1] * 1e3
+
+    rows = []
+    for (c, hw), count in sorted(tails.items(), key=lambda kv: -kv[0][0] * kv[0][1] ** 2):
+        shape = (batch, c, hw, hw)
+        gen = torch.Generator(device="cuda").manual_seed(c * hw)
+        x = torch.randn(shape, generator=gen, device="cuda") * 2.0
+        x += torch.randn((1, c, 1, 1), generator=gen, device="cuda") * 3.0
+        x[:, 0] = 1.5  # a constant channel: zero variance, its pre-activation exactly 0
+        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        with torch.no_grad():
+            mean, var = bn_stats.bn_moments(x)
+        gamma = (torch.rand(c, generator=gen, device="cuda") * 0.4 + 0.8).to(torch.bfloat16)
+        beta = (torch.rand(c, generator=gen, device="cuda") * 0.4 - 0.2).to(torch.bfloat16)
+        beta[0] = 0
+        args = (mean, var, gamma, beta, eps, slope)
+        y, again = forward(x, args), forward(x, args)
+        want = bn_leaky.bn_leaky_plain(x, *args)
+        torch.cuda.synchronize()
+        fwd_equal = torch.equal(bits(y), bits(want)) and y.stride() == x.stride()
+        same_bits = torch.equal(bits(y), bits(again))
+        del y, again, want
+        got = bn_leaky.bn_leaky_dx(x, dy, *args)
+        got2 = bn_leaky.bn_leaky_dx(x, dy, *args)
+        plain = bn_leaky.bn_leaky_dx_plain(x, dy, *args)
+        torch.cuda.synchronize()
+        dx_equal = torch.equal(bits(got[0]), bits(plain[0])) and got[0].stride() == x.stride()
+        same_bits = same_bits and all(torch.equal(bits(a), bits(b)) for a, b in zip(got, got2))
+        del got2, plain
+        sums_err, sums_within = k7_sums_error(x, dy, got, *args, bn_stats.SUM_RTOL)
+        del got
+        torch.cuda.empty_cache()
+        reps = 20 if x.numel() > 1 << 24 else 50
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, mean, var, gamma, beta)]
+
+        def plain_backward():
+            torch.autograd.grad(bn_leaky.bn_leaky_plain(*leaves, eps, slope), leaves, dy)
+
+        ms = cuda_ms(lambda: forward(x, args), reps)
+        dx_ms = cuda_ms(lambda: bn_leaky.bn_leaky_dx(x, dy, *args), reps)
+        device_us, dx_device_us = one_launch_each(x, dy, args)
+        nbytes = x.numel() * x.element_size()
+        bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        dx_bound_ms = 3 * nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(shape=list(shape), dtype="bfloat16", memory="channels_last", tails=count,
+                   plan=list(bn_leaky._plan(True, batch, c, hw * hw,
+                                            bn_leaky._vector(x, (x,), True, c, hw * hw), 2)),
+                   equal=fwd_equal and dx_equal and same_bits and sums_within,
+                   forward_equal=fwd_equal, dx_equal=dx_equal,
+                   bit_identical_relaunch=same_bits, sums_within=sums_within,
+                   max_abs_err=sums_err, ms=ms, device_us=device_us,
+                   host_us=host_us(lambda: forward(x, args), reps),
+                   plain_ms=cuda_ms(lambda: bn_leaky.bn_leaky_plain(x, *args), 5),
+                   bound_ms=bound_ms, bound_by="bytes", bytes=2 * nbytes,
+                   share_of_bound=bound_ms * 1e3 / device_us, backward_ms=dx_ms,
+                   backward_device_us=dx_device_us,
+                   backward_host_us=host_us(lambda: bn_leaky.bn_leaky_dx(x, dy, *args), reps),
+                   backward_plain_ms=cuda_ms(plain_backward, 5), backward_bound_ms=dx_bound_ms,
+                   backward_share_of_bound=dx_bound_ms * 1e3 / dx_device_us)
+        log(f"K7 bn_leaky {json.dumps(row)}")
+        if not row["equal"]:
+            raise AssertionError(f"K7 disagrees at {shape}: {row}")
+        rows.append(row)
+        del x, dy, leaves
+        torch.cuda.empty_cache()
+    sums = {k: sum(r["tails"] * r[k] for r in rows)
+            for k in ("device_us", "bound_ms", "plain_ms", "backward_device_us",
+                      "backward_bound_ms", "backward_plain_ms")}
+    sums.update(model=model, batch=batch, tails=sum(r["tails"] for r in rows),
+                share_of_bound=sums["bound_ms"] * 1e3 / sums["device_us"],
+                backward_share_of_bound=sums["backward_bound_ms"] * 1e3
+                / sums["backward_device_us"])
+    log(f"K7 bn_leaky {model} B={batch} every tail {json.dumps(sums)}")
+    return rows, sums
+
+
 def seeded_labels(rng, b, nclasses, boxes=4, max_bboxes=100):
     labels = np.zeros((b, max_bboxes, 6), np.float32)
     for i in range(b):
@@ -1629,12 +1783,14 @@ class _LogLines(logging.Handler):
 TRAINER_EPOCHS = 3  # phase 15: 2 steps an epoch
 
 
-def phase_trainer(inference_app, bn_stats, bodies, smi):
+def phase_trainer(inference_app, bn_stats, bn_leaky, bodies, smi):
     """The trainer through ``Train`` on the card: YOLOv3 (full Darknet-53) at
     416², B=16, the shapes_toy TFRecords (32 training images: 2 steps an
     epoch), Adam at 1e-3, EMA, ``TRAINER_EPOCHS`` epochs, once in fp32 and once with
     ``mixed_precision``; then one more epoch with ``resume``; then the serving
-    predictor on the trained checkpoint."""
+    predictor on the trained checkpoint. K5's and K7's counts are set to 0
+    just before each tier's first ``Train`` call and read just after:
+    72 launches a step each way, each kernel's."""
     import re
 
     from yolov3_tpu_torch.apps.train_app import Train
@@ -1647,7 +1803,7 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
     out_dir = os.path.join(ROOT, "build", "smoke_train")
     handler = _LogLines()
     logging.getLogger().addHandler(handler)
-    rows, total_launches = [], [0, 0]
+    rows, total_launches, k7_launches = [], [0, 0], [0, 0]
     try:
         for tier, mixed in (("fp32", False), ("bf16", True)):
             ckpt = os.path.join(out_dir, tier, "yolov3_toy.tf")
@@ -1670,11 +1826,13 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             bn_stats.bn_sums.launches = bn_stats.bn_moments_dx.launches = 0
+            bn_leaky.bn_leaky.launches = bn_leaky.bn_leaky_dx.launches = 0
             t0 = time.monotonic()
             train_state = Train()(**config)
             torch.cuda.synchronize()
             seconds = time.monotonic() - t0
             launches = [bn_stats.bn_sums.launches, bn_stats.bn_moments_dx.launches]
+            k7 = [bn_leaky.bn_leaky.launches, bn_leaky.bn_leaky_dx.launches]
             peak = torch.cuda.max_memory_allocated()
             text = "\n".join(handler.lines)
             losses = [float(v) for v in re.findall(r"epoch \d+: train_loss (\S+)", text)]
@@ -1742,10 +1900,14 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                 k5_fwd, k5_bwd = pick("bn_moments_"), pick("bn_dx_kernel")
                 k5_device_launches = sum("bn_moments_" in n or "bn_dx_kernel" in n
                                          for n, _ in in_order)
+                k7_fwd, k7_bwd = pick("bn_leaky_fwd_"), pick("bn_leaky_bwd_")
+                k7_device_launches = sum("bn_leaky_" in n for n, _ in in_order)
                 top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
                 share = dict(device_busy_ms=total, k5_forward_ms=k5_fwd, k5_backward_ms=k5_bwd,
                              k5_share=(k5_fwd + k5_bwd) / total, device_launches=count,
-                             k5_device_launches=k5_device_launches,
+                             k5_device_launches=k5_device_launches, k7_forward_ms=k7_fwd,
+                             k7_backward_ms=k7_bwd, k7_share=(k7_fwd + k7_bwd) / total,
+                             k7_device_launches=k7_device_launches,
                              host_enqueue_ms=host_ms, top=[[n[:60], ms] for n, ms in top])
             del state, train_state, predictor
             row = dict(tier=tier, card=smi, epochs=TRAINER_EPOCHS, steps=steps, batch=16,
@@ -1758,26 +1920,29 @@ def phase_trainer(inference_app, bn_stats, bodies, smi):
                        epoch_img_per_s_last=rates[-1] if rates else None,
                        step_ms=step_ms, img_per_s=16 / step_ms * 1e3,
                        max_memory_allocated_gb=peak / 1e9, k5_launches=launches,
-                       checkpoints_written=written, step_counter=step_count,
+                       k7_launches=k7, checkpoints_written=written, step_counter=step_count,
                        resumed=resumed[:1], resumed_epochs=resumed_epochs,
                        served_detections=int(num_valid.sum()), served_boxes_finite=boxes_finite,
                        served_head_overflow=overflow, profile=share)
             log(f"trainer YOLOv3-416 {json.dumps(row)}")
             ok = (len(losses) == len(val) == TRAINER_EPOCHS and all(np.isfinite(losses + val))
                   and losses[-1] < losses[0] and steps == step_count == 2 * TRAINER_EPOCHS
-                  and launches == [72 * steps, 72 * steps] and all(written)
+                  and launches == [72 * steps, 72 * steps] and k7 == launches and all(written)
                   and len(resumed) == 1 and f"at epoch {TRAINER_EPOCHS + 1}" in resumed[0]
                   and resumed_epochs == [str(TRAINER_EPOCHS + 1)] and served_ok)
-            if isinstance(share, dict) and share["k5_device_launches"] != 144:
+            if isinstance(share, dict) and (share["k5_device_launches"] != 144
+                                            or share["k7_device_launches"] != 144):
                 ok = False  # one launch forward and one backward for each of the 72 layers
             if not ok:
                 raise AssertionError(f"the trainer's run failed its checks: {row}")
             total_launches[0] += launches[0]
             total_launches[1] += launches[1]
+            k7_launches[0] += k7[0]
+            k7_launches[1] += k7[1]
             rows.append(row)
     finally:
         logging.getLogger().removeHandler(handler)
-    return rows, total_launches
+    return rows, total_launches, k7_launches
 
 
 # --- the offline entry points: evaluation, the int8 gate, batch inference ---
@@ -2370,11 +2535,13 @@ ALL_KEYS = dict(
 def counted_train(bn_stats, handler, config):
     """One ``Train`` call with K5's counts and the peak memory set to 0 just
     before it; BatchNorm statistics taken through a phase view (a view of
-    another tensor) are counted on the way → (train state, row)."""
+    another tensor) are counted on the way, and the training BatchNorm tails
+    by route (``bn_leaky.tails``) → (train state, row)."""
     import re
 
     from yolov3_tpu_torch.apps.train_app import Train
     from yolov3_tpu_torch.models import layers
+    from yolov3_tpu_torch.ops.cuda import bn_leaky
 
     through_view = [0]
     moments = layers.bn_moments
@@ -2387,6 +2554,7 @@ def counted_train(bn_stats, handler, config):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     bn_stats.bn_sums.launches = bn_stats.bn_moments_dx.launches = 0
+    tails = bn_leaky.bn_leaky.tails.copy()
     layers.bn_moments = counting
     t0 = time.monotonic()
     try:
@@ -2404,6 +2572,7 @@ def counted_train(bn_stats, handler, config):
                k5_launches_per_step=[bn_stats.bn_sums.launches / max(steps, 1),
                                      bn_stats.bn_moments_dx.launches / max(steps, 1)],
                k5_phase_view_calls=through_view[0],
+               k7_tails=dict(bn_leaky.bn_leaky.tails - tails),
                last_epoch_ms_per_step=epoch_s[-1] * 1e3 / (steps // len(epoch_s))
                if epoch_s else None,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -2613,7 +2782,7 @@ def phase_train_extras(inference_app, bn_stats, bodies, smi):
         finite = all(np.isfinite(row["train_losses"] + row["val_losses"]))
         if not (finite and len(row["train_losses"]) == 3 and row["steps"] == 6
                 and min(row["k5_launches"]) > 0 and row["k5_phase_view_calls"] > 0
-                and row["event_files"] == 1 and len(row["trace_files"]) == 1
+                and set(row["k7_tails"]) == {"fused"} and row["event_files"] == 1 and len(row["trace_files"]) == 1
                 and min(row["trace_files"]) > 0 and sizes_seen == [320, 416]
                 and row["served"]["shape"] == [4, 100] and row["served"]["scores_finite"]):
             raise AssertionError(f"the all-keys run failed its checks: {row}")
@@ -2631,7 +2800,7 @@ def phase_train_extras(inference_app, bn_stats, bodies, smi):
             row["key"] = key
             log(f"trainer extras per key {json.dumps(row)}")
             if not (row["steps"] == 2 and all(np.isfinite(row["train_losses"]))
-                    and min(row["k5_launches"]) > 0):
+                    and min(row["k5_launches"]) > 0 and set(row["k7_tails"]) == {"fused"}):
                 raise AssertionError(f"the {key} run failed its checks: {row}")
             per_key.append(row)
             torch.cuda.empty_cache()
@@ -4740,27 +4909,32 @@ def time_predict_608(ckpt, corpus, batch=16):
 
 MEASURE_DIR = os.path.join(ROOT, "build", "smoke_measure")
 # the kernels each tool must launch in its run (the counts set to 0 just before)
-K1, K2, K3, K4, K5, K6 = ("nms_sweep", "round_sweep", "conv1x1_int8", "resblock_int8",
-                          "bn_stats", "conv_int8")
+K1, K2, K3, K4, K5, K6, K7 = ("nms_sweep", "round_sweep", "conv1x1_int8", "resblock_int8",
+                              "bn_stats", "conv_int8", "bn_leaky")
 
 
 def kernel_counts():
-    """Every wrapper's launch count: K1–K4, K6 and K5 (forward, backward, and
-    the synced launches each way)."""
-    from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock, round_sweep
+    """Every wrapper's launch count: K1–K4, K6, K5 (forward, backward, and
+    the synced launches each way) and K7 (forward, backward)."""
+    from yolov3_tpu_torch.ops.cuda import (bn_leaky, conv1x1, conv_int8, nms_kernel, resblock,
+                                           round_sweep)
 
     return dict({K1: nms_kernel.suppression_sweep.launches, K2: round_sweep.round_sweep.launches,
                  K3: conv1x1.conv1x1_int8_requant.launches, K4: resblock.fused_resblock.launches,
                  K6: conv_int8.conv_int8.launches},
-                **{f"{K5}_{k}": v for k, v in k5_counts().items()})
+                **{f"{K5}_{k}": v for k, v in k5_counts().items()},
+                **{f"{K7}_forward": bn_leaky.bn_leaky.launches,
+                   f"{K7}_backward": bn_leaky.bn_leaky_dx.launches})
 
 
 def reset_kernel_counts():
-    from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock, round_sweep
+    from yolov3_tpu_torch.ops.cuda import (bn_leaky, conv1x1, conv_int8, nms_kernel, resblock,
+                                           round_sweep)
 
     nms_kernel.suppression_sweep.launches = round_sweep.round_sweep.launches = 0
     conv1x1.conv1x1_int8_requant.launches = resblock.fused_resblock.launches = 0
     conv_int8.conv_int8.launches = 0
+    bn_leaky.bn_leaky.launches = bn_leaky.bn_leaky_dx.launches = 0
     reset_k5_counts()
 
 
@@ -4856,9 +5030,11 @@ def phase_measurement_tools(convergence_row, smi, decode_tier):
         ("mfu_table bf16", (), lambda: mfu_table.main(
             ["--quantize", "bf16", "--csv", os.path.join(MEASURE_DIR, "mfu_bf16.csv")])),
         ("profile_eval", (K1, K2), lambda: profile_eval.main(["--iters", "2"])),
-        ("profile_train bf16", (f"{K5}_forward", f"{K5}_backward"), lambda: profile_train.main(
+        ("profile_train bf16", (f"{K5}_forward", f"{K5}_backward", f"{K7}_forward",
+                                f"{K7}_backward"), lambda: profile_train.main(
             ["--batch", "16", "--steps", "2", "--trace", "--top", "8", "--top_fusions", "4"])),
-        ("profile_train fp32", (f"{K5}_forward", f"{K5}_backward"), lambda: profile_train.main(
+        ("profile_train fp32", (f"{K5}_forward", f"{K5}_backward", f"{K7}_forward",
+                                f"{K7}_backward"), lambda: profile_train.main(
             ["--batch", "16", "--steps", "2", "--trace", "--fp32", "--top", "8"])),
         ("bench_resblock", (K3, K4, K6), lambda: bench_resblock.main(
             ["--stages", "13,26,52"])),
@@ -5167,8 +5343,8 @@ def main() -> int:
     from yolov3_tpu_torch.apps import inference_app, serve_app
     from yolov3_tpu_torch.ops import decode
     from yolov3_tpu_torch.ops import nms as nms_mod
-    from yolov3_tpu_torch.ops.cuda import (bn_stats, build, conv1x1, conv_int8, nms_kernel,
-                                           resblock, round_sweep)
+    from yolov3_tpu_torch.ops.cuda import (bn_leaky, bn_stats, build, conv1x1, conv_int8,
+                                           nms_kernel, resblock, round_sweep)
 
     # the native data-loader core, built once before any phase decodes
     import dataclasses
@@ -5232,15 +5408,19 @@ def main() -> int:
     serve_rows.append(int8_serve)
     timed("trained tiny int8", phase_trained_int8, inference_app, models, nms_mod)
 
-    # the trainer: K5 against its plain version, one step against the CPU,
-    # then Train itself with K5's counts set to 0 just before each run
+    # the trainer: K5 and K7 against their plain versions, one step against
+    # the CPU, then Train itself with K5's and K7's counts set to 0 just
+    # before each run
     torch.cuda.empty_cache()
     k5 = timed("K5", phase_k5, bn_stats)
+    k7, k7_sums = timed("K7", phase_k7, bn_leaky, bn_stats)
     train_step_row = timed("train step vs CPU", phase_train_step_vs_cpu, models, bn_stats, bodies)
-    train_rows, k5_launches = timed("trainer", phase_trainer, inference_app, bn_stats, bodies, smi)
+    train_rows, k5_launches, k7_launches = timed("trainer", phase_trainer, inference_app,
+                                                 bn_stats, bn_leaky, bodies, smi)
     launches["bn_stats"] = k5_launches[0]
-    if min(k5_launches) == 0:
-        raise AssertionError(f"the trainer ran without K5: {k5_launches}")
+    launches["bn_leaky"] = k7_launches[0]
+    if min(k5_launches) == 0 or min(k7_launches) == 0:
+        raise AssertionError(f"the trainer ran without K5 or K7: {k5_launches} {k7_launches}")
 
     # the offline entry points: evaluation, the int8 gate, batch inference;
     # each run's kernel counts are set to 0 just before it and read just after
@@ -5348,6 +5528,8 @@ def main() -> int:
         launches[name] += measure_launches[name]
     launches["bn_stats"] += measure_launches[f"{K5}_forward"]
     k5_launches[1] += measure_launches[f"{K5}_backward"]
+    launches["bn_leaky"] += measure_launches[f"{K7}_forward"]
+    k7_launches[1] += measure_launches[f"{K7}_backward"]
 
     # the browser port: K1 and K2 counted over the JS pipeline's compare legs
     # and the K = N run, set to 0 just before
@@ -5397,6 +5579,17 @@ def main() -> int:
              new_inputs=[{k: r[k] for k in ("input", "shape", "dtype", "equal", "device_us",
                                             "without_device_us")}
                          for r in extras["k5_new_inputs"]]),
+        # K7 at YOLOv3-416's largest BN tail (C=32, 416², B=64, bf16,
+        # channels-last: the train cell's), its backward beside it, and the
+        # sums over the model's 72 tails each way
+        dict(kernel_row("bn_leaky", "bn_leaky.cu", "yolov3_tpu/models/layers.py:342+407", k7,
+                        k7[0], library=False),
+             device_us=k7[0]["device_us"], share_of_bound=k7[0]["share_of_bound"],
+             backward_launches=k7_launches[1], backward_ms=k7[0]["backward_ms"],
+             backward_device_us=k7[0]["backward_device_us"],
+             backward_plain_ms=k7[0]["backward_plain_ms"],
+             backward_bound_ms=k7[0]["backward_bound_ms"],
+             backward_share_of_bound=k7[0]["backward_share_of_bound"], model_sums=k7_sums),
     ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels, "serve": serve_rows, "int8_forward": int8_rows,

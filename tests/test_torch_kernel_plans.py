@@ -5,6 +5,11 @@ Python that mirrors what the CUDA launch functions do with a shape.
     element of the activation exactly once, in both memory layouts, and are a
     pure function of the shape; the thread loops of ``csrc/bn_stats.cu`` are
     replayed index by index at small shapes.
+  * K7 (``ops/cuda/bn_leaky.py::_plan``): the same for the BatchNorm tail's
+    grid, in both layouts and at both vector widths; the kernels' thread
+    loops replayed index by index; the blocks' channel tiles fit the
+    workspace's ticket counters; no kernel of ``csrc/bn_leaky.cu`` carries a
+    name the benchmark reads as K5's.
   * K6 (``ops/cuda/conv_int8.py::plan``): path, tile and grid cover M and N
     of the implicit GEMM, the contraction's split covers every k-tile once,
     and the byte path takes Cin = 3 and every ``Cin % 16 != 0``.
@@ -41,8 +46,8 @@ from yolov3_tpu.ops.pallas.round_sweep import pallas_round_sweep
 from yolov3_tpu_torch import models
 from yolov3_tpu_torch.models import layers
 from yolov3_tpu_torch.models import network
-from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel, requant,
-                                       resblock, round_sweep)
+from yolov3_tpu_torch.ops.cuda import (bn_leaky, bn_stats, conv1x1, conv_int8, nms_kernel,
+                                       requant, resblock, round_sweep)
 
 from .test_torch_threads import torch_threads  # noqa: F401  (the module fixture)
 
@@ -167,6 +172,84 @@ def test_k5_plan_sizes_follow_the_bytes():
     p, per_block, threads, lanes, _ = bn_stats._plan(False, 16, 32, 416 * 416)
     assert (p * 32, threads, lanes) == (2048, 256, 256) and per_block % 8 == 0
     assert bn_stats._plan(True, 16, 32, 416 * 416)[0] == 1024
+
+
+def k7_vector(channels_last, c, hw, esize):
+    per = 16 // esize
+    return per if (c if channels_last else hw) % per == 0 else 1
+
+
+def check_k7_plan(channels_last, b, c, hw, esize):
+    """The K7 plan at the vector width the wrapper picks for aligned tensors,
+    against what the launch function accepts (``plan_ok`` in the source)."""
+    vec = k7_vector(channels_last, c, hw, esize)
+    p, per_block, tx, ty = bn_leaky._plan(channels_last, b, c, hw, vec, esize)
+    reduced = b * hw if channels_last else hw
+    assert p >= 1 and (p - 1) * per_block < reduced <= p * per_block
+    if channels_last:
+        tiles = -(-(c // vec) // tx)
+        assert c % vec == 0 and 1 <= tx * ty <= 256 and tiles <= 256  # kCounters
+        assert tx * vec * esize <= 128 and tx * vec <= 64  # a tile: kTileChannels
+        assert p * tiles <= max(bn_leaky._BLOCKS, tiles)
+    else:
+        assert tx in (32, 256) and hw % vec == 0
+        assert p == 1 or per_block % 8 == 0  # 16-byte loads never straddle a slice
+        assert p * c <= max(bn_leaky._BLOCKS, c)
+    return vec, p, per_block, tx, ty
+
+
+@pytest.mark.parametrize("model", ["yolov3", "yolov3_tiny"])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("b", [1, 2, 64, 128])
+def test_k7_plan_covers_every_bn_tail(model, channels_last, b):
+    for c, h, w in set(recorded_shapes(model)[0]) | set(ODD_BN_SHAPES):
+        for esize in (4, 2):
+            check_k7_plan(channels_last, b, c, h * w, esize)
+    assert bn_leaky._MAX_CHANNELS >= max(c for c, _, _ in recorded_shapes(model)[0])
+
+
+def replay_k7_channels_last(b, c, hw, vec, p, per_block, tx, ty):
+    """Count how often the channels-last kernels' loops touch each element."""
+    seen = np.zeros((b * hw, c), np.int32)
+    for x in range(p):
+        r0, r1 = x * per_block, min((x + 1) * per_block, b * hw)
+        for y in range(-(-(c // vec) // tx)):
+            for tyi in range(ty):
+                for txi in range(tx):
+                    col = y * tx + txi
+                    if col * vec < c:
+                        seen[r0 + tyi:r1:ty, col * vec:col * vec + vec] += 1
+    return seen
+
+
+@pytest.mark.parametrize("b,c,h,w", [(3, 32, 5, 7), (2, 5, 13, 13), (1, 3, 8, 8), (16, 4, 26, 26),
+                                     (2, 16, 52, 52), (5, 40, 9, 11), (2, 1024, 4, 4)])
+def test_k7_thread_loops_touch_every_element_once(b, c, h, w):
+    hw = h * w
+    for esize in (4, 2):
+        vec, p, per_block, tx, ty = check_k7_plan(False, b, c, hw, esize)
+        assert (replay_planes(b, c, hw, p, per_block, 256, tx, vec) == 1).all()
+        vec, p, per_block, tx, ty = check_k7_plan(True, b, c, hw, esize)
+        assert (replay_k7_channels_last(b, c, hw, vec, p, per_block, tx, ty) == 1).all()
+
+
+def test_k7_plan_sizes_and_kernel_names():
+    """Channels-last rows are 128 bytes of 16-byte vectors across; the main
+    path's largest tail is one wave of blocks and its smallest one short
+    block a channel. The benchmark finds K5 by the substrings
+    ``bn_moments_`` and ``bn_dx_kernel``: K7's kernels carry neither."""
+    assert bn_leaky._plan(True, 64, 32, 416 * 416, 8, 2) == (528, 20977, 4, 64)
+    assert bn_leaky._plan(True, 64, 1024, 13 * 13, 8, 2)[2:] == (8, 32)
+    assert bn_leaky._plan(False, 64, 1024, 13 * 13, 1, 2) == (1, 169, 32, 1)
+    p, per_block, lanes, _ = bn_leaky._plan(False, 64, 32, 416 * 416, 8, 2)
+    assert (p * 32, lanes) == (512, 256) and per_block % 8 == 0
+    import re
+
+    with open(os.path.join(ROOT, "yolov3_tpu_torch/ops/cuda/csrc/bn_leaky.cu")) as f:
+        kernels = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(", f.read())
+    assert sorted(kernels) == ["bn_leaky_bwd_cl_kernel", "bn_leaky_bwd_planes_kernel",
+                               "bn_leaky_fwd_cl_kernel", "bn_leaky_fwd_planes_kernel"]
+    assert not any(k5 in name for name in kernels for k5 in ("bn_moments_", "bn_dx_kernel"))
 
 
 def k6_shapes(model):

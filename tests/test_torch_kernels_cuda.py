@@ -6,15 +6,16 @@ alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Inputs are made with numpy from a seed. Tolerance: none, except K5's sums
-(stated at their test)."""
+Inputs are made with numpy from a seed. Tolerance: none, except K5's and
+K7's sums and the train step through K7 (stated at their tests)."""
 
 import numpy as np
 import pytest
 import torch
 
-from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel, resblock,
-                                       round_sweep)
+from yolov3_tpu_torch.models import layers as L
+from yolov3_tpu_torch.ops.cuda import (bn_leaky, bn_stats, conv1x1, conv_int8, nms_kernel,
+                                       resblock, round_sweep)
 
 
 def _sweep_case(seed, b, k, valid_frac=0.6, thr=0.7):
@@ -582,6 +583,277 @@ def test_cuda_bn_moments_two_streams_and_workspace_growth(cuda_device):
     assert torch.equal(grown[0], want_huge[0]) and torch.equal(grown[1], want_huge[1])
     ref = huge.double().mean(dim=(0, 2, 3))
     assert float((grown[0].double() - ref).abs().max()) <= 1e-5
+
+
+# K7: (C, H) of every BatchNorm conv's output in YOLOv3-416 and YOLOv3-tiny at
+# B=2, then shapes on the one-element paths (C or H·W no multiple of a vector)
+K7_SHAPES = [(2, c, h, h) for c, h in (
+    (16, 416), (32, 416), (32, 208), (64, 208), (64, 104), (128, 104), (128, 52), (256, 52),
+    (128, 26), (256, 26), (512, 26), (128, 13), (256, 13), (512, 13), (1024, 13))] + [
+    (3, 40, 9, 11), (2, 3, 8, 8), (2, 24, 5, 5)]
+EPS, SLOPE = L.BN_EPS, L.LEAKY_SLOPE
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _k7_case(seed, shape, dtype, channels_last, device):
+    """x (``_activation``: one constant channel, beta 0 there), dy in x's
+    memory format, K5's statistics of x, gamma and beta in x's dtype."""
+    x = _activation(seed, shape, dtype, channels_last, device)
+    with torch.no_grad():
+        mean, var = bn_stats.bn_moments(x)
+    rng = np.random.RandomState(seed + 1)
+    c = shape[1]
+    gamma = torch.from_numpy(rng.uniform(0.8, 1.2, c).astype(np.float32)).to(device, dtype)
+    beta = torch.from_numpy(rng.uniform(-0.2, 0.2, c).astype(np.float32)).to(device, dtype)
+    beta[0] = 0
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype).contiguous(
+        memory_format=fmt)
+    return x, dy, mean, var, gamma, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K7_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_cuda_bn_leaky_forward_bit_equal_to_the_expression(cuda_device, shape, dtype,
+                                                           channels_last):
+    """K7's forward, one launch, against training BatchNorm's plain
+    expression and then LeakyReLU evaluated by PyTorch on the card
+    (``layers.batch_norm`` off its K7 route, ``layers.leaky_relu``).
+    Tolerance: none, bit for bit; y in x's memory format; two launches give
+    the same bits."""
+    x, _, mean, var, gamma, beta = _k7_case(sum(shape), shape, dtype, channels_last, cuda_device)
+    before = bn_leaky.bn_leaky.launches
+    with torch.no_grad():
+        y = bn_leaky.bn_leaky(x, mean, var, gamma, beta, EPS, SLOPE)
+        again = bn_leaky.bn_leaky(x, mean, var, gamma, beta, EPS, SLOPE)
+        plain, _ = L.batch_norm(x, {"gamma": gamma, "beta": beta}, {"mean": mean, "var": var},
+                                train=True, moments=(mean, var))
+        want = L.leaky_relu(plain)
+    torch.cuda.synchronize()
+    assert bn_leaky.bn_leaky.launches == before + 2
+    assert y.dtype == dtype and y.stride() == x.stride()
+    assert torch.equal(_bits(y), _bits(want)) and torch.equal(_bits(y), _bits(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K7_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_cuda_bn_leaky_backward_against_plain_and_float64(cuda_device, shape, dtype,
+                                                          channels_last):
+    """K7's backward, one launch: dx bit-equal to the plain version on the
+    card, in x's memory format; two launches the same bits in all five
+    outputs. dmean, dvar, dgamma and dbeta against their formulas over
+    float64 sums of the same terms: ``SUM_RTOL`` of the sums' Σ|term| (as
+    K5's sums), plus 2^-21 of the value for the finishing products and, for
+    bf16 parameters, 2^-8 for their rounding."""
+    x, dy, mean, var, gamma, beta = _k7_case(sum(shape) + 3, shape, dtype, channels_last,
+                                             cuda_device)
+    before = (bn_leaky.bn_leaky_dx.launches, bn_leaky.bn_leaky_dx.dy_copies)
+    got = bn_leaky.bn_leaky_dx(x, dy, mean, var, gamma, beta, EPS, SLOPE)
+    again = bn_leaky.bn_leaky_dx(x, dy, mean, var, gamma, beta, EPS, SLOPE)
+    want = bn_leaky.bn_leaky_dx_plain(x, dy, mean, var, gamma, beta, EPS, SLOPE)
+    torch.cuda.synchronize()
+    assert (bn_leaky.bn_leaky_dx.launches, bn_leaky.bn_leaky_dx.dy_copies) == (
+        before[0] + 2, before[1])
+    assert got[0].dtype == dtype and got[0].stride() == x.stride()
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, again))
+    assert [t.dtype for t in got[1:]] == [torch.float32, torch.float32, dtype, dtype]
+    view = (1, -1, 1, 1)
+    r = torch.rsqrt(var + EPS)
+    s = (gamma.float() * r).to(dtype)
+    d = x - mean.to(dtype).view(view)
+    v = d * s.view(view) + beta.to(dtype).view(view)
+    g = torch.where(v >= 0, dy.float(), dy.float() * SLOPE).double()
+    gd = g * d.double()
+    s0, s1 = g.sum(dim=(0, 2, 3)), gd.sum(dim=(0, 2, 3))
+    a0, a1 = g.abs().sum(dim=(0, 2, 3)), gd.abs().sum(dim=(0, 2, 3))
+    r64, s64, gamma64 = r.double(), s.double(), gamma.double()
+    rounding = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    for value, ref, scale, rnd in (
+            (got[1], -s64 * s0, a0 * s64.abs(), 0.0),
+            (got[2], -0.5 * s1 * gamma64 * r64 ** 3, a1 * 0.5 * gamma64 * r64 ** 3, 0.0),
+            (got[3], s1 * r64, a1 * r64, rounding), (got[4], s0, a0, rounding)):
+        err = (value.double() - ref).abs()
+        assert bool((err <= bn_stats.SUM_RTOL * scale + (rnd + 2.0 ** -21) * ref.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 416, 416), (2, 1024, 13, 13), (3, 40, 9, 11)])
+def test_cuda_bn_leaky_one_kernel_each_way_and_dy_in_the_other_layout(cuda_device, shape):
+    """One device kernel each way (by the profiler, where it records the
+    card), named ``bn_leaky_fwd_*`` and ``bn_leaky_bwd_*``; a dy in the
+    other memory format than x is copied to x's once and gives the same
+    bits. Tolerance: none."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for channels_last in (True, False):
+            x, dy, mean, var, gamma, beta = _k7_case(5, shape, dtype, channels_last, cuda_device)
+            args = (mean, var, gamma, beta, EPS, SLOPE)
+            with torch.no_grad():
+                names = _device_kernels(lambda: bn_leaky.bn_leaky(x, *args))
+            if names:  # the profiler may show no device activity on some machines
+                assert len(names) == 1 and "bn_leaky_fwd_" in names[0], names
+            names = _device_kernels(lambda: bn_leaky.bn_leaky_dx(x, dy, *args))
+            if names:
+                assert len(names) == 1 and "bn_leaky_bwd_" in names[0], names
+            want = bn_leaky.bn_leaky_dx(x, dy, *args)
+            other = dy.contiguous(memory_format=torch.contiguous_format if channels_last
+                                  else torch.channels_last)
+            copies = bn_leaky.bn_leaky_dx.dy_copies
+            got = bn_leaky.bn_leaky_dx(x, other, *args)
+            torch.cuda.synchronize()
+            assert bn_leaky.bn_leaky_dx.dy_copies == copies + 1
+            assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_bn_leaky_raises_on_what_it_does_not_take(cuda_device):
+    x, dy, mean, var, gamma, beta = _k7_case(1, (2, 8, 6, 6), torch.float32, False, cuda_device)
+    for args, match in (((x[:, :, ::2], mean, var, gamma, beta), "layout"),
+                        ((x.half(), mean, var, gamma, beta), "activation"),
+                        ((x, mean.double(), var, gamma, beta), "statistics"),
+                        ((x, mean, var, gamma, beta.bfloat16()), "parameters")):
+        with pytest.raises(ValueError, match=match):
+            bn_leaky.bn_leaky(*args, EPS, SLOPE)
+    with pytest.raises(ValueError, match="statistics"):
+        bn_leaky.bn_leaky_dx(x, dy, mean[:4], var, gamma, beta, EPS, SLOPE)
+
+
+@pytest.mark.cuda
+def test_cuda_training_tail_k7_cannot_take_raises(cuda_device):
+    """``layers.batch_norm``'s route on the card: a dense f32 tail is
+    ``fused``, a float64 one (the referee's precision) evaluates the plain
+    expression by its reason, any other tail K7 does not take raises (the
+    statistics given, so that K5 does not refuse the activation first)."""
+    x, _, mean, var, gamma, beta = _k7_case(2, (2, 8, 6, 6), torch.float32, False, cuda_device)
+    assert bn_leaky.route(x, mean, var, gamma, beta) == "fused"
+    assert bn_leaky.route(x.double(), mean, var, gamma, beta) == "activation torch.float64 4-d"
+    params, state = {"gamma": gamma, "beta": beta}, {"mean": mean, "var": var}
+    for xi, moments, match in ((x[:, :, ::2], (mean, var), "layout"),
+                               (x.half(), (mean, var), "activation"),
+                               (x, (mean.double(), var), "statistics")):
+        with pytest.raises(ValueError, match=match):
+            L.batch_norm(xi, params, state, train=True, moments=moments, leaky=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_step_routes_every_bn_tail_through_k7(cuda_device, dtype, monkeypatch):
+    """The tiny model's loss and gradients on the card (B=2, 96², Keras-default
+    weights): every one of its 11 BN tails through K7 (one launch each way
+    a tail), and with ``remat: conv`` the recomputed tails too; against the
+    same step with K7's route refused (the plain expression on the card).
+    Tolerance: the loss 1e-6 relative (the forward is bit-equal; the convs
+    may pick other algorithms); in f32 (IEEE, as the port's fp32 step pins
+    it) every gradient leaf within 1e-4 of its
+    largest entry of the plain step's, K7 with and without remat the same
+    (K7's sums against autograd's, through 13 layers)."""
+    import os
+
+    from yolov3_tpu_torch.device import pin_fp32_ieee
+    from yolov3_tpu_torch.models import network as tnet
+    from yolov3_tpu_torch.models.spec import parse_model_config
+    from yolov3_tpu_torch.parallel import train_step as tts
+    from yolov3_tpu_torch.tree import tree_leaves
+
+    if dtype == torch.float32:
+        pin_fp32_ieee(cuda_device)  # as the port's fp32 train step: no TF32 in the convs
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = parse_model_config(os.path.join(root, "config/models/yolov3_tiny/model.yaml"), 3)
+    params, state = (tnet.to_device(t, cuda_device)
+                     for t in tnet.init_model(spec, torch.Generator().manual_seed(0)))
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.rand(2, 96, 96, 3).astype(np.float32)).to(cuda_device)
+    labels = np.zeros((2, 10, 6), np.float32)
+    labels[:, :2] = [[0.2, 0.2, 0.5, 0.6, 1, 1], [0.5, 0.1, 0.9, 0.4, 1, 2]]
+    anchors = np.array([[0.1, 0.1], [0.2, 0.2], [0.3, 0.3], [0.4, 0.4], [0.5, 0.5],
+                        [0.6, 0.6]], np.float32).reshape(2, 3, 2)
+
+    def step(remat=False):
+        grads, _, m = tts.loss_and_grads(
+            spec, params, state, images, torch.from_numpy(labels).to(cuda_device), anchors,
+            tnet.head_grid_sizes(spec, 96), 2,
+            compute_dtype=None if dtype == torch.float32 else dtype, remat=remat)
+        return tree_leaves(grads), float(m["total_loss"])
+
+    counts = (bn_leaky.bn_leaky.launches, bn_leaky.bn_leaky_dx.launches)
+    tails = bn_leaky.bn_leaky.tails.copy()
+    fused, loss = step()
+    fused_remat, loss_remat = step("conv")
+    torch.cuda.synchronize()
+    assert bn_leaky.bn_leaky.tails - tails == {"fused": 33}
+    assert (bn_leaky.bn_leaky.launches - counts[0], bn_leaky.bn_leaky_dx.launches - counts[1]) == (
+        33, 22)
+    monkeypatch.setattr(bn_leaky, "route", lambda *args: "plain")  # the expression on the card
+    plain, plain_loss = step()
+    assert np.isfinite(loss) and abs(loss - plain_loss) <= 1e-6 * abs(plain_loss)
+    assert abs(loss_remat - loss) <= 1e-6 * abs(loss)
+    if dtype == torch.float32:
+        for got, again, want in zip(fused, fused_remat, plain):
+            scale = max(float(want.abs().max()), 1e-30)
+            assert float((got - want).abs().max()) <= 1e-4 * scale
+            assert float((again - got).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_stem_s2d_step_routes_every_bn_tail_through_k7(cuda_device, dtype, monkeypatch):
+    """YOLOv3's train step with the space-to-depth stem (B=2, 96², seeded
+    init): all 72 BN tails through K7,
+    the stem's four phase groups among them with the tiled vectors, one
+    launch each way a tail; against the same step with the plain expression
+    on the card. Tolerance: the loss 1e-6 relative (the forward is
+    bit-equal; the convs may pick other algorithms); every gradient leaf
+    finite."""
+    import os
+
+    from yolov3_tpu_torch.device import pin_fp32_ieee
+    from yolov3_tpu_torch.models import network as tnet
+    from yolov3_tpu_torch.models.spec import parse_model_config
+    from yolov3_tpu_torch.ops.s2d import s2d_stem_train
+    from yolov3_tpu_torch.parallel import train_step as tts
+    from yolov3_tpu_torch.tree import tree_leaves
+
+    if dtype == torch.float32:
+        pin_fp32_ieee(cuda_device)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = parse_model_config(os.path.join(root, "config/models/yolov3/model.yaml"), 3)
+    params, state = (tnet.to_device(t, cuda_device)
+                     for t in tnet.init_model(spec, torch.Generator().manual_seed(0)))
+    s2d = s2d_stem_train(spec, 96)
+    assert s2d is not spec
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.rand(2, 96, 96, 3).astype(np.float32)).to(cuda_device)
+    labels = np.zeros((2, 10, 6), np.float32)
+    labels[:, :2] = [[0.2, 0.2, 0.5, 0.6, 1, 1], [0.5, 0.1, 0.9, 0.4, 1, 2]]
+    anchors = np.array([[0.02, 0.03], [0.04, 0.07], [0.08, 0.06], [0.07, 0.15], [0.15, 0.11],
+                        [0.14, 0.29], [0.28, 0.22], [0.38, 0.48], [0.9, 0.78]],
+                       np.float32).reshape(3, 3, 2)
+
+    def step():
+        grads, _, m = tts.loss_and_grads(
+            s2d, params, state, images, torch.from_numpy(labels).to(cuda_device), anchors,
+            tnet.head_grid_sizes(spec, 96), 2,
+            compute_dtype=None if dtype == torch.float32 else dtype)
+        return tree_leaves(grads), float(m["total_loss"])
+
+    counts = (bn_leaky.bn_leaky.launches, bn_leaky.bn_leaky_dx.launches)
+    tails = bn_leaky.bn_leaky.tails.copy()
+    grads, loss = step()
+    torch.cuda.synchronize()
+    assert bn_leaky.bn_leaky.tails - tails == {"fused": 72}
+    assert (bn_leaky.bn_leaky.launches - counts[0],
+            bn_leaky.bn_leaky_dx.launches - counts[1]) == (72, 72)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    monkeypatch.setattr(bn_leaky, "route", lambda *args: "plain")
+    _, plain_loss = step()
+    assert np.isfinite(loss) and abs(loss - plain_loss) <= 1e-6 * abs(plain_loss)
 
 
 @pytest.mark.cuda

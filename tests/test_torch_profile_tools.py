@@ -100,6 +100,9 @@ def test_profile_train_main_on_the_cpu(capsys):
     assert "phases (host ms, median a step): {'steps': 2, 'S|step': " in out
     assert list(r["phases"]) == ["steps", "S|step", "S|anchors", "S|assign", "S|forward",
                                  "S|loss", "S|backward", "S|optimizer"]
+    # the tiny's 11 BN convs train; on the CPU none of their tails takes K7
+    assert "bn tails fused 0 of 11 a step (fell back: {'not cuda': 11.0})" in out
+    assert r["bn_tails"] == {"not cuda": 11.0}
     with pytest.raises(ValueError, match="--dump_hlo"):
         profile_train.main(tiny + ["--dump_hlo", "x.txt", "--device", "cpu"])
     if not torch.cuda.is_available():

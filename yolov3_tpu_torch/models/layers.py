@@ -30,6 +30,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda import bn_leaky
 from ..ops.cuda.bn_stats import bn_moments
 from ..ops.cuda.conv1x1 import conv1x1_int8_requant
 from ..ops.cuda.conv_int8 import conv_int8
@@ -103,8 +104,10 @@ def stats_view(x, phases: int = 1, stats_subsample: int = 1, row0: int = 0):
 
 
 def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM, eps=BN_EPS,
-               phases: int = 1, stats_subsample: int = 1, group=None, moments=None):
-    """Functional BatchNorm over channel axis 1. Returns ``(y, new_state)``.
+               phases: int = 1, stats_subsample: int = 1, group=None, moments=None,
+               leaky: bool = False):
+    """Functional BatchNorm over channel axis 1, then LeakyReLU when
+    ``leaky`` (a conv's tail). Returns ``(y, new_state)``.
 
     In training mode the statistics are the batch's mean and biased variance
     over (N, H, W), computed in f32 whatever ``x``'s dtype by
@@ -135,6 +138,13 @@ def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM
     ``moments`` (training only): the batch's (mean, var), taken elsewhere
     over the bands of a spatial split (``parallel/spatial.py``), on ``x``'s
     device; this call then normalizes ``x``, one band, with them.
+
+    ``leaky`` in training: on the card the normalization and LeakyReLU run
+    as K7 (``ops/cuda/bn_leaky.py``, one launch each way, with the
+    statistics from wherever they came; the phase groups get the vectors
+    tiled to x's channels) or raise (``bn_leaky.route``); a float64 tail
+    there, every tail off the card, and inference evaluate the plain
+    expression. ``bn_leaky.tails`` counts the training tails by route.
     """
     if train:
         if moments is not None:
@@ -151,14 +161,20 @@ def batch_norm(x, bn_params, bn_state, train: bool = False, momentum=BN_MOMENTUM
     else:
         mean, var = bn_state["mean"], bn_state["var"]
         new_state = bn_state
-    scale = bn_params["gamma"] * torch.rsqrt(var + eps)
-    beta = bn_params["beta"]
+    gamma, beta = bn_params["gamma"], bn_params["beta"]
+    if train and leaky:
+        tiled = [v.repeat(phases) if phases > 1 else v for v in (mean, var, gamma, beta)]
+        route = bn_leaky.route(x, *tiled)
+        bn_leaky.bn_leaky.tails[route] += 1
+        if route == "fused":
+            return bn_leaky.bn_leaky_routed(x, *tiled, eps, LEAKY_SLOPE), new_state
+    elif train:
+        bn_leaky.bn_leaky.tails["no leaky"] += 1
+    scale = gamma * torch.rsqrt(var + eps)
     if phases > 1:
         mean, scale, beta = (v.repeat(phases) for v in (mean, scale, beta))
-    shape = (1, -1, 1, 1)
-    y = ((x - mean.to(x.dtype).view(shape))
-         * scale.to(x.dtype).view(shape) + beta.to(x.dtype).view(shape))
-    return y, new_state
+    y = bn_leaky.bn_apply_plain(x, mean, scale, beta)
+    return (leaky_relu(y) if leaky else y), new_state
 
 
 def s2d_phase_kernel_conv0(k):

@@ -166,7 +166,8 @@ def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, leaky, b
     """What follows an fp conv, band by band: BatchNorm (or the bias), then
     LeakyReLU → (y, the BN layer's new state or None). Training-mode
     BatchNorm over more than one band normalizes every band with the
-    statistics of all of them (``spatial.band_moments``)."""
+    statistics of all of them (``spatial.band_moments``); ``layers.batch_norm``
+    applies the LeakyReLU after it (through K7 in training on the card)."""
     moments = None
     if "bn" in on(x.devices[0])[key] and bn_train and len(x.parts) > 1:
         moments = sp.band_moments(x, phases, stats_subsample, bn_group)
@@ -179,9 +180,11 @@ def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, leaky, b
             part, st = L.batch_norm(
                 part, p["bn"], None if bn_state is None else to_device(bn_state, dev),
                 bn_train, phases=phases, stats_subsample=stats_subsample, group=bn_group,
-                moments=None if moments is None else tuple(m.to(dev) for m in moments))
+                moments=None if moments is None else tuple(m.to(dev) for m in moments),
+                leaky=leaky)
             states.append(st)
-        elif "bias" in p:
+            return part
+        if "bias" in p:
             part = part + p["bias"].to(part.dtype).view(1, -1, 1, 1)
         return L.leaky_relu(part) if leaky else part
 

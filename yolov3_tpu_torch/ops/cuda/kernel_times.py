@@ -1,8 +1,10 @@
 """Time K1 (``nms_sweep``), K2 (``round_sweep``), K3 (``conv1x1_int8``), K4
 (``resblock_int8``), K5 (``bn_stats``) and K6 (``conv_int8``) alone on the card,
-at the shapes ``chip_smoke.py`` holds them at, and the exact NMS's escalation.
+at the shapes ``chip_smoke.py`` holds them at, K7 (``bn_leaky``) at every
+BatchNorm tail of the two train configurations, and the exact NMS's
+escalation.
 
-    PYTHONPATH=. python3 yolov3_tpu_torch/ops/cuda/kernel_times.py [k1 … k6] [nms]
+    PYTHONPATH=. python3 yolov3_tpu_torch/ops/cuda/kernel_times.py [k1 … k7] [nms]
     PYTHONPATH=. python3 yolov3_tpu_torch/ops/cuda/kernel_times.py k4parts k2threads
     PYTHONPATH=<other checkout> python3 yolov3_tpu_torch/ops/cuda/kernel_times.py k2 k4
 
@@ -10,7 +12,7 @@ The script imports the ``yolov3_tpu_torch`` that ``PYTHONPATH`` names and uses
 only the wrappers' public functions, so the second form times another
 checkout's kernels (say the parent commit's, unpacked with ``git archive``)
 on the same card in the same run: run the two in turns to compare them.
-The arguments pick what to time (K1–K6 without any). One JSON line a
+The arguments pick what to time (K1–K7 without any). One JSON line a
 shape: ``ms``, the mean milliseconds of a call over a loop between two CUDA
 events (the larger of the host's cost of a call and the device's), and for
 K1–K4 ``device_us``, the device microseconds of one call from torch.profiler
@@ -26,7 +28,13 @@ K. Two arguments time what a kernel's design spends its time on:
 (``RESBLOCK_CUT``: the squeeze, the expand, the expand's products, the
 shortcut epilogue) and times each beside the whole kernel at K4's shapes;
 ``k2threads`` times K2 at its plan's cluster with 64 to 1,024 threads a
-block.
+block. ``k7`` times K7 forward and backward at each distinct BatchNorm tail
+of YOLOv3-416 at B=64 and YOLOv3-tiny at B=128 (bf16, both memory layouts)
+beside its bytes bound (forward: x read, y written; backward: x and dy
+read, dx written; at 3.35 TB/s) and the plain expression it replaced
+(forward, and autograd's backward of it), then each model's sum over its
+tails, a tail counted as often as the model has it, with the bound's share
+of the summed device time each way.
 
 The probes this needs beside the kernels (K2's latency floor,
 ``probes/round_floor.cu``, and K4's variants) are built by ``build_probes``
@@ -94,6 +102,15 @@ K4_CASES = tuple((16, hw, c) for hw, c in K4_STAGES) + ((1, 13, 1024), (4, 13, 1
 # (B, C, H, W) BatchNorm inputs of YOLOv3-416 at B=16, and one odd shape
 K5_SHAPES = ((16, 32, 416, 416), (16, 64, 208, 208), (16, 256, 52, 52), (16, 512, 26, 26),
              (16, 1024, 13, 13), (3, 32, 5, 7))
+# K7: (model, batch, {(C, H = W): BatchNorm tails of that shape}) of the two
+# train configurations at 416
+K7_TAILS = (
+    ("yolov3", 64, {(32, 416): 1, (32, 208): 1, (64, 208): 2, (64, 104): 2, (128, 104): 3,
+                    (128, 52): 11, (256, 52): 12, (128, 26): 1, (256, 26): 11, (512, 26): 12,
+                    (256, 13): 1, (512, 13): 7, (1024, 13): 8}),
+    ("yolov3_tiny", 128, {(16, 416): 1, (32, 208): 1, (64, 104): 1, (128, 52): 1, (256, 26): 2,
+                          (128, 13): 1, (256, 13): 1, (512, 13): 2, (1024, 13): 1}))
+HBM_BYTES_PER_S = 3.35e12
 
 
 def cuda_ms(fn, reps):
@@ -389,7 +406,7 @@ def main(argv) -> int:
     from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel, resblock,
                                            round_sweep)
 
-    picked = set(argv) or {"k1", "k2", "k3", "k4", "k5", "k6"}
+    picked = set(argv) or {"k1", "k2", "k3", "k4", "k5", "k6", "k7"}
     own_package = (os.path.realpath(os.path.dirname(yolov3_tpu_torch.__file__))
                    == os.path.realpath(os.path.join(PROBES, "..", "..", "..")))
 
@@ -538,7 +555,63 @@ def main(argv) -> int:
                                   dtype=str(dtype).split(".")[-1], memory="nchw",
                                   bn_moments_ms=fwd, bn_moments_dx_ms=bwd)), flush=True)
             del x
+    for model, batch, tails in K7_TAILS if "k7" in picked else ():
+        k7_times(model, batch, tails)
     return 0
+
+
+def k7_times(model, batch, tails):
+    """K7 at each of a model's BatchNorm tails (see the module's docstring),
+    one JSON line a shape and layout, then one for the model's sums."""
+    from yolov3_tpu_torch.ops.cuda import bn_leaky
+
+    eps, slope = 1e-3, 0.1
+    totals = {}
+    for (c, hw), count in tails.items():
+        for fmt in (torch.channels_last, torch.contiguous_format):
+            gen = torch.Generator(device="cuda").manual_seed(c + hw)
+            shape = (batch, c, hw, hw)
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2.0).to(
+                torch.bfloat16).contiguous(memory_format=fmt)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16).contiguous(
+                memory_format=fmt)
+            mean = x.float().mean(dim=(0, 2, 3))
+            var = x.float().var(dim=(0, 2, 3), unbiased=False)
+            gamma = (torch.rand(c, generator=gen, device="cuda") * 0.4 + 0.8).to(torch.bfloat16)
+            beta = (torch.rand(c, generator=gen, device="cuda") * 0.4 - 0.2).to(torch.bfloat16)
+            args = (mean, var, gamma, beta, eps, slope)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (x, *args[:4])]
+
+            def plain_backward():
+                y = bn_leaky.bn_leaky_plain(*leaves, eps, slope)
+                torch.autograd.grad(y, leaves, dy)
+
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: bn_leaky.bn_leaky(x, *args), 20)
+                fwd_us = device_us(lambda: bn_leaky.bn_leaky(x, *args))
+                plain_fwd = cuda_ms(lambda: bn_leaky.bn_leaky_plain(x, *args), 10)
+            bwd = cuda_ms(lambda: bn_leaky.bn_leaky_dx(x, dy, *args), 20)
+            bwd_us = device_us(lambda: bn_leaky.bn_leaky_dx(x, dy, *args))
+            plain_bwd = cuda_ms(plain_backward, 10)
+            nbytes = x.numel() * x.element_size()
+            row = dict(fwd_ms=fwd, fwd_device_us=fwd_us, fwd_bound_ms=2 * nbytes / HBM_BYTES_PER_S
+                       * 1e3, bwd_ms=bwd, bwd_device_us=bwd_us,
+                       bwd_bound_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3, plain_fwd_ms=plain_fwd,
+                       plain_fwd_bwd_ms=plain_bwd)
+            layout = "channels_last" if fmt == torch.channels_last else "nchw"
+            print(json.dumps(dict(kernel="bn_leaky", model=model, shape=list(shape),
+                                  dtype="bfloat16", memory=layout, tails=count, **row)),
+                  flush=True)
+            total = totals.setdefault(layout, dict.fromkeys(row, 0.0))
+            for k, v in row.items():
+                total[k] += count * (v or 0.0)
+            del x, dy, leaves
+    for layout, t in totals.items():
+        print(json.dumps(dict(kernel="bn_leaky", model=model, batch=batch, memory=layout,
+                              tails=sum(tails.values()), sums=t,
+                              fwd_share_of_bound=t["fwd_bound_ms"] * 1e3 / t["fwd_device_us"],
+                              bwd_share_of_bound=t["bwd_bound_ms"] * 1e3 / t["bwd_device_us"])),
+              flush=True)
 
 
 if __name__ == "__main__":

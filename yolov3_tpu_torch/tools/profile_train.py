@@ -14,7 +14,10 @@ The step is the port's ``make_train_step`` (Adam 1e-3, bf16 unless
 and the JAX tool's three boxes per image. ``wall`` is the host clock over
 ``--steps`` steps ending in a synchronize (the host's launches included);
 ``phases`` the median host ms a step of the step's spans (``S|step`` and
-its phases, ``utils/profiling.py::phase_summary``) over those steps.
+its phases, ``utils/profiling.py::phase_summary``) over those steps, and
+``bn tails`` how many training BatchNorm tails a step ran through K7
+(``ops/cuda/bn_leaky.py``), why the others did not, and how many of K7's
+backward launches a step had their gradient copied to x's memory format.
 ``--trace`` profiles two more steps (``ops/cuda/kernel_times.profile_window``)
 and prints the device-busy ms per step, the kernel launch calls a step by
 the phase span they were made in (on any thread: the autograd engine's
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.cuda.bn_leaky import bn_leaky, bn_leaky_dx
 from ..utils.profiling import phase_summary, span_records
 from . import _measure as M
 
@@ -159,6 +163,8 @@ def main(argv=None):
     print(f"warm loss {float(m['total_loss']):.3f}", file=sys.stderr)
 
     spans_from = time.perf_counter_ns()
+    bn_leaky.tails.clear()
+    dy_copies = bn_leaky_dx.dy_copies
     t0 = time.perf_counter()
     losses = []
     for _ in range(args.steps):
@@ -176,9 +182,17 @@ def main(argv=None):
           + ("not measured" if peak_gb is None else f"{peak_gb:.2f} GB (max_memory_allocated)")
           + f"; device: {M.device_text(device)}", flush=True)
     print(f"phases (host ms, median a step): {phases}", flush=True)
+    tails = {route: n / args.steps for route, n in bn_leaky.tails.most_common()}
+    others = {route: n for route, n in tails.items() if route != "fused"}
+    copies = (bn_leaky_dx.dy_copies - dy_copies) / args.steps
+    print(f"bn tails fused {tails.get('fused', 0):g} of {sum(tails.values()):g} a step"
+          + (f" (fell back: {others})" if others else "")
+          + (f"; {copies:g} gradients a step copied to the tail's layout" if copies else ""),
+          flush=True)
     result = dict(batch=b, image_size=args.image_size, fp32=args.fp32, wall_ms=dt * 1e3,
                   img_per_sec=b / dt, peak_gb=peak_gb, loss=total,
-                  losses=[float(x) for x in losses], phases=phases, device=device)
+                  losses=[float(x) for x in losses], phases=phases, bn_tails=tails,
+                  device=device)
     if not args.trace:
         return result
     if dev.type != "cuda":
