@@ -200,6 +200,13 @@ Phases (any failure exits non-zero):
      with ``spatial_partitioning: 2`` answering as the plain server; (e)
      ``evaluate`` of the trained tiny at 416 with S = 2 over [0.004, 0.5],
      counters and APs equal to the unsharded run's, K2 launched;
+ 25b. YOLOv4 at 608², B=2 (``config/models/yolov4/``: Mish, SPP, PAN,
+     ``scale_x_y``): ``tests/test_torch_yolov4_cuda.py``'s cases in this
+     process (the bf16 and fp32 predictors against the plain float32
+     reference on the card, the NMS selection index for index), the spec's
+     72 Mish, 35 leaky and 3 linear tails, and one profiled bf16 forward of
+     the cases' seeded weights: the symbols and device ms of its kernels
+     named ``mish``;
  26. the training-quality recipe (``python -m
      yolov3_tpu_torch.tools.train_convergence``, in this process; outputs
      under ``build/smoke_convergence/``): YOLOv3-tiny at 416² trained from
@@ -4383,6 +4390,41 @@ def phase_spatial(inference_app, serve_app, evaluate_app, nms_kernel, round_swee
     return row, total
 
 
+# --- phase 25b: YOLOv4 at 608² (config/models/yolov4/) ---
+
+
+def phase_yolov4(smi):
+    """Phase 25b (see the module's doc) → its row."""
+    from tests import test_torch_yolov4_cuda as cases
+    from yolov3_tpu_torch.models import apply_model, fold_batch_norm
+    from yolov3_tpu_torch.models.network import to_device
+    from yolov3_tpu_torch.ops.cuda.kernel_times import profile_window
+    from yolov3_tpu_torch.reference.yolov4_plain import ieee_fp32
+
+    ieee_fp32()  # the reference's float32, as the cases' fixture sets it
+    model = cases.seeded_model(cases.SIZE, cases.BATCH, "cuda")
+    for dtype in ("fp32", "bf16"):  # each prints its readings, raises on a miss
+        cases.test_predictor_against_the_reference_on_the_card(model, dtype)
+    spec = model["spec"]
+    folded = to_device(fold_batch_norm(model["params"], model["state"]), "cuda", torch.bfloat16)
+    images = model["images"].to(torch.bfloat16)
+
+    def forward():
+        with torch.inference_mode():
+            apply_model(spec, folded, {}, images)
+
+    tails = spec.activation_counts
+    _, _, records = profile_window(forward)
+    mish = sorted({name for _, name, _ in records if "mish" in name.lower()})
+    row = dict(card=smi, tails=tails, mish_symbols=mish,
+               mish_device_ms=sum(us for _, name, us in records if name in mish) / 1e3,
+               forward_device_ms=sum(us for _, _, us in records) / 1e3)
+    log(f"phase 25b: {json.dumps(row)}")
+    if tails != {"mish": 72, "leaky": 35, "linear": 3} or not mish:
+        raise AssertionError(f"phase 25b: tails {tails}, kernels named mish {mish}")
+    return row
+
+
 # --- phase 26: the training-quality recipe (tools/train_convergence.py) ---
 
 CONVERGENCE_DIR = os.path.join(ROOT, "build", "smoke_convergence")
@@ -5496,6 +5538,10 @@ def main() -> int:
         launches[name] += count
     k5_launches[1] += spatial_row["b_training"]["k5_launches"]["backward"]
 
+    # YOLOv4 at 608²: the card tests, its tails and its Mish kernels
+    torch.cuda.empty_cache()
+    yolov4_row = timed("yolov4", phase_yolov4, smi)
+
     # the training-quality recipe: K5 counted over its training run, K1, K3
     # and K6 over its three evaluations, each set to 0 just before
     torch.cuda.empty_cache()
@@ -5598,7 +5644,7 @@ def main() -> int:
                     "inference": infer_row, "offline_launches": offline,
                     "train_extras": extras, "convert": convert_row,
                     "recalibrate": recal_row, "artifact": artifact_row,
-                    "data_parallel": dp_row, "spatial": spatial_row,
+                    "data_parallel": dp_row, "spatial": spatial_row, "yolov4": yolov4_row,
                     "convergence": convergence_row, "transfer": transfer_row,
                     "dataset_tools": tools_row, "measurement_tools": measure_row,
                     "browser": browser_row, "native_build": dataclasses.asdict(native_build),

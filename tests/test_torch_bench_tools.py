@@ -498,8 +498,12 @@ def test_latency_profile_inference_eval_mfu_resblock_mains_on_the_cpu(capsys):
                                        "--passes", "1", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "device: cpu, batch 2 @ 64"
-    assert [ln.split(":")[0].strip() for ln in lines[1:]] == list(profile_inference.STAGES)
-    assert all("ms/batch" in ln and ln.endswith("img/s") for ln in lines[1:])
+    stages = lines[1:1 + len(profile_inference.STAGES)]
+    assert [ln.split(":")[0].strip() for ln in stages] == list(profile_inference.STAGES)
+    assert all("ms/batch" in ln and ln.endswith("img/s") for ln in stages)
+    assert lines[1 + len(stages):] == [
+        "activation tails a forward: mish 0, leaky 11, linear 2; mish kernels: not measured"]
+    assert r["activation_tails"] == {"mish": 0, "leaky": 11, "linear": 2}
 
     profile_eval.main(["--batch", "1", "--image_size", "32", "--iters", "1",
                        "--thresholds", "0.004,0.5", "--device", "cpu"])

@@ -68,9 +68,11 @@ def make_sweepable_predictor(spec, params, bn_state, anchors_table, nclasses,
             np.asarray(anchors_table), dtype=torch.float32, device=bands[0]),
             bands if len(bands) > 1 else None))
 
+    scales = spec.head_scales()
+
     def run(x, run_params, anchors, bands, iou_threshold, score_threshold, num_candidates):
         outputs = apply_model(spec, run_params, {}, x, devices=bands)
-        boxes, conf, probs = yolo_decode(outputs, anchors, nclasses)
+        boxes, conf, probs = yolo_decode(outputs, anchors, nclasses, scales)
         return yolo_nms(boxes, conf, probs, max_boxes=yolo_max_boxes,
                         iou_threshold=iou_threshold, score_threshold=score_threshold,
                         num_candidates=num_candidates, per_class=nms_per_class)

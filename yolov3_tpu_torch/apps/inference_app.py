@@ -33,6 +33,7 @@ from ..export.aot import as_predict
 from ..io.resolve import load_weights, save_weights
 from ..models import apply_model, fold_batch_norm, init_model, parse_model_config
 from ..models.network import pack_fused_stages, to_device
+from ..models.spec import require_activations
 from ..ops.decode import yolo_decode
 from ..ops.nms import yolo_nms
 from ..ops.quantize import calibrate_scales, quantize_params
@@ -76,6 +77,7 @@ class Detector(torch.nn.Module):
         self.nms = dict(max_boxes=int(max_boxes), iou_threshold=float(iou_threshold),
                         score_threshold=float(score_threshold), per_class=bool(per_class))
         self.register_buffer("anchors", anchors)
+        self.scales = spec.head_scales()
         names = {}
         self._layout = {"params": self._register(params, ("params",), names),
                         "state": self._register(state, ("state",), names)}
@@ -105,7 +107,7 @@ class Detector(torch.nn.Module):
         x = images if self.compute_dtype is None else images.to(self.compute_dtype)
         outputs = apply_model(self.spec, self.tree("params"), self.tree("state"), x,
                               devices=self.bands)
-        boxes, conf, probs = yolo_decode(outputs, self.anchors, self.nclasses)
+        boxes, conf, probs = yolo_decode(outputs, self.anchors, self.nclasses, self.scales)
         return yolo_nms(boxes, conf, probs, **self.nms)
 
 
@@ -162,6 +164,7 @@ def make_predictor(spec, params, bn_state, anchors_table, nclasses, yolo_max_box
     run_params = fold_batch_norm(params, bn_state) if fold_bn else params
     run_state = {} if fold_bn else to_device(bn_state, dev)
     if quantize in ("int8", "int8_chain"):
+        require_activations(spec, ("linear", "leaky"), f"make_predictor(quantize={quantize!r})")
         if not fold_bn:
             raise ValueError("int8 quantization requires fold_bn=True")
         if not calibration_batches:

@@ -151,6 +151,16 @@ def build_graph_topology(spec, folded_params, image_size: int):
     {"kernel", "bias"}). Returns ``(graph, input_name, output_names)`` with
     ``graph`` a ``GraphTopology`` and names node names (tensor = name + ":0").
     """
+    # imported here: loading a serving artifact imports this package, and no model code
+    from ..models.spec import require_activations
+
+    require_activations(spec, ("linear", "leaky"), "the TFJS export")
+    # the browser's decode (js/src/decode.js) is YOLOv3's box equation
+    for k, scale in enumerate(spec.head_scales()):
+        if scale != 1.0:
+            raise NotImplementedError(
+                f"the TFJS export: head {k} has scale_x_y {scale}, which the browser's decode "
+                "cannot compute (only 1)")
     g = _GraphBuilder()
     images = g.node(g.unique("images"), "Placeholder", (), {
         "dtype": dict(_T), "shape": {"shape": _shape_json((1, image_size, image_size, 3))}},

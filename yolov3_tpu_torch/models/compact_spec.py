@@ -17,7 +17,7 @@ importer, checkpoints and transfer utilities all work unchanged.
 from __future__ import annotations
 
 from ..config import load_yaml, safe_eval_expr
-from .spec import LayerSpec, ModelSpec, SubModelSpec, _attrs
+from .spec import ACTIVATIONS, LayerSpec, ModelSpec, SubModelSpec, _attrs
 
 NUM_ANCHORS = 3
 
@@ -77,7 +77,9 @@ def parse_compact_model_config(path: str, nclasses: int) -> ModelSpec:
                     filters, k, s = int(args[0]), int(args[1]), int(args[2])
                     pad = int(args[3]) if len(args) > 3 else 1
                     bn = bool(args[4]) if len(args) > 4 else True
-                    act = "leaky" if (len(args) > 5 and args[5]) else "linear"
+                    # a truthy flag is LeakyReLU; a name is that activation
+                    act = args[5] if len(args) > 5 else False
+                    act = act if act in ACTIVATIONS else "leaky" if act else "linear"
                     layers.append(LayerSpec("convolutional", _attrs({
                         "filters": filters, "size": k, "stride": s, "pad": pad,
                         "batch_normalize": bn, "activation": act,

@@ -27,7 +27,7 @@ so a stock 80-class cfg trains on any dataset without editing.
 
 from __future__ import annotations
 
-from .spec import LayerSpec, ModelSpec, SubModelSpec, _attrs
+from .spec import ACTIVATIONS, LayerSpec, ModelSpec, SubModelSpec, _attrs, _scale_x_y
 
 
 def _read_sections(path: str):
@@ -156,6 +156,8 @@ def write_darknet_cfg(spec: ModelSpec, path: str, image_size: int = 416,
                     f"mask = {mask_base},{mask_base + 1},{mask_base + 2}")
                 if anchors_str:
                     lines.append(f"anchors = {anchors_str}")
+                if "scale_x_y" in dict(layer.attrs):
+                    lines.append(f"scale_x_y = {layer['scale_x_y']}")
                 lines += [f"classes={spec.nclasses}", f"num={3 * n_yolo}", ""]
                 yolo_count += 1
             else:
@@ -176,10 +178,10 @@ def parse_darknet_cfg(path: str, nclasses: int) -> ModelSpec:
     for idx, (name, conf) in enumerate(layer_sections):
         if name == "convolutional":
             activation = conf.get("activation", "linear")
-            if activation not in ("linear", "leaky"):
+            if activation not in ACTIVATIONS:
                 raise ValueError(
                     f"{path}: [convolutional] #{idx} activation "
-                    f"{activation!r} unsupported (linear | leaky)")
+                    f"{activation!r} unsupported ({' | '.join(ACTIVATIONS)})")
             layers.append(LayerSpec("convolutional", _attrs({
                 "filters": int(conf["filters"]),
                 "size": int(conf["size"]),
@@ -222,7 +224,8 @@ def parse_darknet_cfg(path: str, nclasses: int) -> ModelSpec:
                         f"filters ({prev['filters']}) don't match "
                         f"{mask_len}*(classes+5) — edit the cfg")
             yolo_indices.append(len(layers))
-            layers.append(LayerSpec("yolo", _attrs({})))
+            layers.append(LayerSpec("yolo", _attrs(
+                {"scale_x_y": _scale_x_y(conf["scale_x_y"])} if "scale_x_y" in conf else {})))
         else:
             raise ValueError(
                 f"{path}: unsupported section [{name}] — this parser covers "

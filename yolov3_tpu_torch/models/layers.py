@@ -201,6 +201,12 @@ def leaky_relu(x, slope=LEAKY_SLOPE):
     return torch.where(x >= 0, x, x * slope)
 
 
+def mish(x):
+    """Mish (Misra, arXiv:1908.08681), YOLOv4's backbone activation:
+    ``x·tanh(softplus(x))``, ATen's kernel in ``x``'s dtype."""
+    return F.mish(x)
+
+
 def upsample_nearest(x, stride: int):
     return x.repeat_interleave(stride, dim=2).repeat_interleave(stride, dim=3)
 

@@ -74,8 +74,10 @@ def _deq(x, fp_dtype):
 def _route_sources(layer: LayerSpec, inputs_entry, layer_outs, fp_dtype):
     """Reference core/parse_model.py:102-140 route semantics, band by band
     (the sources' bands agree: rows owned on the coarsest grid, see
-    ``parallel/spatial.py``). Quantized sources of a concat are dequantized:
-    int8 tensors with different scales have no single-scale concatenation."""
+    ``parallel/spatial.py``); any number of sources concatenate in their
+    order (Darknet's route, e.g. YOLOv4's four-way SPP join). Quantized
+    sources of a concat are dequantized: int8 tensors with different scales
+    have no single-scale concatenation."""
     source = dict(layer["source"])
     selected = []
     if "layers" in source:
@@ -87,14 +89,15 @@ def _route_sources(layer: LayerSpec, inputs_entry, layer_outs, fp_dtype):
             selected.append(inputs_entry)
     if len(selected) == 1:
         return selected[0]
-    if len(selected) != 2:
-        raise ValueError(f"Invalid number of route sources: {len(selected)}")
-    a, b = selected
-    if a.starts != b.starts:
-        raise ValueError(f"spatial: a route joins bands {a.starts} and {b.starts}")
-    return a.with_parts([None if pa is None else torch.cat([_deq(pa, fp_dtype),
-                                                            _deq(pb, fp_dtype)], dim=1)
-                         for pa, pb in zip(a.parts, b.parts)])
+    if not selected:
+        raise ValueError("Invalid route: no sources")
+    a = selected[0]
+    for b in selected[1:]:
+        if a.starts != b.starts:
+            raise ValueError(f"spatial: a route joins bands {a.starts} and {b.starts}")
+    return a.with_parts([None if parts[0] is None else torch.cat(
+        [_deq(p, fp_dtype) for p in parts], dim=1)
+        for parts in zip(*(src.parts for src in selected))])
 
 
 def _pool_int8(q, size_xy, stride_xy, padding, pads=None):
@@ -162,12 +165,16 @@ def _params_on(sm_params, devices):
     return functools.lru_cache(maxsize=None)(lambda dev: to_device(sm_params, dev))
 
 
-def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, leaky, bn_group=None):
+def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, activation,
+               bn_group=None):
     """What follows an fp conv, band by band: BatchNorm (or the bias), then
-    LeakyReLU → (y, the BN layer's new state or None). Training-mode
-    BatchNorm over more than one band normalizes every band with the
-    statistics of all of them (``spatial.band_moments``); ``layers.batch_norm``
-    applies the LeakyReLU after it (through K7 in training on the card)."""
+    the layer's ``activation`` (``spec.ACTIVATIONS``) → (y, the BN layer's
+    new state or None). Training-mode BatchNorm over more than one band
+    normalizes every band with the statistics of all of them
+    (``spatial.band_moments``); ``layers.batch_norm`` applies a LeakyReLU
+    after it (through K7 in training on the card). Mish follows the bias
+    (or an inference BatchNorm) as ``layers.mish``."""
+    leaky = activation == "leaky"
     moments = None
     if "bn" in on(x.devices[0])[key] and bn_train and len(x.parts) > 1:
         moments = sp.band_moments(x, phases, stats_subsample, bn_group)
@@ -183,10 +190,10 @@ def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, leaky, b
                 moments=None if moments is None else tuple(m.to(dev) for m in moments),
                 leaky=leaky)
             states.append(st)
-            return part
+            return L.mish(part) if activation == "mish" else part
         if "bias" in p:
             part = part + p["bias"].to(part.dtype).view(1, -1, 1, 1)
-        return L.leaky_relu(part) if leaky else part
+        return L.leaky_relu(part) if leaky else L.mish(part) if activation == "mish" else part
 
     x = x.map(tail)
     return x, (states[0] if states else None)
@@ -261,7 +268,8 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                     x = x.with_parts([None if part is None else next(done) for part in x.parts])
                 stride, pad = layer["stride"], layer.get("pad", 1)
                 explicit = layer.get("explicit_pad")
-                leaky = layer.get("activation") == "leaky"
+                activation = layer.get("activation", "linear")
+                leaky = activation == "leaky"
                 if "kernel_q" in p:
                     k = p["kernel_q"].shape[1]
 
@@ -291,7 +299,7 @@ def _apply_sub_model(sm: SubModelSpec, sm_params, sm_state, inputs_entry,
                     tail = functools.partial(
                         _conv_tail, on=on, key=key, bn_state=sm_state.get(key), bn_train=bn_train,
                         phases=4 if s2d == "conv0" else 1, stats_subsample=bn_stats_subsample,
-                        leaky=leaky, bn_group=bn_group)
+                        activation=activation, bn_group=bn_group)
                     if remat_tail and "bn" in p:
                         x, layer_state = torch.utils.checkpoint.checkpoint(
                             tail, x, use_reentrant=False, preserve_rng_state=False)

@@ -21,6 +21,10 @@ from dataclasses import dataclass, field
 
 from ..config import load_yaml, safe_eval_expr
 
+# A convolution's activation: ``leaky`` is LeakyReLU(0.1), ``mish`` is
+# x·tanh(softplus(x)) (YOLOv4's CSPDarknet53), ``linear`` none.
+ACTIVATIONS = ("linear", "leaky", "mish")
+
 
 @dataclass(frozen=True)
 class LayerSpec:
@@ -76,6 +80,22 @@ class ModelSpec:
     decay_factor: float = 0.0
     grid_sizes: tuple = ()
     nclasses: int = 0
+    # {activation: convolutions} over ``ACTIVATIONS``, counted once when the
+    # spec is built: a forward runs this many tails of each, and what cannot
+    # compute an activation checks it here (``require_activations``)
+    activation_counts: dict = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        acts = [layer.get("activation", "linear") for sm in self.sub_models
+                for layer in sm.layers if layer.kind == "convolutional"]
+        object.__setattr__(self, "activation_counts", {a: acts.count(a) for a in ACTIVATIONS})
+
+    def head_scales(self) -> tuple:
+        """Each head output's ``scale_x_y`` (YOLOv4's grid-sensitivity
+        factor of the box centre, ``ops/decode.py``), in head order; 1.0
+        where the yolo layer states none."""
+        return tuple(float(sm.layers[i].get("scale_x_y", 1.0))
+                     for sm in self.output_sub_models for i in sm.outputs_layers)
 
     @property
     def output_sub_models(self) -> tuple:
@@ -115,7 +135,7 @@ def _parse_layer(layer_conf: dict, nclasses: int) -> LayerSpec:
             else bool(bn_value)
         )
         activation = conf.get("activation", "linear")
-        if activation not in ("linear", "leaky"):
+        if activation not in ACTIVATIONS:
             raise ValueError(f"Invalid activation: {activation}")
     elif kind == "shortcut":
         if conf.get("activation", "linear") != "linear":
@@ -129,10 +149,35 @@ def _parse_layer(layer_conf: dict, nclasses: int) -> LayerSpec:
     elif kind == "route":
         pass  # source dict frozen as-is
     elif kind == "yolo":
-        pass  # grid_size in the DSL is informational; we derive from shapes
+        # grid_size in the DSL is informational; we derive from shapes
+        if "scale_x_y" in conf:
+            conf["scale_x_y"] = _scale_x_y(conf["scale_x_y"])
     else:
         raise ValueError(f"{kind} not recognized as layer type")
     return LayerSpec(kind=kind, attrs=_attrs(conf))
+
+
+def _scale_x_y(value) -> float:
+    scale = float(value)
+    if not scale > 0.0:
+        raise ValueError(f"Invalid scale_x_y: {value}")
+    return scale
+
+
+def require_activations(spec: ModelSpec, allowed: tuple, what: str):
+    """Raise ``NotImplementedError`` naming the first convolution whose
+    activation is not in ``allowed``: ``what`` (a tier, the train step, an
+    export) cannot compute it, and must not run it as something else. Reads
+    the spec's counts first, so that a model it can run costs no walk."""
+    if all(n == 0 for a, n in spec.activation_counts.items() if a not in allowed):
+        return
+    for sm in spec.sub_models:
+        for i, layer in enumerate(sm.layers):
+            activation = layer.get("activation", "linear")
+            if layer.kind == "convolutional" and activation not in allowed:
+                raise NotImplementedError(
+                    f"{what}: layer {sm.name}/layer{i} has activation {activation!r}, which "
+                    f"it cannot compute (only {' | '.join(allowed)})")
 
 
 def _parse_sub_model(sub_conf: dict, nclasses: int, config_dir: str) -> SubModelSpec:

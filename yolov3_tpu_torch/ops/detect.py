@@ -51,10 +51,11 @@ def _flatten_head_fields(outputs, anchors_table):
 
 def detect(outputs, anchors_table, nclasses: int, max_boxes: int = 100,
            iou_threshold: float = 0.5, score_threshold: float = 0.25,
-           num_candidates: int = 256):
+           num_candidates: int = 256, scales=None):
     """Raw head outputs (list of (B, g, g, 3, 5+nc)) → (boxes (B, max_boxes,
     4) xyxy, classes (B, max_boxes), scores (B, max_boxes), valid (B,
-    max_boxes) bool), on the heads' device."""
+    max_boxes) bool), on the heads' device. ``scales``: each head's
+    ``scale_x_y`` (``ops/decode.py``), or None: 1 for every head."""
     anchors_table = torch.as_tensor(anchors_table, dtype=torch.float32,
                                     device=outputs[0].device)
     xy_l, wh_l, obj_l, cls_l, offsets, grid_dims, anchors = _flatten_head_fields(
@@ -72,7 +73,13 @@ def detect(outputs, anchors_table, nclasses: int, max_boxes: int = 100,
         return torch.gather(t, 1, order[..., None].expand(-1, -1, t.shape[-1]))
 
     # decode boxes for candidates only
-    center = (torch.sigmoid(take(xy_l)) + offsets[order]) / grid_dims[order]
+    xy = torch.sigmoid(take(xy_l))
+    if scales is not None and any(s != 1.0 for s in scales):
+        per_anchor = torch.cat([torch.full((o.shape[1] * o.shape[2] * o.shape[3], 1), float(s),
+                                           device=order.device) for o, s in zip(outputs, scales)])
+        s = per_anchor[order]
+        xy = xy * s - (s - 1.0) / 2.0
+    center = (xy + offsets[order]) / grid_dims[order]
     size = torch.exp(take(wh_l)) * anchors[order]
     boxes = torch.cat([center - size / 2, center + size / 2], dim=-1)
     valid = cand_scores > torch.tensor(score_threshold, dtype=torch.float32)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models.network import _infer_channels, apply_model
+from ..models.spec import require_activations
 
 
 def head_conv_taps(spec):
@@ -136,6 +137,7 @@ def quantize_params(spec, folded_params, act_absmax, skip_final_convs: bool = Tr
     ``min_k2cin``: skip convs whose contraction size kernel²·Cin is below
     this threshold (mixed precision for the stem layers).
     """
+    require_activations(spec, ("linear", "leaky"), "int8 quantization")
     final_convs = quantized_conv_skips(spec, skip_final_convs, min_k2cin)
     device = _params_device(folded_params)
 

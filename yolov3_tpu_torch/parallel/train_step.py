@@ -62,6 +62,7 @@ import torch
 
 from ..device import pin_fp32_ieee
 from ..models.network import apply_model, l2_regularization
+from ..models.spec import require_activations
 from ..ops.assign import assign_targets
 from ..ops.augment import apply_augment, draw_augment, step_generator
 from ..ops.loss import yolo_loss_terms
@@ -320,6 +321,7 @@ def loss_and_grads(spec, params, bn_state, images, labels, anchors_table, grid_s
     the gradient of the total loss w.r.t. every leaf of ``params`` (a tree
     like ``params``, f32 at the f32 masters), the BatchNorm state after this
     batch, and the detached metrics. ``bands``: see ``_loss_and_metrics``."""
+    require_activations(spec, ("linear", "leaky"), "loss_and_grads")
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     total, (new_bn, metrics) = _loss_and_metrics(
         spec, tree_unflatten(params, leaves), bn_state, images, labels, anchors_table,
@@ -399,6 +401,7 @@ def make_train_step(spec, anchors_table, grid_sizes, batch_size, optimizer: Opti
     must divide the local batch, so that microbatch k of every rank together
     is the global microbatch k.
     """
+    require_activations(spec, ("linear", "leaky"), "make_train_step")
     aug_options = None if augment is None else dict(augment)
     if aug_options is not None:
         draw_augment(batch_size, step_generator(seed, 0), **aug_options)  # options checked now

@@ -83,8 +83,9 @@ def pipeline(spec, params, anchors, nclasses: int, images, path: str = "classic"
     outs = apply_model(spec, params, {}, images)
     if path == "fused":
         return detect(outs, anchors, nclasses, max_boxes=100, iou_threshold=0.5,
-                      score_threshold=0.25, num_candidates=NUM_CANDIDATES), None
-    boxes, conf, probs = yolo_decode(outs, anchors, nclasses)
+                      score_threshold=0.25, num_candidates=NUM_CANDIDATES,
+                      scales=spec.head_scales()), None
+    boxes, conf, probs = yolo_decode(outs, anchors, nclasses, spec.head_scales())
     nms = yolo_nms(boxes, conf, probs, max_boxes=100, iou_threshold=0.5, score_threshold=0.25,
                    num_candidates=NUM_CANDIDATES)
     return gather_detections(*nms), nms

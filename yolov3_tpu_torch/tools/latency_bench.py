@@ -48,7 +48,8 @@ def one_predict(spec, params, anchors, nclasses: int, image, num_candidates: int
 
     outs = apply_model(spec, params, {}, image)
     boxes, _, scores, valid = detect(outs, anchors, nclasses, max_boxes=100, iou_threshold=0.5,
-                                     score_threshold=0.25, num_candidates=num_candidates)
+                                     score_threshold=0.25, num_candidates=num_candidates,
+                                     scales=spec.head_scales())
     return M.detections_checksum(boxes, scores, valid)
 
 

@@ -44,7 +44,7 @@ def sweep_checksum(spec, params, anchors, nclasses: int, images, thresholds, k: 
     from ..ops.nms import yolo_nms
 
     outs = apply_model(spec, params, {}, images)
-    boxes, conf, probs = yolo_decode(outs, anchors, nclasses)
+    boxes, conf, probs = yolo_decode(outs, anchors, nclasses, spec.head_scales())
     total = torch.zeros((), dtype=torch.float32, device=images.device)
     for thr in thresholds:
         out = yolo_nms(boxes, conf, probs, max_boxes=100, iou_threshold=0.5,

@@ -15,6 +15,13 @@ all once to warm up, then ``--passes`` times; a pass leaves one checksum a
 batch on the device and fetches their sum once after a synchronize, and the
 best pass is reported in ms per batch and img/s (host clock: the host's
 launches included). The NMS stages run K1 at ``--num_candidates``.
+
+Then the model's conv tails by activation (the spec's count, what every
+forward runs), e.g. ``activation tails a forward: mish 72, leaky 35,
+linear 3`` for YOLOv4, and on the card the device ms of one forward's
+kernels whose symbol contains ``mish`` (ATen's Mish kernel, or any fused
+tail that keeps the name), by a profiler window
+(``ops/cuda/kernel_times.profile_window``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,23 @@ from ..device import resolve_device
 from . import _measure as M
 
 STAGES = ("forward", "+decode", "+nms (full pipeline)", "fused-detect")
+ACTIVATIONS = ("mish", "leaky", "linear")
+
+
+def mish_device_ms(spec, params, images):
+    """Device ms of one forward's kernels whose symbol contains ``mish``;
+    None off the card."""
+    if images.device.type != "cuda":
+        return None
+    from ..models import apply_model
+    from ..ops.cuda.kernel_times import profile_window
+
+    def forward():
+        with torch.inference_mode():
+            apply_model(spec, params, {}, images)
+
+    _, _, records = profile_window(forward)
+    return sum(us for _, name, us in records if "mish" in name.lower()) / 1e3
 
 
 def stage_checksum(stage: str, spec, params, anchors, nclasses: int, images,
@@ -48,9 +72,10 @@ def stage_checksum(stage: str, spec, params, anchors, nclasses: int, images,
     if stage == "forward":
         return sum(o.float().sum() for o in outs)
     if stage == "fused-detect":
-        boxes, _, scores, valid = detect(outs, anchors, nclasses, num_candidates=num_candidates)
+        boxes, _, scores, valid = detect(outs, anchors, nclasses, num_candidates=num_candidates,
+                                         scales=spec.head_scales())
         return M.detections_checksum(boxes, scores, valid)
-    boxes, conf, probs = yolo_decode(outs, anchors, nclasses)
+    boxes, conf, probs = yolo_decode(outs, anchors, nclasses, spec.head_scales())
     if stage == "+decode":
         return boxes.sum() + conf.sum() + probs.sum()
     nms = yolo_nms(boxes, conf, probs, max_boxes=100, iou_threshold=0.5, score_threshold=0.25,
@@ -109,7 +134,13 @@ def main(argv=None):
                                images_per_sec=b * args.iters / best, checksum=checksum)
             print(f"  {stage:22s}: {best / args.iters * 1000:7.2f} ms/batch  "
                   f"{b * args.iters / best:7.0f} img/s", flush=True)
-    return dict(batch=b, image_size=s, iters=args.iters, stages=rows, device=device)
+    tails = {a: module.spec.activation_counts[a] for a in ACTIVATIONS}
+    mish_ms = mish_device_ms(module.spec, params, xs[0])
+    print("activation tails a forward: " + ", ".join(f"{a} {n}" for a, n in tails.items())
+          + "; mish kernels: " + ("not measured" if mish_ms is None
+                                  else f"{mish_ms:.3f} device ms a forward"), flush=True)
+    return dict(batch=b, image_size=s, iters=args.iters, stages=rows, device=device,
+                activation_tails=tails, mish_device_ms=mish_ms)
 
 
 if __name__ == "__main__":
