@@ -23,8 +23,11 @@ Phases (any failure exits non-zero):
      [1, 4, 16], fp32 and bf16, encoded images from 48 closed-loop client
      threads (2 s warm-up, then a 5 s measured window per tier), then
      yolo_nms_exact at threshold 0.004 on one served batch's heads;
-     both kernels' launch counters must rise over this run; then the same
-     exact NMS escalating by jumping to K = N against doubling, in turns;
+     both kernels' launch counters must rise over this run; one B=16 call
+     of each served predictor with K8's counts set to 0 just before it
+     (``k8_forward``): ``conv tails fused 75 of 75 a batch``, 75 launches;
+     then the same exact NMS escalating by jumping to K = N against
+     doubling, in turns;
   6. YOLOv3-tiny with the in-repo trained checkpoint on the 32 shapes_toy
      images: the port on the card (fp32, no TF32) against the port on the
      CPU (decoded heads, NMS on the same inputs, served detections; an
@@ -80,7 +83,12 @@ Phases (any failure exits non-zero):
      channels-last (the train cell's): forward bit-equal to
      ``bn_leaky_plain``, dx to ``bn_leaky_dx_plain``, the (C,) gradients
      within K5's sum tolerance of float64, one launch each way, times and
-     bytes bound each way;
+     bytes bound each way; then K8 (the folded fp conv's bias and
+     activation, ``phase_k8``) at every distinct fp tail of the two bf16
+     serving cells (YOLOv3-416 and YOLOv4-608, at B=8 and 4, channels-last):
+     bit-equal to ``bias_act_plain``, one launch a call, times and bytes
+     bound, the host's µs a call through the op and through the plain
+     expression;
  14. one training forward and backward of YOLOv3-416 at B=2, seeded weights
      and labels, fp32 without TF32, the card against the CPU: targets
      bit-equal, loss terms 1e-4 relative, new BN state 1e-4, and every
@@ -140,8 +148,8 @@ Phases (any failure exits non-zero):
      seconds of reading, moving to the card, the 416² forward, writing),
      written back byte-identical from the ``.npz``, then served from the
      converted checkpoint: fp32 heads card vs CPU within 1e-3 at B=4, and
-     ``int8_chain`` at B=16 with K1, K3, K4 and K6 counted over its serving
-     call;
+     ``int8_chain`` at B=16 with K1, K3, K4, K6 and K8 counted over its
+     serving call (K8: 75 in fp32, the 3 heads in ``int8_chain``);
  22. phase 15's fp32 checkpoint recalibrated by ``python -m
      yolov3_tpu_torch.tools.bn_recalibrate`` at 416 over the shapes_toy
      train split (2 batches of 16): on the card exactly 144 K5 forward
@@ -157,8 +165,8 @@ Phases (any failure exits non-zero):
      against the eager predictor (``int8_chain`` bit-equal; fp32
      index-exact, boxes 1e-5, or a near-tie witness), the exported predictor
      bit-equal to its copy from before the export, one loaded B=16 call's
-     launches (``int8_chain``: K1 1, K3 11, K4 23, K6 15; fp32: K1 1, added to
-     the ``kernels`` line), eager against loaded at B=16 in turns (event-loop
+     launches (``int8_chain``: K1 1, K3 11, K4 23, K6 15, K8 3; fp32: K1 1,
+     K8 75; added to the ``kernels`` line), eager against loaded at B=16 in turns (event-loop
      and device-busy ms), the host's µs a call of the K1 and K3 ops against
      their direct ctypes launch, and ``int8_chain`` served from its model keys
      and from its artifact (``Serve``'s ``artifact:`` key) in turns; the fp32
@@ -177,8 +185,9 @@ Phases (any failure exits non-zero):
      step, device-busy ms), the 248 MB gradient all-reduce and one step's 72
      BN all-reduces timed; (c) ``make_predictor(mesh=)`` over ("cuda:0",
      "cuda:0") at B=16 in fp32 and ``int8_chain`` against the single
-     predictor (NMS index-exact, boxes 1e-5), K1, K3, K4, K6 launched, no
-     host sync inside a sharded call, and ``Serve`` with
+     predictor (NMS index-exact, boxes 1e-5), K1, K3, K4, K6 launched, K8
+     a forward's tails on each replica (150 in fp32, 6), no host sync
+     inside a sharded call, and ``Serve`` with
      ``data_parallel: true`` on one card logging the no-op and answering as
      the plain server;
  25. the spatial axis (outputs under ``build/smoke_spatial/``), the bands of
@@ -186,7 +195,8 @@ Phases (any failure exits non-zero):
      S = 2 and 4 bands at B = 16 and 1 against the unsharded predictor (fp32
      index-exact with boxes 1e-5 or a near-tie witness; ``int8`` and
      ``int8_chain`` heads and detections bit-equal), K1, K3, K4 (23 a band,
-     every one a band-edge launch) and K6 counted, event-loop and
+     every one a band-edge launch), K6 and K8 (a forward's tails a band:
+     75 in fp32, 3 in the int8 tiers) counted, event-loop and
      device-busy ms in turns, the halo traffic of a forward; K4 with its
      halo flags against its plain version at 52² and 13² band heights
      (bit-equal) and against the whole image's launch; K5 over two bands
@@ -206,7 +216,9 @@ Phases (any failure exits non-zero):
      reference on the card, the NMS selection index for index), the spec's
      72 Mish, 35 leaky and 3 linear tails, and one profiled bf16 forward of
      the cases' seeded weights: the symbols and device ms of its kernels
-     named ``mish``;
+     named ``mish`` (K8's ``bias_act_mish_kernel``); one call of the bf16
+     predictor with K8's counts set to 0 just before it: ``conv tails fused
+     110 of 110 a batch``, 110 launches;
  26. the training-quality recipe (``python -m
      yolov3_tpu_torch.tools.train_convergence``, in this process; outputs
      under ``build/smoke_convergence/``): YOLOv3-tiny at 416² trained from
@@ -301,6 +313,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CALIBRATION_DIR = os.path.join(ROOT, "datasets/shapes_toy/coco/images")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+# K8 launches of one YOLOv3-416 forward: fp32 and bf16 every conv's tail;
+# int8 and int8_chain the three fp32 heads'
+K8_A_FORWARD = (75, 3)
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
 INT8_OPS_PER_S = 1979e12   # H100 SXM int8 tensor cores, dense
 IOU_THR = 0.5
@@ -570,14 +585,23 @@ def closed_loop(app, tier, bodies, setup_s):
 
 
 def phase_serve(inference_app, serve_app, models, decode, nms_mod, nms_kernel, round_sweep):
+    from yolov3_tpu_torch.ops.cuda import bias_act
+
     bodies = encoded_requests()
     nms_kernel.suppression_sweep.launches = 0
     round_sweep.round_sweep.launches = 0
-    rows = []
+    rows, predictors = [], {}
     for tier in ("fp32", "bf16"):
-        _, row = serve_tier(tier, inference_app, serve_app, bodies)
+        predictors[tier], row = serve_tier(tier, inference_app, serve_app, bodies)
         rows.append(row)
     k1_serving = nms_kernel.suppression_sweep.launches
+
+    # K8 over one B=16 call of each served predictor: every fp tail fused
+    images16 = smoke_images(bodies, 16)
+    k8 = {f"yolov3-416 {tier}": k8_forward(bias_act, f"YOLOv3-416 {tier} B=16",
+                                           lambda: predictor(images16), 75)
+          for tier, predictor in predictors.items()}
+    del predictors
 
     # the evaluation's exact NMS (yolo_nms_exact) on one served batch at the
     # eval sweep's lowest threshold: the first bucket is 64 candidates, so
@@ -606,7 +630,8 @@ def phase_serve(inference_app, serve_app, models, decode, nms_mod, nms_kernel, r
     if tuple(sel.shape) != (16, 100) or not bool((nv == 100).all()):
         raise AssertionError(f"yolo_nms_exact: shape {tuple(sel.shape)}, nv {nv.tolist()}")
     launches = {"nms_sweep": nms_kernel.suppression_sweep.launches,
-                "round_sweep": round_sweep.round_sweep.launches}
+                "round_sweep": round_sweep.round_sweep.launches,
+                "bias_act": sum(r["launches"] for r in k8.values())}
     log(f"main path launches {json.dumps(launches)} (K1 while serving: {k1_serving})")
     if k1_serving == 0 or launches["round_sweep"] == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -651,7 +676,7 @@ def phase_serve(inference_app, serve_app, models, decode, nms_mod, nms_kernel, r
         row = dict(tier=tier, batch=16, host_preprocess_ms_per_image=host_ms,
                    forward_ms=fwd, decode_ms=dec, nms_ms=nms_ms)
         log(f"breakdown {json.dumps(row)}")
-    return rows, launches
+    return rows, launches, k8
 
 
 def near_tie_witness(nms_mod, g_boxes, g_scores, c_boxes, c_scores, nms_kw):
@@ -1637,6 +1662,86 @@ def phase_k7(bn_leaky, bn_stats):
                 / sums["backward_device_us"])
     log(f"K7 bn_leaky {model} B={batch} every tail {json.dumps(sums)}")
     return rows, sums
+
+
+def k8_forward(bias_act, what, call, tails):
+    """One main-path call (a served predictor, a loaded program) after a
+    warm-up, K8's counts set to 0 just before it and read just after: every
+    fp tail ``"fused"`` (``bias_act.tails``) and one launch each, ``tails``
+    of them → {fused, tails, launches}."""
+    call()
+    torch.cuda.synchronize()
+    bias_act.bias_act.tails.clear()
+    bias_act.bias_act.launches = 0
+    call()
+    torch.cuda.synchronize()
+    row = dict(fused=bias_act.bias_act.tails["fused"], tails=tails,
+               launches=bias_act.bias_act.launches)
+    log(f"K8 {what}: conv tails fused {row['fused']} of {tails} a batch "
+        f"({dict(bias_act.bias_act.tails)}, {row['launches']} launches)")
+    if dict(bias_act.bias_act.tails) != {"fused": tails} or row["launches"] != tails:
+        raise AssertionError(f"K8: {what} ran {dict(bias_act.bias_act.tails)} of its {tails} "
+                             f"fp tails, {row['launches']} launches")
+    return row
+
+
+def phase_k8(bias_act):
+    """K8 at each distinct fp tail of the two bf16 serving cells
+    (``kernel_times.K8_TAILS``: YOLOv3-416's leaky and linear tails, at B=8,
+    and YOLOv4-608's Mish, leaky and linear tails, at B=4), bf16 in
+    channels-last memory with a bf16 bias, as the bf16 predictor holds it,
+    under ``inference_mode``, as the predictors call it: y bit-equal to
+    ``bias_act_plain`` evaluated on the card and in x's memory format, one
+    device kernel a call named for its activation (profiler). Each row:
+    event-loop ms, device µs, the bytes bound (x read, y written) and its
+    share, the plain expression's ms, and the host's µs a call through the
+    wrapper (``bias_act.bias_act``: the op) and through the plain
+    expression. The served predictors' tails through K8 are counted by
+    ``k8_forward`` (phases 5 and 25b) → rows."""
+    from yolov3_tpu_torch.ops.cuda.kernel_times import K8_TAILS
+
+    rows = []
+    for (model, _, tails), batch in zip(K8_TAILS, (8, 4)):
+        for (activation, c, hw), count in tails.items():
+            shape = (batch, c, hw, hw)
+            gen = torch.Generator(device="cuda").manual_seed(c * hw)
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2.0).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            bias = (torch.rand(c, generator=gen, device="cuda") * 4.0 - 2.0).to(torch.bfloat16)
+
+            def call():
+                with torch.inference_mode():
+                    return bias_act.bias_act(x, bias, activation)
+
+            def plain():
+                with torch.inference_mode():
+                    return bias_act.bias_act_plain(x, bias, activation)
+
+            y, want = call(), plain()
+            equal = (torch.equal(y.view(torch.int16), want.view(torch.int16))
+                     and y.stride() == x.stride())
+            del y, want
+            profiled = device_time_by_kernel(call)
+            names = [] if profiled is None else [n for n, _ in profiled[5]]
+            if profiled is not None and (len(names) != 1
+                                         or f"bias_act_{activation}_kernel" not in names[0]):
+                raise AssertionError(f"K8: expected one launch of bias_act_{activation}_kernel, "
+                                     f"saw {names}")
+            device_us = None if profiled is None else profiled[5][0][1] * 1e3
+            bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            row = dict(model=model, activation=activation, shape=list(shape), dtype="bfloat16",
+                       memory="channels_last", tails=count, equal=equal, max_abs_err=0.0,
+                       ms=cuda_ms(call, 20), device_us=device_us, host_us=host_us(call, 20),
+                       plain_ms=cuda_ms(plain, 5), plain_host_us=host_us(plain, 20),
+                       bound_ms=bound_ms, bound_by="bytes",
+                       share_of_bound=None if device_us is None else bound_ms * 1e3 / device_us)
+            log(f"K8 bias_act {json.dumps(row)}")
+            if not equal:
+                raise AssertionError(f"K8 disagrees at {activation} {shape}: {row}")
+            rows.append(row)
+            del x
+        torch.cuda.empty_cache()
+    return rows
 
 
 def seeded_labels(rng, b, nclasses, boxes=4, max_bboxes=100):
@@ -2877,7 +2982,7 @@ def phase_convert(inference_app, bodies, nms_kernel, conv1x1, conv_int8, resbloc
     published file's layout and size), converted on the card by ``cli
     convert``, written back byte-identical, then served from the converted
     checkpoint in fp32 (heads card vs CPU within 1e-3) and in ``int8_chain``
-    (K1, K3, K4 and K6 counted over that serving call)."""
+    (K1, K3, K4, K6 and K8 counted over each tier's serving call)."""
     import contextlib
     import io
 
@@ -2889,6 +2994,7 @@ def phase_convert(inference_app, bodies, nms_kernel, conv1x1, conv_int8, resbloc
     from yolov3_tpu_torch.io.resolve import load_weights
     from yolov3_tpu_torch.models import fold_batch_norm, init_model, parse_model_config
     from yolov3_tpu_torch.models.network import apply_model, to_device
+    from yolov3_tpu_torch.ops.cuda import bias_act
     from yolov3_tpu_torch.tree import tree_map
 
     os.makedirs(CONVERT_DIR, exist_ok=True)
@@ -2949,7 +3055,8 @@ def phase_convert(inference_app, bodies, nms_kernel, conv1x1, conv_int8, resbloc
     batch = smoke_images(bodies, 16)
     wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
                     conv1x1_int8=conv1x1.conv1x1_int8_requant,
-                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8,
+                    bias_act=bias_act.bias_act)
     served, counts = {}, {}
     for tier, quantize in (("fp32", None), ("int8_chain", "int8_chain")):
         predictor, _, _ = inference_app.build_serving_predictor(
@@ -2978,6 +3085,7 @@ def phase_convert(inference_app, bodies, nms_kernel, conv1x1, conv_int8, resbloc
     chain = counts["int8_chain"]
     if not (round_trip and finite and head_err <= 1e-3 and len(parts) == 1
             and min(chain.values()) > 0
+            and (counts["fp32"]["bias_act"], chain["bias_act"]) == K8_A_FORWARD
             and all(s["shape"] == [16, 100] and s["scores_finite"] for s in served.values())):
         raise AssertionError(f"convert and serve failed its checks: {row}")
     return row, chain
@@ -3127,7 +3235,7 @@ def artifact_child(inputs, *paths):
     precision is the artifact's own (its manifest, applied by the loader):
     this process sets none."""
     from yolov3_tpu_torch.export.aot import load_detector_artifact
-    from yolov3_tpu_torch.ops.cuda import conv1x1, conv_int8, nms_kernel, resblock
+    from yolov3_tpu_torch.ops.cuda import bias_act, conv1x1, conv_int8, nms_kernel, resblock
 
     eager = inputs == "--deterministic"
     if eager:
@@ -3136,7 +3244,8 @@ def artifact_child(inputs, *paths):
         paths = paths[1:]
     wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
                     conv1x1_int8=conv1x1.conv1x1_int8_requant,
-                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8,
+                    bias_act=bias_act.bias_act)
     images = np.load(inputs)["images"]
     rows = {}
     for path in paths:
@@ -3247,6 +3356,7 @@ def phase_artifact(inference_app, serve_app, nms_mod, bodies, nms_kernel, conv1x
     import copy
 
     from yolov3_tpu_torch.export import aot
+    from yolov3_tpu_torch.ops.cuda import bias_act
 
     os.makedirs(ARTIFACT_DIR, exist_ok=True)
     model, names, anchors = ARTIFACT_MODEL
@@ -3256,10 +3366,12 @@ def phase_artifact(inference_app, serve_app, nms_mod, bodies, nms_kernel, conv1x
     batch16 = torch.from_numpy(images).cuda()
     wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
                     conv1x1_int8=conv1x1.conv1x1_int8_requant,
-                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
-    want_launches = {"fp32": dict(nms_sweep=1, conv1x1_int8=0, resblock_int8=0, conv_int8=0),
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8,
+                    bias_act=bias_act.bias_act)
+    want_launches = {"fp32": dict(nms_sweep=1, conv1x1_int8=0, resblock_int8=0, conv_int8=0,
+                                  bias_act=K8_A_FORWARD[0]),
                      "int8_chain": dict(nms_sweep=1, conv1x1_int8=11, resblock_int8=23,
-                                        conv_int8=15)}
+                                        conv_int8=15, bias_act=K8_A_FORWARD[1])}
     tiers, predictors, paths = {}, {}, {}
     for tier, quantize in (("fp32", None), ("int8_chain", "int8_chain")):
         t0 = time.monotonic()
@@ -3712,6 +3824,7 @@ def phase_dp(inference_app, serve_app, nms_kernel, conv1x1, conv_int8, resblock,
     sync_backward} summed over every rank of (a) and (b), the serving
     kernels' launches of (c))."""
     from yolov3_tpu_torch.models import layers
+    from yolov3_tpu_torch.ops.cuda import bias_act
     from yolov3_tpu_torch.parallel.mesh import Mesh
     from yolov3_tpu_torch.parallel.train_step import loss_and_grads
 
@@ -3821,7 +3934,8 @@ def phase_dp(inference_app, serve_app, nms_kernel, conv1x1, conv_int8, resblock,
     batch16 = torch.from_numpy(smoke_images(bodies, 16)).cuda()
     wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
                     conv1x1_int8=conv1x1.conv1x1_int8_requant,
-                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8)
+                    resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8,
+                    bias_act=bias_act.bias_act)
     serving, serve_launches = {}, dict.fromkeys(wrappers, 0)
     nms_kw = dict(max_boxes=100, iou_threshold=0.5, score_threshold=0.1)
     from yolov3_tpu_torch.ops import nms as nms_mod
@@ -3870,6 +3984,9 @@ def phase_dp(inference_app, serve_app, nms_kernel, conv1x1, conv_int8, resblock,
                                  f"the single one {serving[tier]}")
         if tier == "int8_chain" and min(launches.values()) == 0:
             raise AssertionError(f"phase 24 (c): a kernel did not launch: {launches}")
+        if launches["bias_act"] != 2 * K8_A_FORWARD[tier != "fp32"]:  # a forward a replica
+            raise AssertionError(f"phase 24 (c) {tier}: K8 launched {launches['bias_act']} "
+                                 f"times, expected two forwards' {K8_A_FORWARD}")
         if caught:  # a host sync in a call would serialize replicas on several cards
             raise AssertionError(f"phase 24 (c) {tier}: a sharded call waits for the card at "
                                  f"{serving[tier]['host_sync_sites']}")
@@ -4138,6 +4255,7 @@ def phase_spatial(inference_app, serve_app, evaluate_app, nms_kernel, round_swee
     from yolov3_tpu_torch.export.aot import as_predict
     from yolov3_tpu_torch.models import apply_model, layers
     from yolov3_tpu_torch.ops import nms as nms_mod
+    from yolov3_tpu_torch.ops.cuda import bias_act
     from yolov3_tpu_torch.ops.cuda.kernel_times import block_case, device_us
     from yolov3_tpu_torch.parallel import spatial as sp
     from yolov3_tpu_torch.parallel.mesh import make_data_parallel_mesh
@@ -4149,7 +4267,8 @@ def phase_spatial(inference_app, serve_app, evaluate_app, nms_kernel, round_swee
     wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
                     conv1x1_int8=conv1x1.conv1x1_int8_requant,
                     resblock_int8=resblock.fused_resblock, conv_int8=conv_int8.conv_int8,
-                    round_sweep=round_sweep.round_sweep, bn_stats=bn_stats.bn_sums)
+                    round_sweep=round_sweep.round_sweep, bn_stats=bn_stats.bn_sums,
+                    bias_act=bias_act.bias_act)
     total = dict.fromkeys(wrappers, 0)
 
     def reset():
@@ -4235,6 +4354,7 @@ def phase_spatial(inference_app, serve_app, evaluate_app, nms_kernel, round_swee
                                          f"with the unsharded one: {r}")
                 want_k4 = 23 * spatial if tier == "int8_chain" else 0
                 if (launches["resblock_int8"] != want_k4
+                        or launches["bias_act"] != spatial * K8_A_FORWARD[bool(quantize)]
                         or (tier == "int8_chain" and launches["resblock_int8_band_edge"]
                             != 23 * spatial) or launches["nms_sweep"] == 0
                         or (quantize and min(launches["conv1x1_int8"],
@@ -4396,8 +4516,11 @@ def phase_spatial(inference_app, serve_app, evaluate_app, nms_kernel, round_swee
 def phase_yolov4(smi):
     """Phase 25b (see the module's doc) → its row."""
     from tests import test_torch_yolov4_cuda as cases
+    from tests.test_torch_yolov4 import ANCHORS, NC, NMS
+    from yolov3_tpu_torch.apps.inference_app import make_predictor
     from yolov3_tpu_torch.models import apply_model, fold_batch_norm
     from yolov3_tpu_torch.models.network import to_device
+    from yolov3_tpu_torch.ops.cuda import bias_act
     from yolov3_tpu_torch.ops.cuda.kernel_times import profile_window
     from yolov3_tpu_torch.reference.yolov4_plain import ieee_fp32
 
@@ -4416,9 +4539,14 @@ def phase_yolov4(smi):
     tails = spec.activation_counts
     _, _, records = profile_window(forward)
     mish = sorted({name for _, name, _ in records if "mish" in name.lower()})
+    predict = make_predictor(spec, model["params"], model["state"], ANCHORS, NC,
+                             NMS["max_boxes"], NMS["iou_threshold"], NMS["score_threshold"],
+                             compute_dtype=torch.bfloat16, image_size=cases.SIZE, device="cuda")
+    k8 = {"yolov4-608 bf16": k8_forward(bias_act, f"YOLOv4-608 bf16 B={cases.BATCH}",
+                                        lambda: predict(model["images"]), 110)}
     row = dict(card=smi, tails=tails, mish_symbols=mish,
                mish_device_ms=sum(us for _, name, us in records if name in mish) / 1e3,
-               forward_device_ms=sum(us for _, _, us in records) / 1e3)
+               forward_device_ms=sum(us for _, _, us in records) / 1e3, k8=k8)
     log(f"phase 25b: {json.dumps(row)}")
     if tails != {"mish": 72, "leaky": 35, "linear": 3} or not mish:
         raise AssertionError(f"phase 25b: tails {tails}, kernels named mish {mish}")
@@ -4690,6 +4818,7 @@ def phase_transfer(nms_kernel, conv1x1, conv_int8, bn_stats, smi):
 
     from yolov3_tpu_torch.config import read_class_names
     from yolov3_tpu_torch.models import parse_model_config
+    from yolov3_tpu_torch.ops.cuda import bias_act
     from yolov3_tpu_torch.tools import pets_transfer
 
     shutil.rmtree(TRANSFER_DIR, ignore_errors=True)
@@ -4699,7 +4828,8 @@ def phase_transfer(nms_kernel, conv1x1, conv_int8, bn_stats, smi):
                               len(read_class_names(os.path.join(ROOT,
                                                                 "datasets/pets_breed.names"))))
     wrappers = dict(nms_sweep=nms_kernel.suppression_sweep,
-                    conv1x1_int8=conv1x1.conv1x1_int8_requant, conv_int8=conv_int8.conv_int8)
+                    conv1x1_int8=conv1x1.conv1x1_int8_requant, conv_int8=conv_int8.conv_int8,
+                    bias_act=bias_act.bias_act)
     frozen = ("backbone", "neck")  # train_config_pets.yaml's batch_norm_freeze_list
     runs, failures = {}, []
     for mode, epochs, extra in (("config", TRANSFER_EPOCHS, ["--patience",
@@ -5385,8 +5515,8 @@ def main() -> int:
     from yolov3_tpu_torch.apps import inference_app, serve_app
     from yolov3_tpu_torch.ops import decode
     from yolov3_tpu_torch.ops import nms as nms_mod
-    from yolov3_tpu_torch.ops.cuda import (bn_leaky, bn_stats, build, conv1x1, conv_int8,
-                                           nms_kernel, resblock, round_sweep)
+    from yolov3_tpu_torch.ops.cuda import (bias_act, bn_leaky, bn_stats, build, conv1x1,
+                                           conv_int8, nms_kernel, resblock, round_sweep)
 
     # the native data-loader core, built once before any phase decodes
     import dataclasses
@@ -5421,8 +5551,9 @@ def main() -> int:
 
     k1 = timed("K1", phase_k1, nms_kernel)
     k2 = timed("K2", phase_k2, round_sweep)
-    serve_rows, launches = timed("serve fp32 + bf16", phase_serve, inference_app, serve_app,
-                                 models, decode, nms_mod, nms_kernel, round_sweep)
+    serve_rows, launches, k8_served = timed("serve fp32 + bf16", phase_serve, inference_app,
+                                            serve_app, models, decode, nms_mod, nms_kernel,
+                                            round_sweep)
     timed("trained tiny", phase_trained, inference_app, models, decode, nms_mod)
 
     # the int8 tiers: kernels against their plain versions, the full-width
@@ -5456,6 +5587,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5 = timed("K5", phase_k5, bn_stats)
     k7, k7_sums = timed("K7", phase_k7, bn_leaky, bn_stats)
+    k8 = timed("K8", phase_k8, bias_act)
     train_step_row = timed("train step vs CPU", phase_train_step_vs_cpu, models, bn_stats, bodies)
     train_rows, k5_launches, k7_launches = timed("trainer", phase_trainer, inference_app,
                                                  bn_stats, bn_leaky, bodies, smi)
@@ -5493,7 +5625,7 @@ def main() -> int:
     k5_launches[1] += extras_launches[1]
 
     # the model-file entry points: a Darknet file converted and served (K1,
-    # K3, K4 and K6 counted over the int8_chain serving call), then phase
+    # K3, K4, K6 and K8 counted over the int8_chain serving call), then phase
     # 15's checkpoint recalibrated (K5 counted over the card's run)
     torch.cuda.empty_cache()
     convert_row, convert_launches = timed("convert", phase_convert, inference_app, bodies,
@@ -5559,7 +5691,7 @@ def main() -> int:
                                             conv_int8, bn_stats, smi)
     launches["bn_stats"] += transfer_launches["bn_stats"]["forward"]
     k5_launches[1] += transfer_launches["bn_stats"]["backward"]
-    for name in ("nms_sweep", "conv1x1_int8", "conv_int8"):
+    for name in ("nms_sweep", "conv1x1_int8", "conv_int8", "bias_act"):
         launches[name] += transfer_launches[name]
     torch.cuda.empty_cache()
     tools_row, tools_launches = timed("dataset tools", phase_dataset_tools, nms_kernel, smi)
@@ -5636,6 +5768,19 @@ def main() -> int:
              backward_plain_ms=k7[0]["backward_plain_ms"],
              backward_bound_ms=k7[0]["backward_bound_ms"],
              backward_share_of_bound=k7[0]["backward_share_of_bound"], model_sums=k7_sums),
+        # K8 at YOLOv3-416's largest fp tail (leaky, C=32, 416², B=8, bf16,
+        # channels-last); its launches over the main-path runs that count it,
+        # and one served call of each predictor (phases 5 and 25b) with every
+        # fp tail through it
+        dict(name="bias_act", route="cuda", source="yolov3_tpu_torch/ops/cuda/csrc/bias_act.cu",
+             replaces="yolov3_tpu/models/layers.py leaky_relu after the folded conv's bias",
+             equal_to_plain=all(r["equal"] for r in k8), ms=k8[0]["ms"],
+             device_us=k8[0]["device_us"], plain_ms=k8[0]["plain_ms"],
+             host_us=k8[0]["host_us"], plain_host_us=k8[0]["plain_host_us"],
+             bound_ms=k8[0]["bound_ms"], bound_by="bytes",
+             share_of_bound=k8[0]["share_of_bound"], library_ms=None,
+             launches=launches["bias_act"], routed=dict(k8_served, **yolov4_row["k8"]),
+             shapes=k8),
     ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels, "serve": serve_rows, "int8_forward": int8_rows,

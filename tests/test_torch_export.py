@@ -107,11 +107,12 @@ sub_models_configs:
   - {type: yolo}
   outputs_layers: [-1]
 """
-# the ops each tier's exported program must hold as nodes
-OPS = {"fp32": {"suppression_sweep"},
-       "int8": {"suppression_sweep", "conv1x1_int8_requant", "conv_int8"},
+# the ops each tier's exported program must hold as nodes (every tier's fp
+# convs, the int8 tiers' heads among them, end in K8's bias_act)
+OPS = {"fp32": {"suppression_sweep", "bias_act"},
+       "int8": {"suppression_sweep", "conv1x1_int8_requant", "conv_int8", "bias_act"},
        "int8_chain": {"suppression_sweep", "conv1x1_int8_requant", "conv_int8",
-                      "fused_resblock"}}
+                      "fused_resblock", "bias_act"}}
 
 
 def _images(seed, b):

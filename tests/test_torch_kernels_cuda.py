@@ -7,15 +7,17 @@ alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Inputs are made with numpy from a seed. Tolerance: none, except K5's and
-K7's sums and the train step through K7 (stated at their tests)."""
+K7's sums and the train step through K7 (stated at their tests). K8 (the
+folded conv's bias and activation) is held bit for bit against the plain
+expression evaluated by PyTorch on the card."""
 
 import numpy as np
 import pytest
 import torch
 
 from yolov3_tpu_torch.models import layers as L
-from yolov3_tpu_torch.ops.cuda import (bn_leaky, bn_stats, conv1x1, conv_int8, nms_kernel,
-                                       resblock, round_sweep)
+from yolov3_tpu_torch.ops.cuda import (bias_act, bn_leaky, bn_stats, conv1x1, conv_int8,
+                                       nms_kernel, resblock, round_sweep)
 
 
 def _sweep_case(seed, b, k, valid_frac=0.6, thr=0.7):
@@ -1177,3 +1179,187 @@ def test_cuda_sync_bn_over_a_group_of_one_is_the_unsynced_path(cuda_device, tmp_
             assert all(torch.equal(a, b) for a, b in zip(*outs))
     finally:
         dist.destroy_process_group()
+
+
+# K8: (shape, activation) of the main path's fp tails: YOLOv3-416's leaky
+# tails 416² to 13² and its 255-channel heads at B=8, YOLOv4-608's Mish
+# tails at B=2, and odd shapes (C = 3, sizes that are no multiple of a
+# vector) under every activation
+K8_CASES = ([((8, c, h, h), "leaky") for c, h in (
+    (32, 416), (64, 208), (128, 104), (256, 52), (512, 26), (1024, 13))]
+    + [((8, 255, h, h), "linear") for h in (52, 26, 13)]
+    + [((2, c, h, h), "mish") for c, h in (
+        (32, 608), (64, 304), (128, 152), (256, 76), (512, 38), (1024, 19))]
+    + [(shape, act) for shape in ((3, 3, 8, 8), (2, 40, 9, 11), (1, 255, 5, 7), (2, 7, 1, 3))
+       for act in bias_act.ACTIVATIONS])
+
+
+def _k8_case(seed, shape, dtype, channels_last, device, bias_dtype=torch.float32):
+    """x (``_activation``, scaled so that Mish and leaky see both signs and
+    the bf16 table's edges) and a (C,) bias."""
+    x = _activation(seed, shape, dtype, channels_last, device) * 1.5
+    rng = np.random.RandomState(seed + 7)
+    bias = torch.from_numpy(rng.uniform(-2, 2, shape[1]).astype(np.float32)).to(device,
+                                                                               bias_dtype)
+    return x, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,activation", K8_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_cuda_bias_act_bit_equal_to_the_expression(cuda_device, shape, activation, dtype,
+                                                   channels_last):
+    """K8, one launch, against the plain expression evaluated by PyTorch on
+    the card (``bias_act_plain``: the add, then ``where`` or ATen's Mish).
+    Tolerance: none, bit for bit, with an f32 bias and a bf16 one; y in x's
+    memory format; two launches give the same bits."""
+    for bias_dtype in (torch.float32, torch.bfloat16):
+        x, bias = _k8_case(sum(shape), shape, dtype, channels_last, cuda_device, bias_dtype)
+        before = bias_act.bias_act.launches
+        with torch.no_grad():
+            y = bias_act.bias_act(x, bias, activation)
+            again = bias_act.bias_act(x, bias, activation)
+            want = bias_act.bias_act_plain(x, bias, activation)
+        torch.cuda.synchronize()
+        assert bias_act.bias_act.launches == before + 2
+        assert y.dtype == dtype and y.stride() == x.stride()
+        assert torch.equal(_bits(y), _bits(want)) and torch.equal(_bits(y), _bits(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", bias_act.ACTIVATIONS)
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_cuda_bias_act_every_bf16_value(cuda_device, activation, channels_last):
+    """Every bf16 number but the NaNs as x (65,280 of them: the whole of the
+    Mish table and every value outside it), with a zero bias and with a
+    bias, through K8 and through the plain expression on the card.
+    Tolerance: none."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    values = bits.view(torch.bfloat16)
+    values = values[~torch.isnan(values)]
+    x = values[:64 * 1020].reshape(4, 64, 15, 17).to(cuda_device)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    for bias in (torch.zeros(64, device=cuda_device),
+                 torch.linspace(-3, 3, 64, device=cuda_device)):
+        with torch.no_grad():
+            y = bias_act.bias_act(x, bias, activation)
+            want = bias_act.bias_act_plain(x, bias, activation)
+        assert torch.equal(_bits(y), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", bias_act.ACTIVATIONS)
+def test_cuda_bias_act_f32_over_a_wide_range(cuda_device, activation):
+    """4M f32 values spread over |x| in [2^-30, 2^30] of both signs, and the
+    special values (±0, ±inf, the largest and the smallest), through K8 and
+    through the plain expression on the card. Tolerance: none."""
+    rng = np.random.RandomState(5)
+    mags = np.exp2(rng.uniform(-30, 30, 1 << 22)) * rng.choice([-1.0, 1.0], 1 << 22)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, 3.4e38, -3.4e38, 1e-45, -1e-45] * 512)
+    flat = np.concatenate([mags, special]).astype(np.float32)
+    x = torch.from_numpy(flat).reshape(8, 32, 16, -1).to(cuda_device)
+    bias = torch.zeros(32, device=cuda_device)
+    with torch.no_grad():
+        y = bias_act.bias_act(x, bias, activation)
+        want = bias_act.bias_act_plain(x, bias, activation)
+    assert torch.equal(_bits(y), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bias_act_unaligned_and_ragged(cuda_device, dtype):
+    """x and y that are no multiple of 16 bytes away from an aligned address
+    (the element-at-a-time path), and an element count that is no multiple
+    of a vector (the scalar tail). Tolerance: none."""
+    n = 2 * 24 * 7 * 9
+    flat = np.random.RandomState(3).randn(n + 1).astype(np.float32) * 3
+    x = torch.from_numpy(flat).to(cuda_device, dtype)[1:].view(2, 24, 7, 9)
+    assert x.data_ptr() % 16 != 0
+    bias = torch.linspace(-1, 1, 24, device=cuda_device)
+    for activation in bias_act.ACTIVATIONS:
+        with torch.no_grad():
+            y = bias_act.bias_act(x, bias, activation)
+            want = bias_act.bias_act_plain(x, bias, activation)
+        assert torch.equal(_bits(y), _bits(want))
+
+
+@pytest.mark.cuda
+def test_cuda_bias_act_one_kernel_named_by_its_activation(cuda_device):
+    """One device kernel a call (by the profiler, where it records the
+    card), ``bias_act_<activation>_kernel``: ``mish`` in the Mish one's
+    symbol, as ``mish_ms.infer`` reads it."""
+    x, bias = _k8_case(9, (2, 64, 26, 26), torch.bfloat16, True, cuda_device)
+    for activation in bias_act.ACTIVATIONS:
+        with torch.no_grad():
+            names = _device_kernels(lambda: bias_act.bias_act(x, bias, activation))
+        if names:  # the profiler may show no device activity on some machines
+            assert len(names) == 1 and f"bias_act_{activation}_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_cuda_bias_act_raises_on_what_it_does_not_take(cuda_device):
+    x, bias = _k8_case(1, (2, 8, 6, 6), torch.float32, False, cuda_device)
+    for xi, b, match in ((x[:, :, ::2], bias, "layout"), (x.half(), bias, "activation"),
+                         (x, bias[:4], "bias"), (x[0], bias, "activation"),
+                         (x, bias.cpu(), "bias")):
+        with torch.no_grad(), pytest.raises(ValueError, match=match):
+            bias_act.bias_act(xi, b, "leaky")
+
+
+@pytest.mark.cuda
+def test_cuda_bias_act_splits_a_batch_past_2_31_elements(cuda_device):
+    """A bf16 batch of 765 images of 255 × 105² (2,150,701,875 elements, past
+    a launch's 32-bit flat index) in two launches of whole images, the second
+    starting at an address no multiple of 16 (elements one a thread there):
+    bit-equal to the plain expression on the card."""
+    shape = (765, 255, 105, 105)
+    x = torch.empty(shape, dtype=torch.bfloat16, device=cuda_device).contiguous(
+        memory_format=torch.channels_last)
+    x.copy_(torch.linspace(-12.0, 12.0, 8191, dtype=torch.bfloat16, device=cuda_device).repeat(
+        x.numel() // 8191 + 1)[:x.numel()].view(765, 105, 105, 255).permute(0, 3, 1, 2))
+    bias = torch.linspace(-2.0, 2.0, 255, device=cuda_device)
+    before = bias_act.bias_act.launches
+    with torch.no_grad():
+        y = bias_act.bias_act(x, bias, "leaky")
+        want = bias_act.bias_act_plain(x, bias, "leaky")
+    torch.cuda.synchronize()
+    assert bias_act.bias_act.launches == before + 2
+    assert y.stride() == x.stride() and torch.equal(_bits(y), _bits(want))
+    del x, y, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,size,tails", [("yolov3", 416, 75), ("yolov4", 608, 110)])
+def test_cuda_serving_forward_routes_every_tail_through_k8(cuda_device, model, size, tails,
+                                                           monkeypatch):
+    """The folded bf16 forward on the card (B=2, seeded weights, channels-last
+    images, under ``inference_mode``): every fp conv's tail through K8, one
+    launch each (75 for YOLOv3-416, 110 for YOLOv4-608), and the heads bit for
+    bit those of the same forward with the plain expression on the card."""
+    import os
+
+    from yolov3_tpu_torch.models import apply_model, fold_batch_norm, init_model
+    from yolov3_tpu_torch.models.network import to_device
+    from yolov3_tpu_torch.models.spec import parse_model_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = parse_model_config(os.path.join(root, f"config/models/{model}/model.yaml"), 80)
+    params, state = init_model(spec, torch.Generator().manual_seed(0))
+    folded = to_device(fold_batch_norm(params, state), cuda_device, torch.bfloat16)
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.rand(2, size, size, 3).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    bias_act.bias_act.tails.clear()
+    launches = bias_act.bias_act.launches
+    with torch.inference_mode():
+        heads = apply_model(spec, folded, {}, images)
+    assert dict(bias_act.bias_act.tails) == {"fused": tails}
+    assert bias_act.bias_act.launches == launches + tails
+    monkeypatch.setattr(bias_act, "route", lambda x, bias: "plain on the card")
+    with torch.inference_mode():
+        plain = apply_model(spec, folded, {}, images)
+    assert bias_act.bias_act.launches == launches + tails
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(heads, plain))

@@ -30,6 +30,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda import bias_act as _bias_act
 from ..ops.cuda import bn_leaky
 from ..ops.cuda.bn_stats import bn_moments
 from ..ops.cuda.conv1x1 import conv1x1_int8_requant
@@ -205,6 +206,22 @@ def mish(x):
     """Mish (Misra, arXiv:1908.08681), YOLOv4's backbone activation:
     ``x·tanh(softplus(x))``, ATen's kernel in ``x``'s dtype."""
     return F.mish(x)
+
+
+def bias_act(x, bias, activation: str):
+    """A conv's tail after its bias: ``x + bias`` over channel axis 1 (the
+    bias cast to x's dtype), then ``activation`` (``spec.ACTIVATIONS``:
+    ``leaky_relu``, ``mish`` or none). A tail that autograd records (the
+    train step's linear heads, QAT) evaluates that plain expression; every
+    other tail is the ``yolov3_torch::bias_act`` op, one K8 launch on the
+    card (``ops/cuda/bias_act.py``; a tail K8 cannot take raises) and the
+    same expression on the CPU. ``bias_act.tails`` counts the tails by
+    route (``bias_act.route``)."""
+    route = _bias_act.route(x, bias)
+    _bias_act.bias_act.tails[route] += 1
+    if route == "fused":
+        return _bias_act.bias_act(x, bias, activation)
+    return _bias_act.bias_act_plain(x, bias, activation)
 
 
 def upsample_nearest(x, stride: int):

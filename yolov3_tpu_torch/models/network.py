@@ -172,8 +172,10 @@ def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, activati
     new state or None). Training-mode BatchNorm over more than one band
     normalizes every band with the statistics of all of them
     (``spatial.band_moments``); ``layers.batch_norm`` applies a LeakyReLU
-    after it (through K7 in training on the card). Mish follows the bias
-    (or an inference BatchNorm) as ``layers.mish``."""
+    after it (through K7 in training on the card). A bias and the
+    activation after it are ``layers.bias_act`` (K8 on the card where
+    autograd does not record the tail); Mish after an inference BatchNorm is
+    ``layers.mish``."""
     leaky = activation == "leaky"
     moments = None
     if "bn" in on(x.devices[0])[key] and bn_train and len(x.parts) > 1:
@@ -192,7 +194,7 @@ def _conv_tail(x, on, key, bn_state, bn_train, phases, stats_subsample, activati
             states.append(st)
             return L.mish(part) if activation == "mish" else part
         if "bias" in p:
-            part = part + p["bias"].to(part.dtype).view(1, -1, 1, 1)
+            return L.bias_act(part, p["bias"], activation)
         return L.leaky_relu(part) if leaky else L.mish(part) if activation == "mish" else part
 
     x = x.map(tail)

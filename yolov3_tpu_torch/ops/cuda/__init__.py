@@ -17,22 +17,29 @@
     leaves to XLA and PyTorch does not have on CUDA;
   * ``csrc/requant.cuh`` (K0) is the int8 epilogue K3, K4 and K6 share, the
     counterpart of ``yolov3_tpu/ops/pallas/common.py``; ``requant.py`` is its
-    plain version.
+    plain version;
+  * ``bn_leaky.bn_leaky`` (K7, ``csrc/bn_leaky.cu``) is the training
+    BatchNorm tail, normalize and LeakyReLU in one launch each way;
+  * ``bias_act.bias_act`` (K8, ``csrc/bias_act.cu``) is every folded fp
+    conv's tail that autograd does not record, bias add and activation
+    (linear, leaky, Mish) in one launch. K7 and K8 share the element helpers
+    of ``csrc/elementwise.cuh``.
 
 ``build.py`` compiles and loads the sources and sets every launch function's
-ctypes signature once; ``kernel_times.py`` times K1–K6 alone on a card.
+ctypes signature once; ``kernel_times.py`` times K1–K8 alone on a card.
 
-K1, K2, K3, K4 and K6 are ``torch.library`` custom ops in the
+K1, K2, K3, K4, K6 and K8 are ``torch.library`` custom ops in the
 ``yolov3_torch`` namespace (``torch.ops.yolov3_torch.suppression_sweep``,
 ``round_sweep``, ``conv1x1_int8_requant``, ``conv_int8``,
-``fused_resblock``), registered when this package is imported: each op's CPU
-kernel is the plain version, its CUDA kernel the launch (the only place the
-kernel's ctypes function is called), and its fake kernel gives the output's
-shape and type at a symbolic batch, so ``torch.export`` keeps each kernel as
-one node of an exported program (``export/aot.py``). The wrappers keep their
-names and signatures and call the op. K5 stays a direct wrapper with its
-``torch.autograd.Function``: it runs in training and recalibration only, and
-BatchNorm is folded at serving.
+``fused_resblock``, ``bias_act``), registered when this package is
+imported: each op's CPU kernel is the plain version, its CUDA kernel the
+launch (the only place the kernel's ctypes function is called), and its fake
+kernel gives the output's shape and type at a symbolic batch, so
+``torch.export`` keeps each kernel as one node of an exported program
+(``export/aot.py``). The wrappers keep their
+names and signatures and call the op. K5 and K7 stay direct wrappers with
+their ``torch.autograd.Function``: they run in training and recalibration
+only, and BatchNorm is folded at serving.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in
@@ -40,4 +47,4 @@ an integer attribute ``launches``, which the op's CUDA kernel increments: a
 loaded program's launches count too.
 """
 
-from . import conv1x1, conv_int8, nms_kernel, resblock, round_sweep  # noqa: F401
+from . import bias_act, conv1x1, conv_int8, nms_kernel, resblock, round_sweep  # noqa: F401

@@ -34,7 +34,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
 SOURCES = ("nms_sweep", "round_sweep", "conv1x1_int8", "conv_int8", "resblock_int8",
-           "bn_stats", "bn_leaky")
+           "bn_stats", "bn_leaky", "bias_act")
 # sm_90a: Hopper's arch-specific target. --fmad=false keeps every a*b+c two
 # roundings, as the element-wise PyTorch ops of the plain versions do; no
 # --use_fast_math, so division stays div.rn.
@@ -55,6 +55,8 @@ SIGNATURES = {
                  "bn_moments_dx_launch": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P]},
     "bn_leaky": {"bn_leaky_launch": [_P] * 6 + [_I] * 11 + [_F] * 2 + [_P],
                  "bn_leaky_dx_launch": [_P] * 10 + [_I] * 11 + [_F] * 2 + [_P]},
+    "bias_act": {"bias_act_launch": [_P] * 4 + [_I] * 9 + [_P],
+                 "bias_act_mish_table_launch": [_P] * 2},
 }
 
 _lock = threading.Lock()

@@ -51,7 +51,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elementwise.cuh"
+
 namespace {
+
+using elementwise::from_f32;
+using elementwise::load;
+using elementwise::rn;
+using elementwise::store;
+using elementwise::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kCounters = 256;   // ticket counters at the head of the workspace
@@ -71,19 +79,6 @@ struct Params {
 struct Channel {
   float m, s, b;
 };
-
-template <typename T> __device__ __forceinline__ float rn(float v);
-template <> __device__ __forceinline__ float rn<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rn<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float param(const void* p, int bf16, int ch) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[ch])
@@ -124,25 +119,6 @@ __device__ __forceinline__ T bwd_element(float x, float dy, const Channel& k, fl
   s0 = __fadd_rn(s0, g);
   s1 = __fadd_rn(s1, __fmul_rn(g, d));
   return from_f32<T>(__fmul_rn(g, k.s));
-}
-
-// V elements at p: one 16-byte access when V > 1 (the wrapper checked the
-// alignment), else one element.
-template <typename T, int V>
-__device__ __forceinline__ void load(const T* p, T (&v)[V]) {
-  if constexpr (V > 1) {
-    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
-  } else {
-    v[0] = *p;
-  }
-}
-template <typename T, int V>
-__device__ __forceinline__ void store(T* p, const T (&v)[V]) {
-  if constexpr (V > 1) {
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
-  } else {
-    *p = v[0];
-  }
 }
 
 // One channel's four gradients from its folded sums: dstats is [2][C] f32

@@ -1,10 +1,11 @@
 """Time K1 (``nms_sweep``), K2 (``round_sweep``), K3 (``conv1x1_int8``), K4
 (``resblock_int8``), K5 (``bn_stats``) and K6 (``conv_int8``) alone on the card,
 at the shapes ``chip_smoke.py`` holds them at, K7 (``bn_leaky``) at every
-BatchNorm tail of the two train configurations, and the exact NMS's
-escalation.
+BatchNorm tail of the two train configurations, K8 (``bias_act``) at every
+folded fp conv's tail of the two bf16 serving configurations, and the exact
+NMS's escalation.
 
-    PYTHONPATH=. python3 yolov3_tpu_torch/ops/cuda/kernel_times.py [k1 … k7] [nms]
+    PYTHONPATH=. python3 yolov3_tpu_torch/ops/cuda/kernel_times.py [k1 … k8] [nms]
     PYTHONPATH=. python3 yolov3_tpu_torch/ops/cuda/kernel_times.py k4parts k2threads
     PYTHONPATH=<other checkout> python3 yolov3_tpu_torch/ops/cuda/kernel_times.py k2 k4
 
@@ -12,7 +13,7 @@ The script imports the ``yolov3_tpu_torch`` that ``PYTHONPATH`` names and uses
 only the wrappers' public functions, so the second form times another
 checkout's kernels (say the parent commit's, unpacked with ``git archive``)
 on the same card in the same run: run the two in turns to compare them.
-The arguments pick what to time (K1–K7 without any). One JSON line a
+The arguments pick what to time (K1–K8 without any). One JSON line a
 shape: ``ms``, the mean milliseconds of a call over a loop between two CUDA
 events (the larger of the host's cost of a call and the device's), and for
 K1–K4 ``device_us``, the device microseconds of one call from torch.profiler
@@ -34,7 +35,12 @@ beside its bytes bound (forward: x read, y written; backward: x and dy
 read, dx written; at 3.35 TB/s) and the plain expression it replaced
 (forward, and autograd's backward of it), then each model's sum over its
 tails, a tail counted as often as the model has it, with the bound's share
-of the summed device time each way.
+of the summed device time each way. ``k8`` times K8 at each distinct fp tail
+of YOLOv3-416 at B=128 and YOLOv4-608 at B=64 (bf16, both memory layouts,
+a bf16 bias as the bf16 predictor holds it) beside its bytes bound (x read,
+y written, the bias read) and the plain expression it replaced (the add,
+then ``where`` or ATen's Mish), with K8's bits against the plain
+expression's, then each model's sums over its tails as ``k7``'s.
 
 The probes this needs beside the kernels (K2's latency floor,
 ``probes/round_floor.cu``, and K4's variants) are built by ``build_probes``
@@ -110,6 +116,23 @@ K7_TAILS = (
                     (256, 13): 1, (512, 13): 7, (1024, 13): 8}),
     ("yolov3_tiny", 128, {(16, 416): 1, (32, 208): 1, (64, 104): 1, (128, 52): 1, (256, 26): 2,
                           (128, 13): 1, (256, 13): 1, (512, 13): 2, (1024, 13): 1}))
+# K8: (model, batch, {(activation, C, H = W): fp conv tails of that shape}) of
+# the two bf16 serving cells
+K8_TAILS = (
+    ("yolov3", 128, {("leaky", 32, 416): 1, ("leaky", 64, 208): 2, ("leaky", 32, 208): 1,
+                     ("leaky", 128, 104): 3, ("leaky", 64, 104): 2, ("leaky", 256, 52): 12,
+                     ("leaky", 128, 52): 11, ("leaky", 512, 26): 12, ("leaky", 256, 26): 11,
+                     ("leaky", 128, 26): 1, ("leaky", 1024, 13): 8, ("leaky", 512, 13): 7,
+                     ("leaky", 256, 13): 1, ("linear", 255, 52): 1, ("linear", 255, 26): 1,
+                     ("linear", 255, 13): 1}),
+    ("yolov4", 64, {("mish", 32, 608): 1, ("mish", 64, 304): 6, ("mish", 32, 304): 1,
+                    ("mish", 128, 152): 2, ("mish", 64, 152): 7, ("mish", 256, 76): 2,
+                    ("mish", 128, 76): 19, ("mish", 512, 38): 2, ("mish", 256, 38): 19,
+                    ("mish", 1024, 19): 2, ("mish", 512, 19): 11, ("leaky", 256, 76): 3,
+                    ("leaky", 128, 76): 4, ("leaky", 512, 38): 5, ("leaky", 256, 38): 8,
+                    ("leaky", 128, 38): 1, ("leaky", 1024, 19): 5, ("leaky", 512, 19): 8,
+                    ("leaky", 256, 19): 1, ("linear", 255, 76): 1, ("linear", 255, 38): 1,
+                    ("linear", 255, 19): 1}))
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -406,7 +429,7 @@ def main(argv) -> int:
     from yolov3_tpu_torch.ops.cuda import (bn_stats, conv1x1, conv_int8, nms_kernel, resblock,
                                            round_sweep)
 
-    picked = set(argv) or {"k1", "k2", "k3", "k4", "k5", "k6", "k7"}
+    picked = set(argv) or {"k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8"}
     own_package = (os.path.realpath(os.path.dirname(yolov3_tpu_torch.__file__))
                    == os.path.realpath(os.path.join(PROBES, "..", "..", "..")))
 
@@ -557,6 +580,8 @@ def main(argv) -> int:
             del x
     for model, batch, tails in K7_TAILS if "k7" in picked else ():
         k7_times(model, batch, tails)
+    for model, batch, tails in K8_TAILS if "k8" in picked else ():
+        k8_times(model, batch, tails)
     return 0
 
 
@@ -612,6 +637,46 @@ def k7_times(model, batch, tails):
                               fwd_share_of_bound=t["fwd_bound_ms"] * 1e3 / t["fwd_device_us"],
                               bwd_share_of_bound=t["bwd_bound_ms"] * 1e3 / t["bwd_device_us"])),
               flush=True)
+
+
+def k8_times(model, batch, tails):
+    """K8 at each of a model's fp tails (see the module's docstring), one JSON
+    line a shape and layout, then one for the model's sums."""
+    from yolov3_tpu_torch.ops.cuda import bias_act
+
+    totals = {}
+    for (activation, c, hw), count in tails.items():
+        for fmt in (torch.channels_last, torch.contiguous_format):
+            gen = torch.Generator(device="cuda").manual_seed(c + hw)
+            shape = (batch, c, hw, hw)
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2.0).to(
+                torch.bfloat16).contiguous(memory_format=fmt)
+            bias = (torch.rand(c, generator=gen, device="cuda") * 2.0 - 1.0).to(torch.bfloat16)
+            with torch.no_grad():
+                y = bias_act.bias_act(x, bias, activation)
+                equal = torch.equal(y.view(torch.int16), bias_act.bias_act_plain(
+                    x, bias, activation).view(torch.int16))
+                del y
+                ms = cuda_ms(lambda: bias_act.bias_act(x, bias, activation), 20)
+                us = device_us(lambda: bias_act.bias_act(x, bias, activation))
+                plain_ms = cuda_ms(lambda: bias_act.bias_act_plain(x, bias, activation), 10)
+            nbytes = 2 * x.numel() * x.element_size() + bias.numel() * bias.element_size()
+            row = dict(ms=ms, device_us=us, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       plain_ms=plain_ms)
+            layout = "channels_last" if fmt == torch.channels_last else "nchw"
+            print(json.dumps(dict(kernel="bias_act", model=model, activation=activation,
+                                  shape=list(shape), dtype="bfloat16", memory=layout,
+                                  tails=count, equal=equal, **row,
+                                  share_of_bound=row["bound_ms"] * 1e3 / us if us else None)),
+                  flush=True)
+            total = totals.setdefault(layout, dict.fromkeys(row, 0.0))
+            for k, v in row.items():
+                total[k] += count * (v or 0.0)
+            del x
+    for layout, t in totals.items():
+        print(json.dumps(dict(kernel="bias_act", model=model, batch=batch, memory=layout,
+                              tails=sum(tails.values()), sums=t,
+                              share_of_bound=t["bound_ms"] * 1e3 / t["device_us"])), flush=True)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,8 @@ launches included). The NMS stages run K1 at ``--num_candidates``.
 Then the model's conv tails by activation (the spec's count, what every
 forward runs), e.g. ``activation tails a forward: mish 72, leaky 35,
 linear 3`` for YOLOv4, and on the card the device ms of one forward's
-kernels whose symbol contains ``mish`` (ATen's Mish kernel, or any fused
-tail that keeps the name), by a profiler window
+kernels whose symbol contains ``mish`` (K8's ``bias_act_mish_kernel``, the
+bias add and Mish of a folded conv in one pass), by a profiler window
 (``ops/cuda/kernel_times.profile_window``).
 """
 
